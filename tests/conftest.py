@@ -21,6 +21,10 @@ def pytest_configure(config):
         "markers",
         "slow: extra-seed replicas of statistical tests; skipped unless "
         "--runslow (nightly) — tier-1 keeps one pinned seed per test")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card (the port's CUDA kernels); skips "
+        "where torch.cuda.is_available() is false")
 
 
 def pytest_collection_modifyitems(config, items):
