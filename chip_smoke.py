@@ -19,7 +19,20 @@ exits non-zero and prints no result. It imports nothing of JAX. Phases:
    that run alone; then profile one more round (device time by kernel,
    the device's busy share);
 4. run one round from the same state and the same injected draws on
-   the card and on the CPU (the plain versions there) and compare.
+   the card and on the CPU (the plain versions there) and compare;
+5. hold the flash_decode kernel against its plain version at the serve
+   path's shapes (q (4,32,1,64) against a bf16 cache stored
+   (4,S,8,64), S 1024 and 2048, per-row positions) and harder ones, and
+   time kernel, plain version and ``scaled_dot_product_attention``;
+6. drive the serve path: granite-3-2b as registered (40 layers, full
+   width, random weights from a seeded generator on the card) through
+   ``make_engine`` with the ``ladder_2`` buckets (4x1024, 4x2048) and
+   512-position prefill chunks, draining 24 requests of 32 new tokens,
+   with the flash_decode launch count read from that run alone; then
+   profile one decode tick;
+7. serve the same prompts on the card and on the CPU from the same
+   weights (granite's widths cut to 2 layers so that the CPU finishes in
+   time) and compare tokens and logits.
 
 Any failure raises. The line before the last is one JSON object
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -32,6 +45,7 @@ import statistics
 import subprocess
 import sys
 import time
+from dataclasses import replace
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -39,6 +53,17 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 non-tensor FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+
+# the serve path (phase 6): benchmarks/serve_bench.py's ladder_2 layout at
+# max_seq 2048 and its _workload (24 requests, prompts in [2, 2016), 32
+# new tokens, greedy, no eos, numpy seed 0)
+SERVE_ARCH = "granite-3-2b"
+SERVE_BUCKETS = ((4, 1024), (4, 2048))
+SERVE_MAX_SEQ = 2048
+SERVE_REQUESTS = 24
+SERVE_NEW_TOKENS = 32
+PREFILL_CHUNK = 512
+DECODE_LAUNCHES_PER_CALL = 1      # one wrapper call per layer per decode call
 
 ROUNDS = 3
 LOCAL_STEPS = 12
@@ -245,10 +270,23 @@ def _leaves(tree):
     return tree_leaves(tree)
 
 
+def device_busy_us(prof):
+    """(microseconds in which at least one kernel ran, the kernel spans)
+    of a ``torch.profiler`` trace."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    return busy_us, spans
+
+
 def profile_round(torch, tr) -> None:
     """One more round of the main path under ``torch.profiler``: device
     time by kernel and the device's busy share of the round's wall time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -257,13 +295,7 @@ def profile_round(torch, tr) -> None:
         tr.round()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    busy_us, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
+    busy_us, spans = device_busy_us(prof)
     log(f"[profile] round of {wall_ms:.1f} ms wall: {len(spans)} device events, device busy "
         f"{busy_us / 1e3:.1f} ms ({busy_us / 1e3 / wall_ms:.1%}), idle {1 - busy_us / 1e3 / wall_ms:.1%}")
     table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=25)
@@ -303,6 +335,299 @@ def card_vs_cpu(torch, tr, clients, local_steps: int, eps: float):
     diff = max((a.cpu() - b).abs().max().item()
                for a, b in zip(_leaves(new_card.params), _leaves(new_cpu.params)))
     return diff, m_card, m_cpu
+
+# ------------------------------------------------------------ phases 5-7
+
+
+def _decode_case(torch, dev, gen, B, H, KV, S, D, dtype, stored=True):
+    """q (B,H,1,D) and k, v (B,KV,S,D); ``stored`` gives k, v as the
+    serve cache keeps them, (B,S,KV,D), seen through a transposed view."""
+    q = torch.randn((B, H, 1, D), generator=gen, device=dev).to(dtype)
+    shape = (B, S, KV, D) if stored else (B, KV, S, D)
+    k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(2))
+    return (q, k.transpose(1, 2), v.transpose(1, 2)) if stored else (q, k, v)
+
+
+def check_flash_decode(torch, dev):
+    """K3 against its plain version. Tolerances are the reference's own
+    for its kernel against its oracle: 2e-5 in fp32, 2e-2 in bf16/fp16.
+    Returns the max abs error over the path's cases (bf16, per-row pos)."""
+    from repro_torch.kernels import flash_decode, ref
+    gen = torch.Generator(device=dev).manual_seed(3)
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = torch.randint(1, 1023, (2,), generator=gen, device=dev).tolist()
+
+    def vec(*p):
+        return torch.tensor(p, dtype=torch.int32, device=dev)
+
+    cases = [  # name, (B, H, KV, S, D), dtype, pos, window, stored
+        ("path S=1024", (4, 32, 8, 1024, 64), bf16, vec(0, 1023, *rows), 0, True),
+        ("path S=2048", (4, 32, 8, 2048, 64), bf16, vec(0, 2047, *[2 * r for r in rows]), 0,
+         True),
+        ("path S=2048 all full", (4, 32, 8, 2048, 64), bf16, vec(2047, 2047, 2047, 2047), 0,
+         True),
+        ("fp32 S=2048", (4, 32, 8, 2048, 64), f32, vec(0, 2047, *rows), 0, True),
+        ("scalar pos", (4, 32, 8, 2048, 64), bf16, 1234, 0, True),
+        ("window 256", (4, 32, 8, 2048, 64), bf16, vec(2047, 3, 700, 255), 256, True),
+        ("fp32 window 100", (4, 32, 8, 1024, 64), f32, vec(1023, 99, 500, 0), 100, True),
+        ("ragged S=1000", (4, 32, 8, 1000, 64), bf16, vec(999, 0, 640, 321), 0, True),
+        ("fp32 ragged S=1000", (4, 32, 8, 1000, 64), f32, 999, 0, True),
+        ("G=1", (2, 8, 8, 512, 64), f32, vec(511, 17), 0, False),
+        ("G=1 bf16", (2, 8, 8, 512, 64), bf16, vec(0, 300), 0, False),
+        ("fp16 D=128", (1, 8, 2, 1024, 128), torch.float16, 1023, 0, False),
+        ("D=32 G=2", (2, 4, 2, 96, 32), f32, vec(0, 37), 0, False),
+    ]
+    path_err = 0.0
+    for name, (B, H, KV, S, D), dtype, pos, window, stored in cases:
+        q, k, v = _decode_case(torch, dev, gen, B, H, KV, S, D, dtype, stored)
+        got = flash_decode.flash_decode(q, k, v, pos, window)
+        expect = ref.decode_attention(q, k, v, pos, window)
+        torch.cuda.synchronize()
+        tol = 2e-5 if dtype == f32 else 2e-2
+        torch.testing.assert_close(got.float(), expect.float(), rtol=tol, atol=tol,
+                                   msg=lambda m: f"flash_decode {name}: {m}")
+        err = (got.float() - expect.float()).abs().max().item()
+        if name.startswith("path"):
+            path_err = max(path_err, err)
+        log(f"[kernels] flash_decode {name}: max abs err {err:.3e} (tol {tol:g})")
+    log(f"[kernels] flash_decode: {len(cases)} cases agree with the plain version; "
+        f"max abs err on the path cases {path_err:.3e}")
+    return path_err
+
+
+def time_flash_decode(torch, dev):
+    """K3 at the larger serve bucket: q (4,32,1,64) against a bf16 cache
+    stored (4,2048,8,64), rows at 2047, 1535, 1023 and 511."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_decode, ref
+    gen = torch.Generator(device=dev).manual_seed(4)
+    B, H, KV, S, D = 4, 32, 8, 2048, 64
+    q, k, v = _decode_case(torch, dev, gen, B, H, KV, S, D, torch.bfloat16)
+    pos = torch.tensor([2047, 1535, 1023, 511], dtype=torch.int32, device=dev)
+    mask = torch.arange(S, device=dev)[None, None, None, :] <= pos[:, None, None, None]
+
+    def kernel():
+        flash_decode.flash_decode(q, k, v, pos)
+
+    def plain():
+        ref.decode_attention(q, k, v, pos)
+
+    def library():
+        F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+
+    lib_err = (F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True).float()
+               - ref.decode_attention(q, k, v, pos).float()).abs().max().item()
+    ms, plain_ms, lib_ms = (cuda_ms(torch, f, reps=200) for f in (kernel, plain, library))
+    log(f"[kernels] flash_decode device time alone (CUDA graph of one call): "
+        f"kernel {graph_ms(torch, kernel):.4f} ms, plain {graph_ms(torch, plain):.4f} ms, "
+        f"sdpa {graph_ms(torch, library):.4f} ms (sdpa vs plain max abs err {lib_err:.3e})")
+    es = q.element_size()
+    valid_cols = int((pos + 1).sum())
+    kv_bytes = valid_cols * KV * D * 2 * es           # the K and V columns the output reads
+    full_bytes = B * S * KV * D * 2 * es
+    n_bytes = kv_bytes + 2 * q.numel() * es + B * 4   # + q, the output and pos
+    # per valid column and query head: D multiply-adds for the score, D
+    # for the output, and the softmax's few operations
+    n_ops = valid_cols * H * (4 * D + 5)
+    b, by = bound_ms(n_bytes, n_ops)
+    log(f"[kernels] flash_decode bound: {n_bytes} bytes of valid K/V columns, q and output "
+        f"-> {b:.5f} ms ({by}); the whole cache is {full_bytes} bytes "
+        f"-> {full_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms")
+    return ms, plain_ms, lib_ms, b, by
+
+
+def _serve_workload(vocab: int):
+    """benchmarks/serve_bench.py's ``_workload(24, 2048, 32, vocab, 0)``."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    lens = rng.integers(2, SERVE_MAX_SEQ - SERVE_NEW_TOKENS, size=SERVE_REQUESTS)
+    return [rng.integers(0, vocab, size=int(n)) for n in lens]
+
+
+def _pct(xs, p):
+    import numpy as np
+    return float(np.percentile(np.asarray(xs, np.float64), p))
+
+
+def serve_path(torch, dev):
+    """Phase 6: granite-3-2b at full width through the engine. Returns
+    (flash_decode launches in the drain, the engine)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode
+    from repro_torch.models import build_model
+    from repro_torch.serve import BucketSpec, Request, make_engine
+
+    cfg = get_config(SERVE_ARCH)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    n_params = model.param_count(params)
+    eng = make_engine(model, params, buckets=tuple(BucketSpec(b, s) for b, s in SERVE_BUCKETS),
+                      prefill_chunk=PREFILL_CHUNK, device=dev)
+    del params                                   # the engine keeps its bf16 copy
+    torch.cuda.synchronize()
+    log(f"[serve] {cfg.arch_id}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, {n_params:,} params (fp32 init + bf16 copy) "
+        f"in {time.perf_counter() - t0:.2f} s; buckets {SERVE_BUCKETS}, prefill chunk "
+        f"{PREFILL_CHUNK}")
+
+    prefill_s, decode_s = [], []
+    prefill_fn, decode_fn = eng._prefill, eng._decode
+
+    def timed_prefill(*a):
+        before = flash_decode.flash_decode.launches
+        t = time.perf_counter()
+        out = prefill_fn(*a)                     # ends in a device-to-host copy
+        prefill_s.append(time.perf_counter() - t)
+        assert flash_decode.flash_decode.launches == before, "prefill launched flash_decode"
+        return out
+
+    def timed_decode(*a):
+        t = time.perf_counter()
+        out = decode_fn(*a)
+        decode_s.append(time.perf_counter() - t)
+        return out
+
+    eng._prefill, eng._decode = timed_prefill, timed_decode
+    # warm-up (cuBLAS set-up, first launches): one request in each bucket
+    for rid, n in ((-1, 8), (-2, 1000)):
+        eng.submit(Request(rid=rid, prompt=np.arange(n, dtype=np.int32) % cfg.vocab_size,
+                           max_new_tokens=2))
+    eng.run_until_drained()
+    eng.n_prefill_calls = eng.n_decode_calls = 0
+    prefill_s.clear()
+    decode_s.clear()
+
+    prompts = _serve_workload(cfg.vocab_size)
+    flash_decode.flash_decode.launches = 0
+    t0 = time.perf_counter()
+    for rid, p in enumerate(prompts):
+        eng.submit(Request(rid=rid, prompt=np.asarray(p, np.int32),
+                           max_new_tokens=SERVE_NEW_TOKENS))
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash_decode.flash_decode.launches
+
+    res = [eng.results[i] for i in range(SERVE_REQUESTS)]
+    for r in res:
+        assert len(r.tokens) == SERVE_NEW_TOKENS, f"request {r.rid}: {len(r.tokens)} tokens"
+        assert all(0 <= t < cfg.padded_vocab for t in r.tokens), f"request {r.rid}: bad token"
+    want = cfg.n_layers * eng.n_decode_calls * DECODE_LAUNCHES_PER_CALL
+    log(f"[serve] drained {SERVE_REQUESTS} requests ({sum(len(p) for p in prompts)} prompt "
+        f"tokens, buckets {[r.bucket for r in res]}) in {wall:.3f} s: "
+        f"{eng.n_prefill_calls} prefill calls, {eng.n_decode_calls} decode calls; flash_decode "
+        f"launches {launches}, expected {cfg.n_layers} x {eng.n_decode_calls} x "
+        f"{DECODE_LAUNCHES_PER_CALL} = {want}")
+    assert launches == want and launches > 0, f"flash_decode launches {launches} != {want}"
+    n_tok = sum(len(r.tokens) for r in res)
+    ttft = [r.ttft for r in res]
+    lat = [r.latency for r in res]
+    log(f"[serve] generated {n_tok} tokens: {n_tok / wall:.2f} tok/s; "
+        f"TTFT p50 {_pct(ttft, 50) * 1e3:.1f} ms, p95 {_pct(ttft, 95) * 1e3:.1f} ms; "
+        f"latency p50 {_pct(lat, 50) * 1e3:.1f} ms, p95 {_pct(lat, 95) * 1e3:.1f} ms; "
+        f"mean {statistics.mean(decode_s) * 1e3:.2f} ms per decode call, "
+        f"{statistics.mean(prefill_s) * 1e3:.2f} ms per prefill call; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    log(f"[serve] sample tokens of request 0: {res[0].tokens[:12]}")
+    profile_decode_tick(torch, eng)
+    return launches, eng
+
+
+def profile_decode_tick(torch, eng) -> None:
+    """One engine tick in which both buckets decode and none prefills,
+    under ``torch.profiler``: device busy share, top device ops, K3's
+    share of the device time."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import Request
+    for rid, n in enumerate((100, 200, 300, 400, 1100, 1200, 1300, 1400)):
+        eng.submit(Request(rid=1000 + rid, max_new_tokens=8,
+                           prompt=np.arange(n, dtype=np.int32) % eng.cfg.vocab_size))
+    eng.step()                                   # admissions: prefill and one decode
+    assert not eng.scheduler.queue and all(bs.active.all() for bs in eng.state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_us, spans = device_busy_us(prof)
+    k3_us = sum(e.self_device_time_total for e in prof.key_averages()
+                if "flash_decode_" in e.key)
+    n_ops = sum(1 for e in prof.events()
+                if e.key.startswith("aten::") and e.cpu_parent is None)
+    log(f"[profile] decode tick (2 decode calls, 4 slots each) of {wall_ms:.1f} ms wall: "
+        f"{len(spans)} device events, device busy {busy_us / 1e3:.3f} ms "
+        f"({busy_us / 1e3 / wall_ms:.1%}), idle {1 - busy_us / 1e3 / wall_ms:.1%}; flash_decode "
+        f"{k3_us / 1e3:.3f} ms ({k3_us / max(busy_us, 1e-9):.1%} of the busy time); "
+        f"{n_ops} top-level PyTorch ops called from Python")
+    # the host's cost of one eager op on this machine, unprofiled: 2,000
+    # in-place adds on a one-element tensor between synchronisations
+    x = torch.zeros(1, device=eng.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2000):
+        x.add_(1)
+    torch.cuda.synchronize()
+    log(f"[profile] host cost of one eager op here: {(time.perf_counter() - t0) / 2000 * 1e6:.1f} "
+        f"us (2,000 x.add_(1) on a one-element CUDA tensor)")
+    table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=15)
+    for line in table.splitlines():
+        log(f"[profile] {line}")
+    eng.run_until_drained()
+
+
+def card_vs_cpu_serve(torch, dev, dtype: str):
+    """Phase 7: the same prompts served on the card and on the CPU from
+    the same weights, granite's widths cut to 2 layers so that the CPU
+    finishes in time. Returns (tokens equal, max |logit diff| over a
+    prefill and 8 decode steps fed the same tokens, max |logit|)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import BucketSpec, generate
+    from repro_torch.utils.tree import tree_map
+
+    cfg = replace(get_config(SERVE_ARCH), n_layers=2, dtype=dtype)
+    model = build_model(cfg)
+    params_cpu = model.init(torch.Generator().manual_seed(0))
+    params_card = tree_map(lambda t: t.to(dev), params_cpu)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (5, 23)]
+    kw = dict(max_new_tokens=8, buckets=(BucketSpec(2, 64),))
+    toks_card = [r.tokens for r in generate(model, params_card, prompts, device=dev, **kw)]
+    toks_cpu = [r.tokens for r in generate(model, params_cpu, prompts, device="cpu", **kw)]
+
+    from repro_torch.serve.engine import serving_params
+    padded = np.zeros((2, 64), np.int32)
+    for i, p in enumerate(prompts):
+        padded[i, :len(p)] = p
+    logits = {}
+    with torch.no_grad():
+        for name, params, d in (("card", params_card, dev), ("cpu", params_cpu, "cpu")):
+            sp = serving_params(params, getattr(torch, dtype))
+            cache = model.init_cache(2, 64, d)
+            out, cache = model.prefill(sp, torch.as_tensor(padded, device=d), cache, 0)
+            steps = [out.float().cpu()]
+            pos = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device=d)
+            for i in range(8):
+                tok = torch.tensor([[t[i]] for t in toks_cpu], device=d)
+                out, cache = model.decode_step(sp, tok, cache, pos + i)
+                steps.append(out.float().cpu())
+            logits[name] = steps
+    diff = max((a - b).abs().max().item() for a, b in zip(logits["card"], logits["cpu"]))
+    scale = max(b.abs().max().item() for b in logits["cpu"])
+    log(f"[card-vs-cpu serve] {cfg.arch_id} widths, 2 layers, {dtype}: tokens card "
+        f"{toks_card} / cpu {toks_cpu}; max |logit diff| {diff:.3e} over a prefill and 8 decode "
+        f"steps (max |logit| {scale:.3f})")
+    return toks_card == toks_cpu, diff, scale
 
 
 def main() -> int:
@@ -379,6 +704,29 @@ def main() -> int:
     log(f"[card-vs-cpu] main-path config (12 local steps, adam eps 1e-8), not asserted: "
         f"max |param diff| {diff12:.3e}")
 
+    # --- phase 5: flash_decode against its plain version, at the serve shapes
+    k3_err = check_flash_decode(torch, dev)
+    k3 = time_flash_decode(torch, dev)
+    log(f"[kernels] flash_decode (4,32,1,64) vs a (4,2048,8,64) bf16 cache: kernel "
+        f"{k3[0]:.4f} ms, plain {k3[1]:.4f} ms, sdpa {k3[2]:.4f} ms, bound {k3[3]:.5f} ms "
+        f"({k3[4]})")
+
+    # --- phase 6: the serve path at full width, launch counts from the drain alone
+    k3_launches, _ = serve_path(torch, dev)
+    torch.cuda.empty_cache()
+
+    # --- phase 7: the same serve on the card and on the CPU
+    same, diff, _ = card_vs_cpu_serve(torch, dev, "float32")
+    assert same, "card and CPU generate different tokens in fp32"
+    # 1e-3: logits are O(1) here; fp32 sums of 2,048-8,192 products taken
+    # in other orders (cuBLAS vs the CPU's BLAS, the kernel's split softmax
+    # vs one pass) differ by ~1e-6 relative, and a wrong mask, position or
+    # layout moves logits by O(0.1)
+    assert diff <= 1e-3, f"card and CPU logits differ by {diff}"
+    same16, diff16, _ = card_vs_cpu_serve(torch, dev, "bfloat16")
+    log(f"[card-vs-cpu serve] bf16, not asserted: tokens equal {same16}, "
+        f"max |logit diff| {diff16:.3e}")
+
     kernels = [
         {"name": "param_stats_batched", "route": "cuda",
          "source": "src/repro_torch/csrc/param_stats.cu",
@@ -392,6 +740,12 @@ def main() -> int:
          "launches": launches["kmeans_assign"], "max_abs_err": k2_err,
          "ms": k2[0], "plain_ms": k2[1], "bound_ms": k2[3], "bound_by": k2[4],
          "library_ms": k2[2]},
+        {"name": "flash_decode", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_decode.cu",
+         "replaces": "src/repro/kernels/flash_decode.py:93",
+         "launches": k3_launches, "max_abs_err": k3_err,
+         "ms": k3[0], "plain_ms": k3[1], "bound_ms": k3[3], "bound_by": k3[4],
+         "library_ms": k3[2]},
     ]
     log(f"[done] {time.perf_counter() - t_all:.1f} s in all; "
         f"round seconds {round_s}")

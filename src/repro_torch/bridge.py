@@ -1,9 +1,11 @@
 """Weights and state carried between the reference package and the port.
 
-The reference hands its trees across as nested dicts of numpy arrays
-(``jax.tree.map(np.asarray, params)``). The port keeps the reference's
-key names and layouts (HWIO conv weights included), so a round trip is
-the identity and the per-tensor statistics columns line up.
+The reference hands its trees across as nested dicts and lists of
+numpy arrays (``jax.tree.map(np.asarray, params)``). The port keeps the
+reference's key names and layouts (HWIO conv weights, the LM's stacked
+``(L, ...)`` layers and its ``(B, S, KV, hd)`` KV cache included), so a
+round trip is the identity and the per-tensor statistics columns line
+up.
 """
 from __future__ import annotations
 
@@ -39,10 +41,12 @@ def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def tree_from_numpy(tree, device="cpu"):
-    """Nested dict of numpy arrays -> the same dict of tensors on
-    ``device``, dtype kept."""
+    """Nested dicts and lists of numpy arrays -> the same tree of tensors
+    on ``device``, dtype kept."""
     if isinstance(tree, dict):
         return {k: tree_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_from_numpy(v, device) for v in tree]
     return _leaf_from_numpy(tree, device)
 
 
@@ -50,15 +54,20 @@ def tree_to_numpy(tree):
     """Inverse of :func:`tree_from_numpy`."""
     if isinstance(tree, dict):
         return {k: tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to_numpy(v) for v in tree]
     return _leaf_to_numpy(tree)
 
 
-# model parameters and optimizer state (adam's {"step", "m", "v"}) are
-# both nested dicts of arrays; the names say which tree a caller moves
+# model parameters, optimizer state (adam's {"step", "m", "v"}) and the
+# LM's KV cache are all nested dicts and lists of arrays; the names say
+# which tree a caller moves
 params_from_numpy = tree_from_numpy
 params_to_numpy = tree_to_numpy
 opt_state_from_numpy = tree_from_numpy
 opt_state_to_numpy = tree_to_numpy
+cache_from_numpy = tree_from_numpy
+cache_to_numpy = tree_to_numpy
 
 
 def state_from_numpy(state, device="cpu", *, seed: int = 0):

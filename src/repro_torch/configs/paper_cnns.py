@@ -8,6 +8,7 @@ _COMMON = dict(
     n_layers=0, d_model=0,
     vocab_size=5,                    # 5 DR severity grades
     dtype="float32", param_dtype="float32",
+    scan_layers=False,
 )
 
 

@@ -10,6 +10,7 @@ back to the plain versions.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -18,7 +19,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-KERNELS = ("param_stats", "kmeans_assign")
+KERNELS = ("param_stats", "kmeans_assign", "flash_decode")
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -76,6 +77,13 @@ def build(names=KERNELS) -> dict:
     if failed:
         raise RuntimeError("\n".join(failed))
     return logs
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of a card, read once per device."""
+    import torch
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def load(name: str) -> ctypes.CDLL:

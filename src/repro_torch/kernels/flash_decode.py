@@ -1,0 +1,109 @@
+"""flash_decode on the card: one-query GQA attention against a KV cache,
+the serve path's decode hot spot.
+
+Wraps ``csrc/flash_decode.cu``, the port of the Pallas kernel
+``repro/kernels/flash_decode.py`` (``flash_decode``). The source note
+there says what bounds it and how the split and merge passes are laid
+out. Its plain version is :func:`repro_torch.kernels.ref.decode_attention`.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+HEAD_DIMS = (32, 64, 128, 256)
+MAX_GROUP = 32                        # query rows a CTA holds, one warp each
+MAX_GROUP_ELEMS = 2048                # G * D floats of q in shared memory
+TILE_ELEMS = 4096                     # keys x D of one shared-memory tile
+_CTAS_PER_SM = 2
+
+
+def _lib():
+    lib = _build.load("flash_decode")
+    fn = lib.flash_decode_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+                       + [ctypes.c_longlong] * 8 + [ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def split_plan(B: int, KV: int, S: int, D: int, n_sms: int):
+    """(chunk, n_split): the cache's S columns cut into ``n_split``
+    ranges of ``chunk`` columns (a multiple of the tile), enough to give
+    the card ``_CTAS_PER_SM`` CTAs an SM across the B*KV (row, kv head)
+    pairs, never more ranges than tiles."""
+    tile = TILE_ELEMS // D
+    n_tiles = math.ceil(S / tile)
+    want = max(1, math.ceil(_CTAS_PER_SM * n_sms / (B * KV)))
+    chunk = math.ceil(n_tiles / min(want, n_tiles)) * tile
+    return chunk, math.ceil(S / chunk)
+
+
+def _aligned16(t: torch.Tensor) -> bool:
+    es = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(s * es % 16 == 0 for s in t.stride()[:3])
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos,
+                 window: int = 0) -> torch.Tensor:
+    """q (B,H,1,D), k and v (B,KV,S,D), all fp32, bf16 or fp16 of one
+    type on one CUDA device; k and v may be strided views (the serve
+    cache's (B,S,KV,D) seen as (B,KV,S,D)) but D must be unit-stride.
+    ``pos`` is an int or a () / (B,) integer tensor; ``window >= 0``.
+    Returns (B,H,1,D) in q's type. One count per call: the split pass
+    and the merge pass are its two CUDA launches."""
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(f"flash_decode kernel needs q, k, v on one CUDA device, got "
+                         f"{q.device}, {k.device}, {v.device}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_decode takes q, k, v of one type among float32, bfloat16 "
+                        f"and float16, got {q.dtype}, {k.dtype}, {v.dtype} (an fp8 cache "
+                        f"is not supported yet)")
+    if q.dim() != 4 or q.shape[2] != 1 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_decode wants q (B,H,1,D) and k, v (B,KV,S,D), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, _, D = q.shape
+    KV, S = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != D or KV < 1 or H % KV or S < 1:
+        raise ValueError(f"flash_decode: q {tuple(q.shape)} does not fit k, v "
+                         f"{tuple(k.shape)} (H % KV == 0, S >= 1)")
+    G = H // KV
+    if D not in HEAD_DIMS or G > MAX_GROUP or G * D > MAX_GROUP_ELEMS:
+        raise ValueError(f"flash_decode takes D in {HEAD_DIMS}, H/KV <= {MAX_GROUP} and "
+                         f"H/KV*D <= {MAX_GROUP_ELEMS}; got D={D}, H/KV={G}")
+    if k.stride(3) != 1 or v.stride(3) != 1:
+        raise ValueError("flash_decode reads k and v with a unit stride on D")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    if q.stride(3) != 1:
+        q = q.contiguous()
+    if isinstance(pos, torch.Tensor):
+        if pos.numel() not in (1, B):
+            raise ValueError(f"pos must be a scalar or (B,)={B} positions, got {tuple(pos.shape)}")
+        pos_t = pos.to(device=q.device, dtype=torch.int32).reshape(-1).expand(B).contiguous()
+    else:
+        pos_t = torch.full((B,), int(pos), dtype=torch.int32, device=q.device)
+    out = torch.empty((B, H, 1, D), dtype=q.dtype, device=q.device)
+    chunk, n_split = split_plan(B, KV, S, D, _build.sm_count(q.device.index))
+    part = torch.empty((B * H * n_split * (D + 2),), dtype=torch.float32, device=q.device)
+    vec = int(_aligned16(k) and _aligned16(v))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_t.data_ptr(),
+                     out.data_ptr(), part.data_ptr(), _DTYPES[q.dtype], B, H, KV, S, D,
+                     window, chunk, n_split, q.stride(0), q.stride(1), k.stride(0),
+                     k.stride(1), k.stride(2), v.stride(0), v.stride(1), v.stride(2), vec,
+                     stream)
+    if err != 0:
+        raise RuntimeError(f"flash_decode launch failed: CUDA error {err}")
+    flash_decode.launches += 1
+    return out
+
+
+flash_decode.launches = 0

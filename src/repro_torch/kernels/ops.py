@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_decode as _decode
 from repro_torch.kernels import kmeans_assign as _assign
 from repro_torch.kernels import param_stats as _stats
 from repro_torch.kernels import ref
@@ -26,3 +27,12 @@ def kmeans_assign(X: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     if X.device.type == "cpu":
         return ref.kmeans_assign(X, C)
     return _assign.kmeans_assign(X, C)
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos,
+                 window: int = 0) -> torch.Tensor:
+    """One-query GQA attention of q (B,H,1,D) against k, v (B,KV,S,D):
+    keys 0..pos valid per row, optional sliding window."""
+    if q.device.type == "cpu":
+        return ref.decode_attention(q, k, v, pos, window)
+    return _decode.flash_decode(q, k, v, pos, window)

@@ -9,7 +9,6 @@ Its plain version is :func:`repro_torch.kernels.ref.param_stats_batched`.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
@@ -30,11 +29,6 @@ def _lib():
                        ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 6
         fn.restype = ctypes.c_int
     return fn
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def n_slices(N: int, n: int, n_sms: int) -> int:
@@ -65,7 +59,7 @@ def param_stats_batched(x: torch.Tensor):
     if N == 0:
         return out[0], out[1]
     with torch.cuda.device(x.device):
-        S = n_slices(N, n, _sm_count(x.device.index))
+        S = n_slices(N, n, _build.sm_count(x.device.index))
         # pass-1 partials in one buffer: (N, S) int64 counts, then
         # (N, S) fp32 means, then (N, S) fp32 M2
         scratch = torch.empty((N * S * 16,), dtype=torch.uint8, device=x.device)

@@ -31,3 +31,27 @@ def kmeans_assign(X: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     c2 = torch.sum(C * C, dim=1)[None, :]
     d = x2 + c2 - 2.0 * X @ C.T
     return torch.argmin(d, dim=1).to(torch.int32)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos,
+                     window: int = 0) -> torch.Tensor:
+    """One-query GQA attention against a KV cache: q (B,H,1,D), k,v
+    (B,KV,S,D) with H % KV == 0, query head h reading kv head h // G.
+    ``pos`` is a scalar or a (B,) vector: keys 0..pos are valid in each
+    row, and ``window > 0`` keeps only ``cols > pos - window``. fp32
+    softmax scaled by 1/sqrt(D), masked scores at -1e30, the output in
+    q's dtype."""
+    B, H, _, D = q.shape
+    KV, S = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, KV, G, D).float()
+    s = torch.einsum("bkgd,bktd->bkgt", qg, k.float()) / math.sqrt(D)
+    cols = torch.arange(S, device=q.device)[None, :]
+    posb = torch.as_tensor(pos, device=q.device).reshape(-1).expand(B)[:, None]
+    mask = cols <= posb                                        # (B, S)
+    if window > 0:
+        mask = mask & (cols > posb - window)
+    s = torch.where(mask[:, None, None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgt,bktd->bkgd", p, v.float())
+    return o.reshape(B, H, 1, D).to(q.dtype)

@@ -1,20 +1,22 @@
 """Unified model interface (counterpart of ``repro.models.model``).
 
 ``build_model(cfg)`` returns a :class:`Model` whose members are plain
-functions over parameter dicts, so the swarm layer can vmap them over
-a client-stacked tree with ``torch.func``. Only the CNN family is
-ported.
+functions over parameter trees, so the swarm layer can vmap them over
+a client-stacked tree with ``torch.func``. The CNN family and the
+dense decoder-only LM (with its KV cache, decode step and chunked
+prefill) are ported; the other families raise.
 """
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import cnn as cnn_lib
+from repro_torch.models import transformer as tf_lib
 from repro_torch.utils.tree import tree_leaves
 
 
@@ -42,24 +44,49 @@ class Model:
     init: Callable[[torch.Generator], Any]        # generator -> params
     forward: Callable[[Any, dict], tuple]         # (params, batch) -> (logits, aux)
     loss: Callable[[Any, dict], tuple]            # (params, batch) -> (loss, metrics)
+    init_cache: Optional[Callable] = None         # (batch, max_seq, device) -> cache
+    decode_step: Optional[Callable] = None        # (params, tok, cache, pos) -> (logits, cache)
+    prefill: Optional[Callable] = None            # (params, toks, cache, pos0) -> (logits, cache)
 
     def param_count(self, params) -> int:
         return sum(x.numel() for x in tree_leaves(params))
 
 
+def _lm_loss(fwd):
+    def loss(params, batch):
+        logits, aux = fwd(params, batch)
+        ce = cross_entropy(logits, batch["labels"])
+        total = ce + aux
+        return total, {"loss": total, "ce": ce, "aux": aux,
+                       "acc": accuracy(logits, batch["labels"])}
+    return loss
+
+
 @functools.cache
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family != "cnn":
-        raise NotImplementedError(
-            f"{cfg.arch_id}: only the cnn family is ported (got {cfg.family!r})")
+    if cfg.family == "cnn":
+        def fwd(params, batch):
+            logits = cnn_lib.apply_cnn(params, batch["images"], cfg)
+            return logits, torch.zeros((), device=logits.device)
 
-    def fwd(params, batch):
-        logits = cnn_lib.apply_cnn(params, batch["images"], cfg)
-        return logits, torch.zeros((), device=logits.device)
+        def loss(params, batch):
+            logits, _ = fwd(params, batch)
+            ce = cross_entropy(logits, batch["labels"])
+            return ce, {"loss": ce, "ce": ce, "acc": accuracy(logits, batch["labels"])}
 
-    def loss(params, batch):
-        logits, _ = fwd(params, batch)
-        ce = cross_entropy(logits, batch["labels"])
-        return ce, {"loss": ce, "ce": ce, "acc": accuracy(logits, batch["labels"])}
+        return Model(cfg, lambda gen: cnn_lib.init_cnn(gen, cfg), fwd, loss)
 
-    return Model(cfg, lambda gen: cnn_lib.init_cnn(gen, cfg), fwd, loss)
+    tf_lib.check_family(cfg)
+
+    def lm_fwd(params, batch):
+        return tf_lib.lm_forward(params, batch, cfg)
+
+    return Model(
+        cfg,
+        lambda gen: tf_lib.init_lm(gen, cfg),
+        lm_fwd,
+        _lm_loss(lm_fwd),
+        init_cache=lambda b, s, device: tf_lib.init_lm_cache(cfg, b, s, device),
+        decode_step=lambda p, t, c, pos: tf_lib.lm_decode_step(p, t, c, pos, cfg),
+        prefill=lambda p, t, c, pos0: tf_lib.lm_prefill(p, t, c, pos0, cfg),
+    )

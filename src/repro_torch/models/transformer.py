@@ -1,0 +1,233 @@
+"""Decoder-only LM assembly, dense family (counterpart of
+``repro.models.transformer``).
+
+``dense`` is ``[attn + MLP] x L`` (granite). Parameters come in the
+reference's two layouts: ``"blocks"``, a list of per-layer dicts, or,
+under ``cfg.scan_layers``, ``"layers": {"prefix": [...], "period0":
+<leaves stacked on a leading L axis>}`` with the cache as
+``{"prefix": [...], "body": {"period0": {"k", "v": (L,B,S,KV,hd)}}}``.
+The port keeps the stacked tensors and loops over the layer index in
+Python (per-layer views, so in-place cache writes land in the stacked
+cache), so the bridge stays the identity.
+
+The other families (moe, ssm, hybrid, vlm, encdec) are not ported yet
+and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn_lib
+from repro_torch.models.layers import (
+    apply_embedding,
+    apply_mlp,
+    apply_norm,
+    dense_init,
+    dtype_of,
+    init_embedding,
+    init_mlp,
+    init_norm,
+    logits_from_embedding,
+)
+from repro_torch.utils.tree import tree_map
+
+PORTED_FAMILIES = ("dense",)
+
+
+def check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: the {cfg.family!r} family is not ported yet (ROADMAP A12); "
+            f"the port runs {PORTED_FAMILIES} and the cnn family")
+
+
+def layer_kinds(cfg: ModelConfig):
+    """Per-layer block kind list."""
+    kinds = []
+    for i in range(cfg.n_layers):
+        if cfg.family in ("ssm", "hybrid"):
+            kinds.append("ssm")
+        elif cfg.family == "moe":
+            if i < cfg.n_dense_layers or (cfg.moe_every > 1 and i % cfg.moe_every == 0):
+                kinds.append("dense")
+            else:
+                kinds.append("moe")
+        else:
+            kinds.append("dense")
+    return kinds
+
+
+# ---------------------------------------------------------------------------
+# single block
+
+
+def _check_kind(kind: str) -> None:
+    if kind != "dense":
+        raise NotImplementedError(f"{kind!r} blocks are not ported yet (ROADMAP A12)")
+
+
+def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, lead=()):
+    _check_kind(kind)
+    return {"attn_norm": init_norm(gen, cfg, cfg.d_model, lead),
+            "attn": attn_lib.init_attention(gen, cfg, lead=lead),
+            "mlp_norm": init_norm(gen, cfg, cfg.d_model, lead),
+            "mlp": init_mlp(gen, cfg, lead)}
+
+
+def block_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int, device, lead=()):
+    _check_kind(kind)
+    return attn_lib.init_kv_cache(cfg, batch, max_seq, device, lead)
+
+
+def apply_block(p, x, cfg: ModelConfig, kind: str, *, positions=None, cache=None, pos=None,
+                sliding_window=0):
+    """Returns (x, cache, aux_loss); the cache is written in place."""
+    _check_kind(kind)
+    h = apply_norm(p["attn_norm"], x, cfg)
+    if cache is None:
+        a = attn_lib.attend_full(p["attn"], h, cfg, positions=positions, causal=True,
+                                 sliding_window=sliding_window)
+    else:
+        a, cache = attn_lib.attend_decode(p["attn"], h, cache, pos, cfg,
+                                          sliding_window=sliding_window)
+    x = x + a
+    h = apply_norm(p["mlp_norm"], x, cfg)
+    return x + apply_mlp(p["mlp"], h, cfg), cache, torch.zeros((), device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# layer plan
+
+
+def _scannable(cfg: ModelConfig) -> bool:
+    return cfg.family in ("dense", "moe", "vlm")
+
+
+def _scan_plan(cfg: ModelConfig):
+    """(prefix_kinds, period_kinds, n_periods): leading unscanned layers
+    and a repeating stacked period."""
+    kinds = layer_kinds(cfg)
+    prefix = kinds[: cfg.n_dense_layers]
+    body = kinds[cfg.n_dense_layers:]
+    period = max(cfg.moe_every, 1) if cfg.family == "moe" else 1
+    if len(body) % period:
+        extra = len(body) % period
+        prefix = prefix + body[:extra]
+        body = body[extra:]
+    return prefix, body[:period], len(body) // period
+
+
+def _each_layer(params, caches, cfg: ModelConfig):
+    """(kind, layer params, layer cache or None) for every layer in
+    order. Stacked leaves are indexed per layer: views, so writes into a
+    layer's cache land in the stacked cache."""
+    kinds = layer_kinds(cfg)
+    if "blocks" in params:
+        for i, p in enumerate(params["blocks"]):
+            yield kinds[i], p, None if caches is None else caches[i]
+        return
+    lp = params["layers"]
+    prefix, period_kinds, n_periods = _scan_plan(cfg)
+    for i, p in enumerate(lp["prefix"]):
+        yield prefix[i], p, None if caches is None else caches["prefix"][i]
+    for layer in range(n_periods):
+        for j, kind in enumerate(period_kinds):
+            name = f"period{j}"
+            cache = None if caches is None else tree_map(lambda t: t[layer], caches["body"][name])
+            yield kind, tree_map(lambda t: t[layer], lp[name]), cache
+
+
+# ---------------------------------------------------------------------------
+# decoder-only LM
+
+
+def init_lm(gen: torch.Generator, cfg: ModelConfig):
+    check_family(cfg)
+    kinds = layer_kinds(cfg)
+    params: Dict[str, Any] = {
+        "embedding": init_embedding(gen, cfg.padded_vocab, cfg.d_model, cfg),
+        "final_norm": init_norm(gen, cfg, cfg.d_model),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = {"w": dense_init(gen, (cfg.d_model, cfg.padded_vocab),
+                                             dtype=dtype_of(cfg.param_dtype))}
+    if cfg.scan_layers and _scannable(cfg):
+        prefix, period_kinds, n_periods = _scan_plan(cfg)
+        layers: Dict[str, Any] = {"prefix": [init_block(gen, cfg, k) for k in prefix]}
+        for j, kind in enumerate(period_kinds):
+            layers[f"period{j}"] = init_block(gen, cfg, kind, lead=(n_periods,))
+        params["layers"] = layers
+    else:
+        params["blocks"] = [init_block(gen, cfg, kinds[i]) for i in range(cfg.n_layers)]
+    return params
+
+
+def init_lm_cache(cfg: ModelConfig, batch: int, max_seq: int, device):
+    check_family(cfg)
+    if cfg.scan_layers and _scannable(cfg):
+        prefix, period_kinds, n_periods = _scan_plan(cfg)
+        return {"prefix": [block_cache(cfg, k, batch, max_seq, device) for k in prefix],
+                "body": {f"period{j}": block_cache(cfg, kind, batch, max_seq, device,
+                                                   lead=(n_periods,))
+                         for j, kind in enumerate(period_kinds)}}
+    return [block_cache(cfg, k, batch, max_seq, device) for k in layer_kinds(cfg)]
+
+
+def _readout(params, x, cfg: ModelConfig):
+    x = apply_norm(params["final_norm"], x, cfg)
+    if cfg.tie_embeddings:
+        return logits_from_embedding(params["embedding"], x)
+    return x @ params["lm_head"]["w"].to(x.dtype)
+
+
+def lm_forward(params, batch, cfg: ModelConfig):
+    """Train/prefill forward. batch: {"tokens": (B,S)}. Returns (logits, aux)."""
+    check_family(cfg)
+    x = apply_embedding(params["embedding"], batch["tokens"], cfg)
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    aux_total = torch.zeros((), device=x.device)
+    for kind, p, _ in _each_layer(params, None, cfg):
+        x, _, aux = apply_block(p, x, cfg, kind, positions=positions,
+                                sliding_window=cfg.sliding_window)
+        aux_total = aux_total + aux
+    return _readout(params, x, cfg), aux_total
+
+
+def lm_decode_step(params, tokens, caches, pos, cfg: ModelConfig):
+    """tokens (B,1) int; pos a scalar or (B,) per-row positions.
+    Returns (logits (B,1,V), caches), the caches written in place."""
+    x = apply_embedding(params["embedding"], tokens, cfg)
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+    for kind, p, cache in _each_layer(params, caches, cfg):
+        x, _, _ = apply_block(p, x, cfg, kind, cache=cache, pos=pos,
+                              sliding_window=cfg.sliding_window)
+    return _readout(params, x, cfg), caches
+
+
+# ---------------------------------------------------------------------------
+# chunked prefill (serving): one forward with KV-cache writeback
+
+
+def _prefill_block(p, x, cache, pos0: int, cfg: ModelConfig, kind: str):
+    _check_kind(kind)
+    h = apply_norm(p["attn_norm"], x, cfg)
+    a, cache = attn_lib.attend_prefill(p["attn"], h, cache, pos0, cfg,
+                                       sliding_window=cfg.sliding_window)
+    x = x + a
+    h = apply_norm(p["mlp_norm"], x, cfg)
+    return x + apply_mlp(p["mlp"], h, cfg), cache
+
+
+def lm_prefill(params, tokens, caches, pos0: int, cfg: ModelConfig):
+    """tokens (B,C) at positions ``pos0 .. pos0+C-1``: one forward through
+    the stack writing each layer's k, v into the cache (in place).
+    Returns (logits (B,C,V), caches); the caller picks the row of each
+    request's last real prompt token."""
+    x = apply_embedding(params["embedding"], tokens, cfg)
+    for kind, p, cache in _each_layer(params, caches, cfg):
+        x, _ = _prefill_block(p, x, cache, pos0, cfg, kind)
+    return _readout(params, x, cfg), caches

@@ -1,0 +1,74 @@
+"""One-call servers over the engine (counterpart of ``repro.serve.api``).
+
+``reduce_clients`` collapses a swarm's client-stacked parameters to the
+single served model. The reference's ``load_checkpoint`` needs the
+checkpoint format, which is not ported yet (ROADMAP A13).
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.models.model import Model
+from repro_torch.serve.engine import ClassifyResult, ImageClassifier, ServeEngine, ServeResult
+from repro_torch.serve.scheduler import BucketSpec, Request, default_bucket_layout
+from repro_torch.utils.tree import tree_map
+
+
+def reduce_clients(sparams, weights, client: str = "mean"):
+    """Collapse the leading client axis: ``"mean"`` is Eq. 2 with one
+    global cluster (the weights normalised, the sum in fp32, cast back);
+    ``"client:i"`` serves client ``i``'s model verbatim."""
+    if client == "mean":
+        def mean(x):
+            w = torch.as_tensor(weights, dtype=torch.float32, device=x.device)
+            w = w / torch.clamp(w.sum(), min=1e-9)
+            wb = w.reshape((-1,) + (1,) * (x.dim() - 1))
+            return (x.float() * wb).sum(0).to(x.dtype)
+        return tree_map(mean, sparams)
+    if client.startswith("client:"):
+        i = int(client.split(":", 1)[1])
+        return tree_map(lambda x: x[i], sparams)
+    raise ValueError(f"unknown reduction '{client}' (want 'mean' or 'client:<i>')")
+
+
+def make_engine(model: Model, params, *, max_seq: int = 0,
+                buckets: Optional[Sequence[BucketSpec]] = None, slots: int = 8,
+                n_buckets: int = 2, prefill_chunk: int = 0, device=None) -> ServeEngine:
+    """A :class:`ServeEngine` with an explicit bucket layout or the
+    default pow2 ladder up to ``max_seq``; on ``cuda`` unless ``device``
+    is given."""
+    if buckets is None:
+        if max_seq <= 0:
+            raise ValueError("need max_seq (or explicit buckets)")
+        buckets = default_bucket_layout(max_seq, slots=slots, n_buckets=n_buckets)
+    return ServeEngine(model, params, buckets, prefill_chunk=prefill_chunk, device=device)
+
+
+def generate(model: Model, params, prompts: Sequence[np.ndarray], max_new_tokens: int = 16, *,
+             eos_id: int = -1, max_seq: int = 0, buckets=None, slots: int = 8,
+             n_buckets: int = 2, prefill_chunk: int = 0, return_engine: bool = False,
+             device=None) -> List[ServeResult]:
+    """Batch-generate through the continuous-batching engine: submit every
+    prompt, drain, return the :class:`ServeResult` of each in submission
+    order."""
+    if max_seq <= 0 and buckets is None:
+        max_seq = max(len(p) + max_new_tokens for p in prompts)
+    eng = make_engine(model, params, max_seq=max_seq, buckets=buckets, slots=slots,
+                      n_buckets=n_buckets, prefill_chunk=prefill_chunk, device=device)
+    for rid, p in enumerate(prompts):
+        eng.submit(Request(rid=rid, prompt=np.asarray(p, np.int32),
+                           max_new_tokens=max_new_tokens, eos_id=eos_id))
+    eng.run_until_drained()
+    results = [eng.results[rid] for rid in range(len(prompts))]
+    return (results, eng) if return_engine else results
+
+
+def classify(model: Model, params, images: Sequence[np.ndarray],
+             batch_buckets: Sequence[int] = (1, 4, 8), device=None) -> List[ClassifyResult]:
+    """Batched image-classification scoring for the paper's CNN models,
+    the DR-grading serve path."""
+    clf = ImageClassifier(model, params, batch_buckets, device=device)
+    return clf.classify([Request(rid=i, image=np.asarray(im)) for i, im in enumerate(images)])

@@ -1,8 +1,10 @@
-"""train_step / eval_step factories (counterpart of ``repro.train.steps``).
+"""train_step / eval_step / serve_step / prefill_step factories
+(counterpart of ``repro.train.steps``).
 
-Both act on ONE client's params; the swarm engine vmaps them over the
-client axis with ``torch.func.vmap``, the optimizer update included.
-Microbatching is not ported.
+The train and eval steps act on ONE client's params; the swarm engine
+vmaps them over the client axis with ``torch.func.vmap``, the optimizer
+update included. Microbatching is not ported. The serve and prefill
+steps run the LM's decode step and chunked prefill.
 """
 from __future__ import annotations
 
@@ -30,3 +32,27 @@ def make_eval_step(model: Model):
             _, metrics = model.loss(params, batch)
         return metrics
     return eval_step
+
+
+def make_serve_step(model: Model):
+    """One greedy decode iteration: (next token (B,) int32, logits,
+    cache). ``pos`` is a scalar for lock-step decode or (B,) for per-row
+    positions (the serve engine)."""
+    def serve_step(params, tokens, cache, pos):
+        with torch.no_grad():
+            logits, cache = model.decode_step(params, tokens, cache, pos)
+        return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32), logits, cache
+    return serve_step
+
+
+def make_prefill_step(model: Model):
+    """Chunked prefill: one forward over a (B, C) prompt chunk with
+    KV-cache writeback. Returns the (B, C, V) logits and the cache."""
+    if model.prefill is None:
+        raise ValueError(f"{model.cfg.arch_id} ({model.cfg.family}) has no "
+                         "chunked-prefill path")
+
+    def prefill_step(params, tokens, cache, pos0):
+        with torch.no_grad():
+            return model.prefill(params, tokens, cache, pos0)
+    return prefill_step

@@ -1,10 +1,12 @@
-"""Tree utilities over nested dicts of tensors (counterpart of
-``repro.utils.tree``).
+"""Tree utilities over nested dicts and lists of tensors (counterpart
+of ``repro.utils.tree``).
 
-A parameter tree is a nested ``dict`` whose leaves are tensors. Leaves
-are visited in sorted key order at every level, the order in which JAX
-flattens a dict, so the port's ``"a/b/c"`` paths and leaf order match
-the reference's.
+A parameter tree is nested ``dict``s and ``list``s whose leaves are
+tensors (LM trees hold lists: ``params["blocks"]``, the scanned
+layout's ``"prefix"``, the KV cache's per-layer list). Leaves are
+visited in sorted key order at every dict and in index order at every
+list, the order in which JAX flattens them, so the port's ``"a/0/c"``
+paths and leaf order match the reference's.
 """
 from __future__ import annotations
 
@@ -12,13 +14,18 @@ import torch
 
 
 def tree_paths_and_leaves(tree, prefix: str = ""):
-    """List of ("a/b/c", leaf) pairs, dict keys sorted at every level."""
+    """List of ("a/0/c", leaf) pairs, dict keys sorted at every level and
+    list items in order, named by their index."""
     if isinstance(tree, dict):
-        out = []
-        for k in sorted(tree):
-            out.extend(tree_paths_and_leaves(tree[k], f"{prefix}{k}/"))
-        return out
-    return [(prefix[:-1], tree)]
+        items = ((k, tree[k]) for k in sorted(tree))
+    elif isinstance(tree, list):
+        items = enumerate(tree)
+    else:
+        return [(prefix[:-1], tree)]
+    out = []
+    for k, sub in items:
+        out.extend(tree_paths_and_leaves(sub, f"{prefix}{k}/"))
+    return out
 
 
 def tree_leaves(tree):
@@ -26,9 +33,11 @@ def tree_leaves(tree):
 
 
 def tree_map(fn, tree, *rest):
-    """``fn`` over corresponding leaves of dicts of identical structure."""
+    """``fn`` over corresponding leaves of trees of identical structure."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if isinstance(tree, list):
+        return [tree_map(fn, t, *(r[i] for r in rest)) for i, t in enumerate(tree)]
     return fn(tree, *rest)
 
 

@@ -12,8 +12,10 @@ import numpy as np  # noqa: E402
 from repro.kernels import ops as jax_ops  # noqa: E402
 from repro.kernels import ref as jax_ref  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import flash_decode as k_decode  # noqa: E402
 from repro_torch.kernels import kmeans_assign as k_assign  # noqa: E402
 from repro_torch.kernels import param_stats as k_stats  # noqa: E402
+
 
 def _bf16_from_torch(x):
     return jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
@@ -72,15 +74,115 @@ def test_plain_kmeans_assign_ties_go_to_first_centroid():
     assert ref.kmeans_assign(X, C).tolist() == [0, 0]
 
 
+# the reference's decode cases (tests/test_kernels.py DECODE_CASES):
+# B, H, KV, S, D, pos, window
+DECODE_CASES = [
+    (2, 4, 2, 512, 64, 100, 0),
+    (1, 8, 2, 1024, 128, 1023, 0),
+    (2, 4, 4, 512, 64, 300, 128),
+    (1, 4, 1, 256, 64, 0, 0),
+    (2, 4, 2, 200, 64, 150, 0),
+    (1, 4, 2, 80, 64, 79, 32),
+]
+DECODE_BLOCK_K = {512: 128, 1024: 256, 256: 64, 200: 64, 80: 64}
+
+
+def _decode_inputs(B, H, KV, S, D, dtype, seed):
+    """The same q, k, v on both sides: numpy draws, cast to ``dtype`` in
+    torch, and the very same bf16 numbers handed to JAX."""
+    rng = np.random.default_rng(seed)
+    tq, tk, tv = (torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(getattr(torch, dtype))
+                  for s in ((B, H, 1, D), (B, KV, S, D), (B, KV, S, D)))
+    conv = (lambda t: jnp.asarray(t.numpy())) if dtype == "float32" else _bf16_from_torch
+    return (tq, tk, tv), tuple(conv(t) for t in (tq, tk, tv))
+
+
+def _assert_decode_close(got, jax_outs, dtype):
+    """fp32 2e-5, bf16 2e-2: the reference's own tolerances
+    (tests/test_kernels.py)."""
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    assert got.dtype == getattr(torch, dtype)
+    for expect in jax_outs:
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(expect, np.float32),
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_decode_attention_matches_reference_kernel_and_oracle(case, dtype):
+    """Against the jnp oracle and the Pallas kernel in interpret mode."""
+    B, H, KV, S, D, pos, win = case
+    (tq, tk, tv), (jq, jk, jv) = _decode_inputs(B, H, KV, S, D, dtype, seed=S + pos)
+    got = ref.decode_attention(tq, tk, tv, pos, window=win)
+    _assert_decode_close(got, (
+        jax_ref.ref_decode_attention(jq, jk, jv, pos, window=win),
+        jax_ops.flash_decode(jq, jk, jv, jnp.asarray(pos, jnp.int32), window=win,
+                             block_k=DECODE_BLOCK_K[S])), dtype)
+
+
+@pytest.mark.parametrize("pos_list,S,win,bk", [
+    ([3, 100, 511], 512, 0, 128),
+    ([0, 37], 96, 0, 64),
+    ([10, 250], 256, 64, 64),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_decode_attention_vector_pos_matches_reference(pos_list, S, win, bk, dtype):
+    """(B,) per-row positions, the serve engine's layout; each row also
+    agrees with a scalar-pos call on that row alone."""
+    B, H, KV, D = len(pos_list), 4, 2, 64
+    (tq, tk, tv), (jq, jk, jv) = _decode_inputs(B, H, KV, S, D, dtype, seed=S + win)
+    pos = torch.tensor(pos_list, dtype=torch.int32)
+    jpos = jnp.asarray(pos_list, jnp.int32)
+    got = ref.decode_attention(tq, tk, tv, pos, window=win)
+    _assert_decode_close(got, (
+        jax_ref.ref_decode_attention(jq, jk, jv, jpos, window=win),
+        jax_ops.flash_decode(jq, jk, jv, jpos, window=win, block_k=bk)), dtype)
+    for b, p in enumerate(pos_list):
+        one = ref.decode_attention(tq[b:b + 1], tk[b:b + 1], tv[b:b + 1], p, window=win)
+        assert torch.equal(one, got[b:b + 1])
+
+
+def test_plain_decode_attention_reads_a_strided_cache():
+    """The serve cache is (B,S,KV,D); the plain version, like the kernel,
+    takes its (B,KV,S,D) transposed view without a copy by the caller.
+    atol 1e-6: the einsum may sum a strided operand in another order."""
+    cache = torch.randn(2, 40, 2, 64)
+    q = torch.randn(2, 4, 1, 64)
+    view = cache.transpose(1, 2)
+    assert not view.is_contiguous()
+    torch.testing.assert_close(ref.decode_attention(q, view, view, 17),
+                               ref.decode_attention(q, view.contiguous(), view.contiguous(), 17),
+                               rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("B,KV,S,D,expect", [
+    (4, 8, 2048, 64, (256, 8)),         # the serve path's buckets
+    (4, 8, 1024, 64, (128, 8)),
+    (1, 2, 80, 64, (64, 2)),            # ragged S: the last range is short
+    (64, 8, 2048, 64, (2048, 1)),       # enough (row, kv head) pairs: no split
+    (1, 8, 300, 256, (16, 19)),
+])
+def test_decode_split_plan(B, KV, S, D, expect):
+    chunk, n_split = k_decode.split_plan(B, KV, S, D, 132)
+    assert (chunk, n_split) == expect
+    tile = k_decode.TILE_ELEMS // D
+    assert chunk % tile == 0 and (n_split - 1) * chunk < S <= n_split * chunk
+
+
 def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     x = torch.randn(4, 9)
     X, C = torch.randn(6, 5), torch.randn(2, 5)
-    before = (k_stats.param_stats_batched.launches, k_assign.kmeans_assign.launches)
+    q, kv = torch.randn(2, 4, 1, 32), torch.randn(2, 2, 10, 32)
+    before = (k_stats.param_stats_batched.launches, k_assign.kmeans_assign.launches,
+              k_decode.flash_decode.launches)
     m, v = ops.param_stats_batched(x)
     rm, rv = ref.param_stats_batched(x)
     assert torch.equal(m, rm) and torch.equal(v, rv)
     assert torch.equal(ops.kmeans_assign(X, C), ref.kmeans_assign(X, C))
-    assert (k_stats.param_stats_batched.launches, k_assign.kmeans_assign.launches) == before
+    assert torch.equal(ops.flash_decode(q, kv, kv, 7, window=3),
+                       ref.decode_attention(q, kv, kv, 7, window=3))
+    assert (k_stats.param_stats_batched.launches, k_assign.kmeans_assign.launches,
+            k_decode.flash_decode.launches) == before
 
 
 def test_other_devices_go_to_the_kernels_which_refuse_them():
@@ -94,6 +196,13 @@ def test_other_devices_go_to_the_kernels_which_refuse_them():
         k_stats.param_stats_batched(torch.zeros(2, 3))
     with pytest.raises(ValueError, match="CUDA"):
         k_assign.kmeans_assign(torch.zeros(2, 3), torch.zeros(1, 3))
+    meta = torch.empty((2, 4, 1, 64), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.flash_decode(meta, torch.empty((2, 2, 8, 64), device="meta"),
+                         torch.empty((2, 2, 8, 64), device="meta"), 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        k_decode.flash_decode(torch.zeros(2, 4, 1, 64), torch.zeros(2, 2, 8, 64),
+                              torch.zeros(2, 2, 8, 64), 3)
 
 
 @pytest.mark.parametrize("N,n,sms,expect", [(14, 9216, 132, 5), (14, 5, 132, 1),
