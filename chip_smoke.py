@@ -32,7 +32,24 @@ exits non-zero and prints no result. It imports nothing of JAX. Phases:
    profile one decode tick;
 7. serve the same prompts on the card and on the CPU from the same
    weights (granite's widths cut to 2 layers so that the CPU finishes in
-   time) and compare tokens and logits.
+   time) and compare tokens and logits;
+8. hold the flash_attention kernel against its plain version (the
+   reference's FLASH_CASES in fp32 and bf16, rows with no valid key, a
+   prefill chunk at q_offset 1536, strided (B,S,H,D) input, granite's
+   full prefill shape) and time kernel, plain version and
+   ``scaled_dot_product_attention`` at granite's shape (B 4, H 32, KV 8,
+   S 2048, D 64, bf16, causal);
+9. drive flash_attention on its path: one granite-3-2b attention layer
+   at full width (B 2, S 2048, bf16) composed as projections -> RoPE ->
+   ``ops.flash_attention_bsh`` -> output projection, against the port's
+   ``attend_full``, with the launch count read from that phase alone;
+10. run the paper's Table II on the card: ``run_sweep_table`` over the
+   four methods (benchmarks/table2_methods.py's settings: full Table I at
+   20 px, 14 clinics, squeezenet-dr, adam lr 2e-3, batch 8, 12 local
+   steps, k 3, p1 0.9, p2 0.8, 20 k-means iterations, 10 rounds, seed
+   0) with the coordinator's launch counts read from the sweep alone,
+   then ``run_method("bso-sl")`` serially; the accuracies are reported
+   beside the paper's.
 
 Any failure raises. The line before the last is one JSON object
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -50,9 +67,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 non-tensor FLOP/s
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 non-tensor FLOP/s,
+# dense bf16 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_TENSOR_FLOPS = 989e12
 
 # the serve path (phase 6): benchmarks/serve_bench.py's ladder_2 layout at
 # max_seq 2048 and its _workload (24 requests, prompts in [2, 2016), 32
@@ -64,6 +83,20 @@ SERVE_REQUESTS = 24
 SERVE_NEW_TOKENS = 32
 PREFILL_CHUNK = 512
 DECODE_LAUNCHES_PER_CALL = 1      # one wrapper call per layer per decode call
+
+# flash_attention's path (phases 8 and 9): granite-3-2b's prefill shape
+ATTN_SHAPE = (4, 32, 8, 2048, 64)  # B, H, KV, S, D
+ATTN_PATH_BATCH = 2
+ATTN_LAUNCHES_PER_LAYER = 1
+ATTN_PATH_RTOL = 2e-2             # of max |out|, phase 9 (bf16)
+
+# Table II (phase 10): benchmarks/table2_methods.py's run() defaults, and
+# the paper's accuracies and the slack of its ordering checks (copied)
+TABLE2_IMAGE = 20
+TABLE2_ROUNDS = 10
+TABLE2_SEED = 0
+PAPER = {"centralized": 0.4118, "local": 0.1924, "fedavg": 0.3719, "bso-sl": 0.3725}
+ORDERING_TOL = 0.02
 
 ROUNDS = 3
 LOCAL_STEPS = 12
@@ -118,9 +151,9 @@ def graph_ms(torch, fn) -> float:
     return cuda_ms(torch, graph.replay)
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, peak_flops: float = FP32_FLOPS):
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = n_ops / FP32_FLOPS * 1e3
+    by_ops = n_ops / peak_flops * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -329,8 +362,8 @@ def card_vs_cpu(torch, tr, clients, local_steps: int, eps: float):
     s_cpu = s_card._replace(params=tree_map(lambda t: t.cpu(), s_card.params),
                             opt_state=tree_map(lambda t: t.cpu(), s_card.opt_state),
                             generator=gen, n_samples=s_card.n_samples.cpu())
-    new_card, m_card = engine.swarm_round(s_card, tr.swarm_data, cfg, draws)
-    new_cpu, m_cpu = engine.swarm_round(s_cpu, data_cpu, cfg, draws)
+    new_card, m_card = engine.swarm_round(s_card, tr.swarm_data, cfg, draws=draws)
+    new_cpu, m_cpu = engine.swarm_round(s_cpu, data_cpu, cfg, draws=draws)
     torch.cuda.synchronize()
     diff = max((a.cpu() - b).abs().max().item()
                for a, b in zip(_leaves(new_card.params), _leaves(new_cpu.params)))
@@ -630,6 +663,202 @@ def card_vs_cpu_serve(torch, dev, dtype: str):
     return toks_card == toks_cpu, diff, scale
 
 
+# ------------------------------------------------------------ phases 8-10
+
+
+def _attn_inputs(torch, dev, gen, B, H, KV, Sq, Sk, D, dtype):
+    q = torch.randn((B, H, Sq, D), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((B, KV, Sk, D), generator=gen, device=dev).to(dtype) for _ in range(2))
+    return q, k, v
+
+
+def check_flash_attention(torch, dev):
+    """K4 against its plain version. Tolerances are the reference's own
+    for its kernel against its oracle: 2e-5 in fp32, 2e-2 in bf16.
+    Returns the max abs error at granite's prefill shape."""
+    from repro_torch.kernels import flash_attention, ref
+    gen = torch.Generator(device=dev).manual_seed(8)
+    bf16, f32 = torch.bfloat16, torch.float32
+    B, H, KV, S, D = ATTN_SHAPE
+    # tests/test_kernels.py's FLASH_CASES: B, H, KV, S, D, causal, window, bq, bk
+    flash_cases = [(1, 4, 4, 128, 64, True, 0, 64, 64), (2, 8, 2, 256, 64, True, 0, 128, 128),
+                   (1, 8, 1, 256, 128, True, 0, 64, 128), (2, 4, 4, 128, 64, False, 0, 64, 64),
+                   (1, 4, 2, 256, 64, True, 64, 64, 64), (1, 2, 2, 512, 64, True, 128, 128, 256)]
+    cases = []  # name, (B, H, KV, Sq, Sk, D), dtype, causal, window, q_offset, (bq, bk), bsh
+    for dt in (f32, bf16):
+        for i, (b, h, kv, s, d, causal, win, bq, bk) in enumerate(flash_cases):
+            cases.append((f"FLASH_CASES[{i}] {str(dt)[6:]}", (b, h, kv, s, s, d), dt, causal,
+                          win, 0, (bq, bk), False))
+    cases += [
+        ("no valid key in any row", (1, 4, 2, 64, 64, 32), f32, False, 16, 100, (32, 32), False),
+        ("no valid key in some rows", (1, 2, 1, 64, 128, 32), bf16, True, 24, 140, (32, 64),
+         False),
+        ("prefill chunk at q_offset 1536", (B, H, KV, 512, S, D), bf16, True, 0, 1536,
+         (128, 128), False),
+        ("strided (B,S,H,D) window 256", (2, H, KV, S, S, D), bf16, True, 256, 0, (128, 128),
+         True),
+        ("granite prefill", (B, H, KV, S, S, D), bf16, True, 0, 0, (128, 128), False),
+    ]
+    path_err = 0.0
+    for name, (b, h, kv, sq, sk, d), dt, causal, win, off, (bq, bk), bsh in cases:
+        q, k, v = _attn_inputs(torch, dev, gen, b, h, kv, sq, sk, d, dt)
+        kw = dict(causal=causal, window=win, q_offset=off)
+        if bsh:
+            got = flash_attention.flash_attention_bsh(
+                q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+                v.transpose(1, 2).contiguous(), block_q=bq, block_k=bk, **kw).transpose(1, 2)
+        else:
+            got = flash_attention.flash_attention(q, k, v, block_q=bq, block_k=bk, **kw)
+        expect = ref.attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        tol = 2e-5 if dt == f32 else 2e-2
+        torch.testing.assert_close(got.float(), expect.float(), rtol=tol, atol=tol,
+                                   msg=lambda m: f"flash_attention {name}: {m}")
+        err = (got.float() - expect.float()).abs().max().item()
+        if name == "granite prefill":
+            path_err = err
+        log(f"[kernels] flash_attention {name}: max abs err {err:.3e} (tol {tol:g})")
+    log(f"[kernels] flash_attention: {len(cases)} cases agree with the plain version; "
+        f"max abs err at granite's prefill shape {path_err:.3e}")
+    return path_err
+
+
+def time_flash_attention(torch, dev):
+    """K4 at granite's prefill shape: q (4,32,2048,64) against k, v
+    (4,8,2048,64), bf16, causal."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention, ref
+    gen = torch.Generator(device=dev).manual_seed(9)
+    B, H, KV, S, D = ATTN_SHAPE
+    q, k, v = _attn_inputs(torch, dev, gen, B, H, KV, S, S, D, torch.bfloat16)
+
+    def kernel():
+        flash_attention.flash_attention(q, k, v, causal=True)
+
+    def plain():
+        ref.attention(q, k, v, causal=True)
+
+    def library():
+        F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+    lib_err = (F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True).float()
+               - ref.attention(q, k, v, causal=True).float()).abs().max().item()
+    ms, plain_ms, lib_ms = (cuda_ms(torch, f, reps=10) for f in (kernel, plain, library))
+    log(f"[kernels] flash_attention device time alone (CUDA graph of one call): "
+        f"kernel {graph_ms(torch, kernel):.4f} ms, plain {graph_ms(torch, plain):.4f} ms, "
+        f"sdpa {graph_ms(torch, library):.4f} ms (sdpa vs plain max abs err {lib_err:.3e})")
+    es = q.element_size()
+    n_bytes = (2 * q.numel() + k.numel() + v.numel()) * es        # q, k, v read; out written
+    pairs = B * H * S * (S + 1) // 2                                 # causal (row, col) pairs
+    # per valid pair and query head: D multiply-adds for the score and D
+    # for the output
+    n_ops = pairs * 4 * D
+    b, by = bound_ms(n_bytes, n_ops, BF16_TENSOR_FLOPS)
+    log(f"[kernels] flash_attention bound: {n_ops / 1e9:.2f} GFLOP over {BF16_TENSOR_FLOPS:g} "
+        f"FLOP/s -> {n_ops / BF16_TENSOR_FLOPS * 1e3:.5f} ms; {n_bytes / 1e6:.1f} MB over "
+        f"{HBM_BYTES_PER_S:g} B/s -> {n_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms; bound by {by}")
+    return ms, plain_ms, lib_ms, b, by
+
+
+def attention_path(torch, dev):
+    """Phase 9: one granite-3-2b attention layer at full width composed
+    from the kernel, against the port's attend_full on the same weights
+    and input. Returns (launches in this phase, max abs diff, max |out|)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, ops
+    from repro_torch.models import attention
+    from repro_torch.models.layers import apply_rope
+
+    cfg = get_config(SERVE_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    p = attention.init_attention(gen, cfg)
+    B, S = ATTN_PATH_BATCH, ATTN_SHAPE[3]
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    with torch.no_grad():
+        expect = attention.attend_full(p, x, cfg)
+        flash_attention.flash_attention.launches = 0
+        q, k, v = attention._project_qkv(p, x, x, cfg)
+        pos = torch.arange(S, device=dev)[None, :]
+        q, k = apply_rope(q, pos, cfg.rope_theta), apply_rope(k, pos, cfg.rope_theta)
+        o = ops.flash_attention_bsh(q, k, v, causal=True)
+        got = o.reshape(B, S, -1) @ p["wo"].to(x.dtype)
+        torch.cuda.synchronize()
+        launches = flash_attention.flash_attention.launches
+    diff = (got.float() - expect.float()).abs().max().item()
+    scale = expect.float().abs().max().item()
+    log(f"[attention] {cfg.arch_id} attention layer at full width (d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}), B {B}, S {S}, bf16: kernel "
+        f"composition vs attend_full max abs diff {diff:.3e} (max |out| {scale:.3e}); "
+        f"flash_attention launches {launches}")
+    return launches, diff, scale
+
+
+def table2(torch, dev):
+    """Phase 10: the Table-II sweep on the card, then the serial bso-sl
+    row. Returns (sweep launch counts, accuracies, serial bso-sl acc,
+    seconds of the sweep and of the serial run)."""
+    from repro_torch.configs import OptimizerConfig, SwarmConfig, get_config
+    from repro_torch.core import baselines
+    from repro_torch.core.engine import SWEEP_METHODS, stack_eval_split
+    from repro_torch.data.dr import make_dr_swarm_data, scale_table
+    from repro_torch.kernels import kmeans_assign, param_stats
+    from repro_torch.models import build_model
+
+    clients = make_dr_swarm_data(image_size=TABLE2_IMAGE, seed=TABLE2_SEED, table=scale_table(1))
+    model = build_model(get_config("squeezenet-dr"))
+    swarm = SwarmConfig(n_clients=14, n_clusters=K, p1=0.9, p2=0.8, kmeans_iters=KMEANS_ITERS,
+                        local_steps=LOCAL_STEPS, rounds=TABLE2_ROUNDS)
+    opt = OptimizerConfig(name="adam", lr=2e-3)
+    cfg, data = baselines.make_method_setup(model, clients, swarm, opt, batch_size=BATCH,
+                                            device=dev)
+    test_stack = stack_eval_split(model.cfg, clients, "test", device=dev)
+
+    param_stats.param_stats_batched.launches = 0
+    kmeans_assign.kmeans_assign.launches = 0
+    t0 = time.perf_counter()
+    accs, run = baselines.run_sweep_table(model, clients, swarm, opt, TABLE2_SEED,
+                                          batch_size=BATCH, cfg=cfg, data=data,
+                                          test_stack=test_stack)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    launches = {"param_stats_batched": param_stats.param_stats_batched.launches,
+                "kmeans_assign": kmeans_assign.kmeans_assign.launches}
+    n_leaves = sum(1 for _ in _leaves(run.state[0].params))
+    M = len(SWEEP_METHODS)
+    want = {"param_stats_batched": M * TABLE2_ROUNDS * n_leaves * STATS_PASSES_PER_ROUND,
+            "kmeans_assign": M * TABLE2_ROUNDS * (KMEANS_ITERS + 1)}
+    log(f"[table2] sweep of {M} methods x {TABLE2_ROUNDS} rounds in {sweep_s:.3f} s; launches "
+        f"{launches}, expected {want}")
+    assert launches == want, f"sweep launch counts {launches} != {want}"
+    for m in SWEEP_METHODS:
+        assert math.isfinite(accs[m]) and 0.0 <= accs[m] <= 1.0, f"{m} accuracy {accs[m]}"
+    val = run.metrics.mean_val_acc.tolist()
+    for i, m in enumerate(SWEEP_METHODS):
+        log(f"[table2] {m}: Eq. 3 test acc {accs[m]:.4f} (paper {PAPER[m]:.4f}); val acc by "
+            f"round {[round(a, 4) for a in val[i]]}")
+
+    t0 = time.perf_counter()
+    serial_acc, _ = baselines.run_method("bso-sl", model, clients, swarm, opt,
+                                         baselines.sweep_keys(TABLE2_SEED)[M - 1],
+                                         batch_size=BATCH, cfg=cfg, data=data,
+                                         test_stack=test_stack)
+    torch.cuda.synchronize()
+    serial_s = time.perf_counter() - t0
+    assert math.isfinite(serial_acc) and 0.0 <= serial_acc <= 1.0
+    ordering = {
+        "centralized_upper_bounds_global_fedavg": accs["centralized"]
+        >= accs["fedavg"] - ORDERING_TOL,
+        "bso_over_fedavg": accs["bso-sl"] >= accs["fedavg"] - ORDERING_TOL,
+        "federated_above_random_floor": accs["bso-sl"] > 0.25 and accs["fedavg"] > 0.2,
+        "local_overfits_protocol_artifact": accs["local"] > accs["centralized"],
+    }
+    log(f"[table2] serial bso-sl: acc {serial_acc:.4f} in {serial_s:.3f} s (sweep row "
+        f"{accs['bso-sl']:.4f}, |diff| {abs(serial_acc - accs['bso-sl']):.2e}); orderings, "
+        f"not asserted (ORDERING_TOL {ORDERING_TOL}): {ordering}")
+    return launches, accs, serial_acc, sweep_s, serial_s
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -727,6 +956,27 @@ def main() -> int:
     log(f"[card-vs-cpu serve] bf16, not asserted: tokens equal {same16}, "
         f"max |logit diff| {diff16:.3e}")
 
+    # --- phase 8: flash_attention against its plain version, at granite's prefill shape
+    k4_err = check_flash_attention(torch, dev)
+    k4 = time_flash_attention(torch, dev)
+    log(f"[kernels] flash_attention (4,32,2048,64) vs (4,8,2048,64) bf16 causal: kernel "
+        f"{k4[0]:.4f} ms, plain {k4[1]:.4f} ms, sdpa {k4[2]:.4f} ms, bound {k4[3]:.5f} ms "
+        f"({k4[4]})")
+    torch.cuda.empty_cache()
+
+    # --- phase 9: flash_attention on its path, launch count from this phase alone
+    k4_launches, attn_diff, attn_scale = attention_path(torch, dev)
+    assert k4_launches == ATTN_LAUNCHES_PER_LAYER, f"flash_attention launches {k4_launches}"
+    # bf16: attend_full rounds its scores and probabilities to bf16
+    # (relative 2^-8 each), the kernel keeps them in fp32; a wrong mask,
+    # position, head mapping or layout moves the output by its own scale
+    assert attn_diff <= ATTN_PATH_RTOL * attn_scale, \
+        f"kernel composition and attend_full differ by {attn_diff} (max |out| {attn_scale})"
+    torch.cuda.empty_cache()
+
+    # --- phase 10: Table II on the card, launch counts from the sweep alone
+    t2_launches, accs, serial_acc, sweep_s, serial_s = table2(torch, dev)
+
     kernels = [
         {"name": "param_stats_batched", "route": "cuda",
          "source": "src/repro_torch/csrc/param_stats.cu",
@@ -746,9 +996,17 @@ def main() -> int:
          "launches": k3_launches, "max_abs_err": k3_err,
          "ms": k3[0], "plain_ms": k3[1], "bound_ms": k3[3], "bound_by": k3[4],
          "library_ms": k3[2]},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:89",
+         "launches": k4_launches, "max_abs_err": k4_err,
+         "ms": k4[0], "plain_ms": k4[1], "bound_ms": k4[3], "bound_by": k4[4],
+         "library_ms": k4[2]},
     ]
     log(f"[done] {time.perf_counter() - t_all:.1f} s in all; "
-        f"round seconds {round_s}")
+        f"round seconds {round_s}; Table II sweep {sweep_s:.3f} s, serial bso-sl "
+        f"{serial_s:.3f} s; sweep launches {t2_launches}; accuracies {accs}, serial bso-sl "
+        f"{serial_acc:.4f}")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -5,7 +5,8 @@ numpy arrays (``jax.tree.map(np.asarray, params)``). The port keeps the
 reference's key names and layouts (HWIO conv weights, the LM's stacked
 ``(L, ...)`` layers and its ``(B, S, KV, hd)`` KV cache included), so a
 round trip is the identity and the per-tensor statistics columns line
-up.
+up. The Table-II method rows and method-stacked states cross the same
+way.
 """
 from __future__ import annotations
 
@@ -93,3 +94,46 @@ def state_to_numpy(state) -> dict:
             "opt_state": tree_to_numpy(state.opt_state),
             "round": np.int32(state.round),
             "n_samples": _leaf_to_numpy(state.n_samples)}
+
+
+def method_params_from_numpy(method, device="cpu"):
+    """A reference ``MethodParams`` as a mapping (or its ``_asdict()``)
+    of numpy arrays, one row or a stacked (M, ...) sweep config -> the
+    port's :class:`~repro_torch.core.engine.MethodParams`."""
+    from repro_torch.core.engine import MethodParams
+    return MethodParams(*(_leaf_from_numpy(method[f], torch.device(device))
+                          for f in MethodParams._fields))
+
+
+def method_params_to_numpy(method) -> dict:
+    """Inverse of :func:`method_params_from_numpy`."""
+    return {f: _leaf_to_numpy(t) for f, t in zip(method._fields, method)}
+
+
+def _row(tree, m):
+    if isinstance(tree, dict):
+        return {k: _row(v, m) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_row(v, m) for v in tree]
+    return np.asarray(tree)[m]
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    if isinstance(trees[0], list):
+        return [_stack([t[i] for t in trees]) for i in range(len(trees[0]))]
+    return np.stack(trees)
+
+
+def sweep_state_from_numpy(state, device="cpu", *, seeds):
+    """A reference method-stacked ``SwarmState`` (every field with a
+    leading (M,) axis) as a dict of numpy arrays -> the port's list of M
+    states, row m's generator seeded from ``seeds[m]``."""
+    return [state_from_numpy(_row(state, m), device, seed=s) for m, s in enumerate(seeds)]
+
+
+def sweep_state_to_numpy(states) -> dict:
+    """Inverse of :func:`sweep_state_from_numpy`: the rows stacked on a
+    leading (M,) axis (the generators stay behind)."""
+    return _stack([state_to_numpy(s) for s in states])

@@ -1,0 +1,163 @@
+"""Table II methods as slices of the engine's method axis (counterpart
+of ``repro.core.baselines``).
+
+All four paper methods (centralized / local / FedAvg / BSO-SL) are
+:class:`~repro_torch.core.engine.MethodParams` rows of the one round in
+:mod:`repro_torch.core.engine`. Which entry point to use:
+
+* :func:`run_method` -- one paper method, ``run_rounds`` over its row.
+* :func:`run_sweep_table` -- the whole method axis through
+  ``run_sweep``, every row over one shared device-resident
+  :class:`~repro_torch.core.engine.SwarmData`. Row m is exactly
+  :func:`run_method` of ``methods[m]`` with ``sweep_keys(seed)[m]``.
+* :func:`train_centralized` -- the pooled-data host loop, the oracle of
+  the engine's pooled-sampling centralized row.
+
+Everything runs on ``cuda`` unless given ``device="cpu"``. The grid
+entry points (``run_grid_point``, ``run_grid_table``) arrive with the
+grid axis (ROADMAP A8).
+"""
+from __future__ import annotations
+
+from typing import List, NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import OptimizerConfig, SwarmConfig
+from repro_torch.core.engine import (SWEEP_METHODS, EngineConfig, RoundMetrics, SwarmData,
+                                     make_batch, make_client_eval, make_swarm_data,
+                                     make_swarm_state, make_sweep_config, make_sweep_state,
+                                     method_params, resolve_local_steps, run_rounds, run_sweep,
+                                     stack_eval_split)
+from repro_torch.core.swarm import eval_client
+from repro_torch.models.model import Model
+from repro_torch.optim.optimizers import make_optimizer
+from repro_torch.train.steps import make_eval_step, make_train_step
+from repro_torch.utils.device import resolve_device
+
+
+def make_method_setup(model: Model, clients_data, swarm: SwarmConfig,
+                      opt_cfg: OptimizerConfig, *, batch_size: int = 16, lr=None,
+                      cfg: EngineConfig = None, data: SwarmData = None, layout: str = "rect",
+                      device=None):
+    """(EngineConfig, SwarmData) shared by every method slice. A given
+    ``cfg`` or ``data`` passes through untouched, so repeated slices
+    share one device-resident dataset. ``layout`` is the data layout
+    built here: ``"rect"`` (every client padded to the largest one) is
+    the one ported."""
+    if layout == "bucketed":
+        raise NotImplementedError("the bucketed layout is not ported yet (ROADMAP A9); "
+                                  "use layout='rect'")
+    if layout != "rect":
+        raise ValueError(f"unknown layout {layout!r} (one of 'rect', 'bucketed')")
+    if cfg is None:
+        cfg = EngineConfig(
+            model=model, opt=make_optimizer(opt_cfg),
+            local_steps=resolve_local_steps(swarm, clients_data, batch_size),
+            batch_size=batch_size, lr=lr if lr is not None else opt_cfg.lr,
+            aggregation="bso", n_clusters=swarm.n_clusters, p1=swarm.p1, p2=swarm.p2,
+            kmeans_iters=swarm.kmeans_iters)
+    if data is None:
+        data = make_swarm_data(model.cfg, clients_data, device=resolve_device(device))
+    return cfg, data
+
+
+class MethodRun(NamedTuple):
+    """One finished fit: the final state and the (rounds,)-stacked
+    metrics; from :func:`run_sweep_table`, the list of per-row states and
+    (M, rounds)-stacked metrics."""
+    state: object
+    metrics: RoundMetrics
+
+
+def sweep_keys(seed: int, methods: Sequence = SWEEP_METHODS) -> List[int]:
+    """Per-row seeds derived from one seed (the counterpart of
+    ``jax.random.split``; only the length of ``methods`` matters): the
+    one copy, so that a serial run reproduces sweep row m."""
+    return [int(s) for s in np.random.SeedSequence(seed).generate_state(len(methods))]
+
+
+def _test_stack(model: Model, clients_data, data: SwarmData, test_stack):
+    if test_stack is None:
+        test_stack = stack_eval_split(model.cfg, clients_data, "test",
+                                      device=data.train_n.device)
+    return test_stack
+
+
+def run_method(method: str, model: Model, clients_data, swarm: SwarmConfig,
+               opt_cfg: OptimizerConfig, seed: int, *, batch_size: int = 16,
+               verbose: bool = False, cfg: EngineConfig = None, data: SwarmData = None,
+               test_stack=None, device=None):
+    """One Table-II row; ``method`` in {centralized, local, fedavg,
+    bso-sl}. The accuracy is Eq. 3 (the mean of per-client test
+    accuracy) of the final per-client models. Pass ``cfg`` / ``data`` /
+    ``test_stack`` of an earlier call to share them. Returns
+    ``(acc, MethodRun)``."""
+    cfg, data = make_method_setup(model, clients_data, swarm, opt_cfg, batch_size=batch_size,
+                                  cfg=cfg, data=data, device=device)
+    dev = data.train_n.device
+    state = make_swarm_state(model, cfg.opt, clients_data, seed, device=dev)
+    state, ms = run_rounds(state, data, cfg, swarm.rounds,
+                           method_params(method, len(clients_data), dev))
+    if verbose:
+        for r, acc in enumerate(ms.mean_val_acc.tolist()):
+            print(f"[{method}] round {r:3d} val_acc={acc:.4f}")
+    scores = make_client_eval(model)(state.params,
+                                     _test_stack(model, clients_data, data, test_stack))
+    return float(scores.mean()), MethodRun(state, ms)
+
+
+def run_sweep_table(model: Model, clients_data, swarm: SwarmConfig, opt_cfg: OptimizerConfig,
+                    seed: int, *, methods: Sequence[str] = SWEEP_METHODS,
+                    batch_size: int = 16, cfg: EngineConfig = None, data: SwarmData = None,
+                    test_stack=None, device=None):
+    """The whole Table II through ``run_sweep``: ``seed`` gives the
+    per-row seeds (:func:`sweep_keys`), so row m is exactly
+    ``run_method(methods[m], ..., sweep_keys(seed, methods)[m])``.
+    Returns ``({method: Eq. 3 test acc}, MethodRun)`` with the per-row
+    final states and (M, rounds) metrics."""
+    cfg, data = make_method_setup(model, clients_data, swarm, opt_cfg, batch_size=batch_size,
+                                  cfg=cfg, data=data, device=device)
+    dev = data.train_n.device
+    states = make_sweep_state(model, cfg.opt, clients_data, sweep_keys(seed, methods),
+                              device=dev)
+    sweep = make_sweep_config(len(clients_data), methods, dev)
+    states, ms = run_sweep(states, data, cfg, sweep, swarm.rounds)
+    test_stack = _test_stack(model, clients_data, data, test_stack)
+    client_eval = make_client_eval(model)
+    accs = {m: float(client_eval(s.params, test_stack).mean()) for m, s in zip(methods, states)}
+    return accs, MethodRun(states, ms)
+
+
+def train_centralized(model: Model, clients_data: List[dict], opt_cfg: OptimizerConfig,
+                      seed: int, *, steps: int, batch_size: int = 32, lr=None,
+                      init_params=None, device=None):
+    """Host-loop pooled-data training, the oracle the engine's pooled
+    centralized row miniaturises. Batches come from the reference's
+    index stream (``np.random.default_rng(0)`` over the pooled train
+    rows), so from the same initial params (``init_params``, else
+    ``model.init`` of a generator seeded from ``seed``) it takes the
+    reference's steps. Returns (params, Eq. 3 test accuracy of the one
+    global model)."""
+    dev = resolve_device(device)
+    X = np.concatenate([c["train"][0] for c in clients_data])
+    y = np.concatenate([c["train"][1] for c in clients_data])
+    rng = np.random.default_rng(0)
+
+    opt = make_optimizer(opt_cfg)
+    if init_params is None:
+        init_params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    params = init_params
+    opt_state = opt.init(params)
+    step = make_train_step(model, opt)
+    eval_fn = make_eval_step(model)
+    lr = lr if lr is not None else opt_cfg.lr
+
+    for _ in range(steps):
+        idx = rng.integers(0, len(y), size=batch_size)
+        params, opt_state, _ = step(params, opt_state, make_batch(model.cfg, X[idx], y[idx], dev),
+                                    lr)
+    accs = [eval_client(eval_fn, model.cfg, params, *c["test"]) for c in clients_data]
+    return params, float(np.mean(accs))
+

@@ -14,14 +14,26 @@ beside it: the ``param_stats`` kernel per parameter leaf, the
 ``kmeans_assign`` kernel per Lloyd step, the brain storm and Eq. 2, with
 no host round trip inside a round.
 
+The round also carries the paper's Table-II **method axis**
+(:class:`MethodParams`): centralized (every client samples the pooled
+dataset, one global model), local (singleton clusters), FedAvg (one
+global cluster) and BSO-SL (the coordinator's clusters) are three
+tensors of data on one body. On that path the coordinator always runs
+and the row's masks pick what aggregates, as in the reference.
+:func:`run_sweep` runs the rows one after another over one shared
+device-resident :class:`SwarmData`.
+
 Randomness comes from the state's ``torch.Generator``. JAX's threefry
 streams cannot be reproduced in torch, so :func:`swarm_round` also
 takes a :class:`RoundDraws` holding every random input of one round
-(batch indices, k-means seeds, brain-storm draws): that is how the
-tests feed it the reference's randomness.
+(batch rows, pooled rows, k-means seeding, brain-storm draws): that is
+how the tests feed it the reference's randomness. Without one, a round
+takes all its draws first, in one fixed order, whichever branch runs
+(:func:`draw_round`), so a method row and the plain branch it equals
+stay on one random stream round after round.
 
-Not ported yet: the method, grid, churn and hierarchical axes, the
-bucketed data layout and the fleet regime.
+Not ported yet: the grid, churn and hierarchical axes, the bucketed
+data layout and the fleet regime.
 """
 from __future__ import annotations
 
@@ -33,8 +45,8 @@ import torch
 from torch.func import vmap
 
 from repro_torch.configs.base import ModelConfig, SwarmConfig
-from repro_torch.core.aggregation import cluster_fedavg
-from repro_torch.core.bso import BSODraws, brain_storm
+from repro_torch.core.aggregation import cluster_fedavg, singleton_assignments
+from repro_torch.core.bso import BSODraws, brain_storm, draw_bso
 from repro_torch.core.diststats import swarm_distribution_matrix
 from repro_torch.core.kmeans import kmeans
 from repro_torch.models.model import Model
@@ -83,11 +95,54 @@ class RoundMetrics(NamedTuple):
 
 class RoundDraws(NamedTuple):
     """Every random input of one round, for injecting a reference's
-    draws. ``kmeans_init_idx`` and ``bso`` are only read when the
-    round runs the coordinator (``aggregation="bso"``)."""
-    batch_idx: torch.Tensor          # (local_steps, N, B) train rows
-    kmeans_init_idx: torch.Tensor    # (k,) k-means++ seed rows
+    draws. ``batch_idx`` is each client's own rows; ``pool_idx`` the
+    global row ids (in ``[0, sum(train_n))``) of a pooled batch, from
+    which its per-step client ids follow; only the method path reads
+    it, and only for a pooled row. The k-means seeding takes
+    ``kmeans_init_idx`` (the seed rows) if given, else the uniforms
+    ``kmeans_u``. The coordinator's draws are read only when the round
+    runs the coordinator."""
+    batch_idx: torch.Tensor          # (local_steps, N, B) own train rows
+    kmeans_init_idx: Any             # (k,) k-means++ seed rows, or None
     bso: BSODraws                    # brain-storm draws
+    pool_idx: Any = None             # (local_steps, N, B) pooled global rows
+    kmeans_u: Any = None             # (k,) uniforms of the k-means++ seeding
+
+
+class MethodParams(NamedTuple):
+    """One Table-II method as data: three tensors on the swarm's device.
+    ``base_assign`` is the aggregation plan when the coordinator is
+    masked off; Eq. 2 then runs over N segments."""
+    pool_data: torch.Tensor          # () bool: sample the pooled dataset
+    use_coord: torch.Tensor          # () bool: take the brain-storm clusters
+    base_assign: torch.Tensor        # (N,) int32: arange local, zeros global
+
+
+#: Paper Table II method axis, in table order.
+SWEEP_METHODS = ("centralized", "local", "fedavg", "bso-sl")
+
+
+def method_params(method: str, n_clients: int, device=None) -> MethodParams:
+    """The :class:`MethodParams` row of one paper method. Every method
+    runs the same (rounds x local_steps x batch) budget."""
+    if method not in SWEEP_METHODS:
+        raise ValueError(f"unknown method {method!r}; one of {SWEEP_METHODS}")
+    base = (singleton_assignments(n_clients, device) if method == "local"
+            else torch.zeros((n_clients,), dtype=torch.int32, device=device))
+    return MethodParams(pool_data=torch.tensor(method == "centralized", device=device),
+                        use_coord=torch.tensor(method == "bso-sl", device=device),
+                        base_assign=base)
+
+
+def make_sweep_config(n_clients: int, methods=SWEEP_METHODS, device=None) -> MethodParams:
+    """The rows of ``methods`` stacked on a leading (M,) axis."""
+    rows = [method_params(m, n_clients, device) for m in methods]
+    return MethodParams(*(torch.stack(f) for f in zip(*rows)))
+
+
+def sweep_row(sweep: MethodParams, m: int) -> MethodParams:
+    """Row ``m`` of a stacked sweep config."""
+    return MethodParams(*(t[m] for t in sweep))
 
 
 @dataclass(frozen=True)
@@ -103,6 +158,7 @@ class EngineConfig:
     p1: float = 0.9
     p2: float = 0.8
     kmeans_iters: int = 20
+    reset_opt_each_round: bool = False
 
 
 def resolve_local_steps(swarm: SwarmConfig, clients_data, batch_size: int) -> int:
@@ -174,12 +230,26 @@ def make_swarm_state(model: Model, opt: Optimizer, clients_data, seed: int, *,
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     params = tree_stack([model.init(gen) for _ in clients_data])
-    # vmap expands the unbatched ``step`` scalar; make it a real (N,) tensor
-    opt_state = tree_map(torch.Tensor.contiguous, vmap(opt.init)(params))
+    opt_state = init_opt_state(opt, params)
     n_samples = torch.as_tensor([c["n_train"] for c in clients_data],
                                 dtype=torch.float32, device=device)
     return SwarmState(params=params, opt_state=opt_state, generator=gen, round=0,
                       n_samples=n_samples)
+
+
+def make_sweep_state(model: Model, opt: Optimizer, clients_data, seeds, *,
+                     device=None) -> list:
+    """One :class:`SwarmState` per sweep row: row m is exactly the state
+    :func:`make_swarm_state` builds from ``seeds[m]``, each with its own
+    generator, so a sweep row and a serial :func:`run_rounds` from the
+    same seed share one random stream."""
+    return [make_swarm_state(model, opt, clients_data, s, device=device) for s in seeds]
+
+
+def init_opt_state(opt: Optimizer, params):
+    """Fresh client-stacked optimizer state (vmap expands the unbatched
+    ``step`` scalar; it is made a real (N,) tensor)."""
+    return tree_map(torch.Tensor.contiguous, vmap(opt.init)(params))
 
 
 # -------------------------------------------------------------- round pieces
@@ -194,11 +264,77 @@ def draw_batch_idx(generator: torch.Generator, train_n, batch_size: int) -> torc
     return torch.minimum(idx, train_n[:, None] - 1)
 
 
+def draw_pool_idx(generator: torch.Generator, train_n, batch_size: int) -> torch.Tensor:
+    """(N, B) uniform global row ids in ``[0, sum(train_n))``: a pooled
+    batch's draw, before it is mapped to (client, row)."""
+    total = torch.sum(train_n)
+    u = torch.rand((train_n.shape[0], batch_size), generator=generator,
+                   device=train_n.device, dtype=torch.float64)
+    return torch.minimum((u * total).long(), total - 1)
+
+
+def draw_round(generator: torch.Generator, train_n, cfg: EngineConfig) -> RoundDraws:
+    """Every random input of one round from ``generator``, in one fixed
+    order: own rows and pooled rows of each local step, the k-means++
+    uniforms, the brain-storm draws. A round takes them all whichever
+    branch it runs, so the generator is at the same place after a plain
+    round and after the method row that equals it."""
+    steps = range(cfg.local_steps)
+    N, dev = train_n.shape[0], train_n.device
+    batch_idx = torch.stack([draw_batch_idx(generator, train_n, cfg.batch_size)
+                             for _ in steps])
+    pool_idx = torch.stack([draw_pool_idx(generator, train_n, cfg.batch_size)
+                            for _ in steps])
+    kmeans_u = torch.rand((cfg.n_clusters,), generator=generator, device=dev,
+                          dtype=torch.float64)
+    return RoundDraws(batch_idx=batch_idx, kmeans_init_idx=None,
+                      bso=draw_bso(cfg.n_clusters, N, generator, dev),
+                      pool_idx=pool_idx, kmeans_u=kmeans_u)
+
+
 def sample_local_batch(train, idx) -> dict:
     """Per-client minibatch (N, B, ...) gathered on the device from
     row ids ``idx`` (N, B)."""
     rows = torch.arange(idx.shape[0], device=idx.device)[:, None]
     return {k: v[rows, idx] for k, v in train.items()}
+
+
+def swarm_batch_indices(train_n, own_row, pool_idx, pool):
+    """(client, row) pairs (N, B) of one method-axis minibatch, from its
+    draws: ``own_row`` (N, B) rows below each client's ``train_n``, and
+    ``pool_idx`` (N, B) global row ids below ``sum(train_n)``.
+
+    - pool off: client i draws its own rows, exactly the per-client
+      batch of :func:`sample_local_batch`;
+    - pool on: a global row id is mapped to (client, row) through the
+      cumulative client sizes, the centralized method's merged client
+      N replicas wide. Pad rows stay unreachable in both.
+    ``pool`` is a () bool tensor; the select runs on the device."""
+    N = train_n.shape[0]
+    own_row, pool_idx = own_row.to(train_n.dtype), pool_idx.to(train_n.dtype)
+    own_client = torch.arange(N, device=train_n.device)[:, None].expand_as(own_row)
+    cum = torch.cumsum(train_n, dim=0)
+    pool_client = torch.searchsorted(cum, pool_idx, right=True)
+    pool_row = pool_idx - (cum[pool_client] - train_n[pool_client])
+    return (torch.where(pool, pool_client, own_client),
+            torch.where(pool, pool_row, own_row))
+
+
+def sample_swarm_batch(train, train_n, own_row, pool_idx, pool) -> dict:
+    """Method-axis minibatch over the rectangular stack (see
+    :func:`swarm_batch_indices`)."""
+    client, row = swarm_batch_indices(train_n, own_row, pool_idx, pool)
+    return {k: v[client, row] for k, v in train.items()}
+
+
+def sample_round_batch(data: SwarmData, own_row, pool_idx=None, pool=None) -> dict:
+    """One local step's stacked batch: the plain per-client batch when
+    ``pool`` is None (no method row), else the method-axis batch."""
+    if pool is None:
+        return sample_local_batch(data.train, own_row)
+    if pool_idx is None:
+        raise ValueError("a method row samples through pooled draws: give RoundDraws.pool_idx")
+    return sample_swarm_batch(data.train, data.train_n, own_row, pool_idx, pool)
 
 
 def local_phase(step, params, opt_state, lr, batches):
@@ -242,27 +378,69 @@ def eval_swarm(model: Model, params, data: SwarmData) -> torch.Tensor:
 # ---------------------------------------------------------------- the round
 
 
+def _coordinate(params, val, cfg: EngineConfig, draws: RoundDraws):
+    """Distribution upload -> k-means -> brain storm over the swarm:
+    (assignments, centers, n_replaced, n_swapped)."""
+    if draws.kmeans_init_idx is None and draws.kmeans_u is None:
+        raise ValueError("RoundDraws needs kmeans_init_idx or kmeans_u for the coordinator")
+    feats = swarm_distribution_matrix(params)
+    _, a0 = kmeans(feats, cfg.n_clusters, cfg.kmeans_iters, init_idx=draws.kmeans_init_idx,
+                   u=draws.kmeans_u)
+    return brain_storm(a0, val, cfg.n_clusters, cfg.p1, cfg.p2, draws=draws.bso)
+
+
+def _coordinate_and_aggregate(params, opt_state, val, n_samples, cfg: EngineConfig,
+                              masks: MethodParams, draws: RoundDraws):
+    """The method-axis tail of :func:`swarm_round`: the coordinator
+    (stats, k-means, brain storm) always runs, then the row's
+    ``use_coord`` picks its assignments or ``base_assign``, and Eq. 2
+    runs over N segments (so the identity plan, the global plan and the
+    coordinator's clusters share one layout). Returns ``(params,
+    opt_state, assignments, centers, n_replaced, n_swapped)``."""
+    N = n_samples.shape[0]
+    if cfg.n_clusters > N:
+        raise ValueError(f"the method axis needs n_clusters <= n_clients, got "
+                         f"{cfg.n_clusters} > {N}")
+    bsa_a, bsa_c, n_rep, n_swap = _coordinate(params, val, cfg, draws)
+    use = masks.use_coord
+    zero = torch.zeros((), dtype=torch.int32, device=val.device)
+    assignments = torch.where(use, bsa_a, masks.base_assign.to(bsa_a.dtype))
+    centers = torch.where(use, bsa_c, -1)
+    n_rep = torch.where(use, n_rep, zero)
+    n_swap = torch.where(use, n_swap, zero)
+    params = cluster_fedavg(params, assignments, n_samples, k=N)
+    if cfg.reset_opt_each_round:
+        opt_state = init_opt_state(cfg.opt, params)
+    return params, opt_state, assignments, centers, n_rep, n_swap
+
+
 def swarm_round(state: SwarmState, data: SwarmData, cfg: EngineConfig,
-                draws: RoundDraws = None):
+                method: MethodParams = None, draws: RoundDraws = None):
     """One full BSO-SL round: local steps, eval, distribution upload,
-    k-means, brain storm, Eq. 2 aggregation. Random inputs come from
-    ``draws`` when given, else from ``state.generator``."""
+    k-means, brain storm, Eq. 2 aggregation.
+
+    ``method`` puts the round on the Table-II axis (a :class:`MethodParams`
+    row; see :func:`_coordinate_and_aggregate`); None keeps the static
+    ``cfg.aggregation`` branches (``none`` skips the coordinator).
+    Random inputs come from ``draws`` when given, else from
+    ``state.generator`` through :func:`draw_round`."""
     if cfg.aggregation not in ("bso", "fedavg", "none"):
         raise ValueError(f"unknown aggregation {cfg.aggregation!r} "
                          "(one of 'bso', 'fedavg', 'none')")
     model, opt = cfg.model, cfg.opt
-    gen = state.generator
     N = data.train_n.shape[0]
     dev = data.train_n.device
+    if draws is None:
+        draws = draw_round(state.generator, data.train_n, cfg)
 
     # --- local phase
     step = make_train_step(model, opt)
-    if draws is None:
-        batch_idx = [draw_batch_idx(gen, data.train_n, cfg.batch_size)
-                     for _ in range(cfg.local_steps)]
-    else:
-        batch_idx = draws.batch_idx.to(dev).long()
-    batches = (sample_local_batch(data.train, idx) for idx in batch_idx)
+    pool = None if method is None else method.pool_data
+    batch_idx = draws.batch_idx.to(dev).long()
+    pool_idx = None if draws.pool_idx is None else draws.pool_idx.to(dev).long()
+    batches = (sample_round_batch(data, batch_idx[i],
+                                  None if pool_idx is None else pool_idx[i], pool)
+               for i in range(batch_idx.shape[0]))
     params, opt_state, losses = local_phase(step, state.params, state.opt_state,
                                             cfg.lr, batches)
     train_loss = losses[-1]
@@ -272,7 +450,10 @@ def swarm_round(state: SwarmState, data: SwarmData, cfg: EngineConfig,
 
     # --- coordinator + aggregation
     zero = torch.zeros((), dtype=torch.int32, device=dev)
-    if cfg.aggregation == "none":
+    if method is not None:
+        params, opt_state, assignments, centers, n_rep, n_swap = _coordinate_and_aggregate(
+            params, opt_state, val, state.n_samples, cfg, method, draws)
+    elif cfg.aggregation == "none":
         assignments = torch.zeros((N,), dtype=torch.int32, device=dev)
         centers = torch.zeros((0,), dtype=torch.int32, device=dev)
         n_rep = n_swap = zero
@@ -284,13 +465,10 @@ def swarm_round(state: SwarmState, data: SwarmData, cfg: EngineConfig,
             n_rep = n_swap = zero
         else:
             k = cfg.n_clusters
-            feats = swarm_distribution_matrix(params)
-            _, a0 = kmeans(feats, k, cfg.kmeans_iters, generator=gen,
-                           init_idx=None if draws is None else draws.kmeans_init_idx)
-            assignments, centers, n_rep, n_swap = brain_storm(
-                a0, val, k, cfg.p1, cfg.p2, generator=gen,
-                draws=None if draws is None else draws.bso)
+            assignments, centers, n_rep, n_swap = _coordinate(params, val, cfg, draws)
         params = cluster_fedavg(params, assignments, state.n_samples, k=k)
+        if cfg.reset_opt_each_round:
+            opt_state = init_opt_state(opt, params)
 
     new_state = state._replace(params=params, opt_state=opt_state, round=state.round + 1)
     metrics = RoundMetrics(mean_val_acc=torch.mean(val), val_acc=val,
@@ -299,14 +477,36 @@ def swarm_round(state: SwarmState, data: SwarmData, cfg: EngineConfig,
     return new_state, metrics
 
 
-def run_rounds(state: SwarmState, data: SwarmData, cfg: EngineConfig, rounds: int):
-    """``rounds`` calls of :func:`swarm_round`; metrics gain a leading
-    (rounds,) axis."""
+def _stack_metrics(ms) -> RoundMetrics:
+    return RoundMetrics(*(torch.stack(f) for f in zip(*ms)))
+
+
+def run_rounds(state: SwarmState, data: SwarmData, cfg: EngineConfig, rounds: int,
+               method: MethodParams = None):
+    """``rounds`` calls of :func:`swarm_round` (on the method row
+    ``method``, if given); metrics gain a leading (rounds,) axis."""
     ms = []
     for _ in range(rounds):
-        state, m = swarm_round(state, data, cfg)
+        state, m = swarm_round(state, data, cfg, method)
         ms.append(m)
-    return state, RoundMetrics(*(torch.stack(f) for f in zip(*ms)))
+    return state, _stack_metrics(ms)
+
+
+def run_sweep(states, data: SwarmData, cfg: EngineConfig, sweep: MethodParams, rounds: int):
+    """The Table-II axis: row m is exactly ``run_rounds(states[m], data,
+    cfg, rounds, sweep_row(sweep, m))``, the rows run one after another
+    over the one shared ``data``. ``states`` is a list of per-row states
+    (:func:`make_sweep_state`); ``sweep`` the stacked rows
+    (:func:`make_sweep_config`). Returns the list of final states and
+    the metrics with leading (M, rounds) axes."""
+    if len(states) != sweep.use_coord.shape[0]:
+        raise ValueError(f"{len(states)} states for {sweep.use_coord.shape[0]} sweep rows")
+    finals, ms = [], []
+    for m, state in enumerate(states):
+        state, mm = run_rounds(state, data, cfg, rounds, sweep_row(sweep, m))
+        finals.append(state)
+        ms.append(mm)
+    return finals, _stack_metrics(ms)
 
 
 def copy_state(state: SwarmState) -> SwarmState:

@@ -23,26 +23,31 @@ def _pairwise_sq_dists(X, C):
     return torch.clamp(x2 + c2 - 2.0 * X @ C.T, min=0.0)
 
 
-def kmeans_pp_init(X, k: int, *, generator: torch.Generator = None,
-                   init_idx=None) -> torch.Tensor:
+def kmeans_pp_init(X, k: int, *, generator: torch.Generator = None, init_idx=None,
+                   u=None) -> torch.Tensor:
     """k-means++ seeding -> (k, F) initial centroids.
 
     ``init_idx`` (k,) injects the seed rows (how a test hands over the
-    reference's draws). Without it the first seed is uniform and each
-    further seed is drawn with probability proportional to its squared
-    distance from the nearest chosen seed, from ``generator``."""
+    reference's draws). Otherwise seed i is picked by the uniform
+    ``u[i]`` ((k,) in [0, 1), drawn from ``generator`` when not given):
+    the first uniformly, each further one by inverting the cumulative
+    squared distances to the nearest chosen seed, so a point is taken
+    with probability proportional to that distance. The draws do not
+    depend on X, so a round can take them before it has X."""
     if init_idx is not None:
         return X[torch.as_tensor(init_idx, device=X.device).long()]
     N = X.shape[0]
-    idx = [torch.randint(0, N, (1,), generator=generator, device=X.device)]
-    for _ in range(1, k):
+    if u is None:
+        u = torch.rand((k,), generator=generator, device=X.device, dtype=torch.float64)
+    u = torch.as_tensor(u, device=X.device).double()
+    uniform = torch.clamp((u * N).long(), max=N - 1)             # (k,)
+    idx = [uniform[:1]]
+    for i in range(1, k):
         d = torch.min(_pairwise_sq_dists(X, X[torch.cat(idx)]), dim=1).values
-        total = d.sum()
-        # all points on the seeds: fall back to uniform (multinomial
-        # refuses an all-zero distribution)
-        p = torch.where(total > 0, d / torch.clamp(total, min=1e-12),
-                        torch.full_like(d, 1.0 / N))
-        idx.append(torch.multinomial(p, 1, generator=generator))
+        cum = torch.cumsum(d.double(), dim=0)
+        pick = torch.searchsorted(cum, (u[i] * cum[-1])[None], right=True)
+        # all points on the seeds: fall back to the uniform pick
+        idx.append(torch.where(cum[-1] > 0, torch.clamp(pick, max=N - 1), uniform[i:i + 1]))
     return X[torch.cat(idx)]
 
 
@@ -63,9 +68,10 @@ def lloyd_step(X, C, k: int) -> torch.Tensor:
 
 
 def kmeans(X, k: int, iters: int = 20, *, generator: torch.Generator = None,
-           init_idx=None):
-    """Returns (centroids (k, F), assignments (N,) int32)."""
-    C = kmeans_pp_init(X, k, generator=generator, init_idx=init_idx)
+           init_idx=None, u=None):
+    """Returns (centroids (k, F), assignments (N,) int32). The seeding
+    takes ``init_idx`` or ``u`` (see :func:`kmeans_pp_init`)."""
+    C = kmeans_pp_init(X, k, generator=generator, init_idx=init_idx, u=u)
     for _ in range(iters):
         C = lloyd_step(X, C, k)
     return C, ops.kmeans_assign(X, C)

@@ -5,7 +5,8 @@ of ``repro.core.swarm``): the port's normal entry point.
 and advances it one :func:`~repro_torch.core.engine.swarm_round` per
 round, keeping ``round`` / ``fit`` / ``client_scores`` /
 ``mean_accuracy`` / ``history``. It runs on ``cuda`` unless built with
-``device="cpu"``.
+``device="cpu"``. :func:`eval_client` is the one-client eval loop of the
+centralized baseline (:mod:`repro_torch.core.baselines`).
 """
 from __future__ import annotations
 
@@ -16,12 +17,29 @@ import numpy as np
 
 from repro_torch.configs.base import OptimizerConfig, SwarmConfig
 from repro_torch.core.engine import (EngineConfig, RoundDraws, RoundMetrics,
-                                     SwarmState, make_client_eval, make_swarm_data,
-                                     make_swarm_state, resolve_local_steps,
-                                     stack_eval_split, swarm_round)
+                                     SwarmState, make_batch, make_client_eval,
+                                     make_swarm_data, make_swarm_state, pad_eval_split,
+                                     resolve_local_steps, stack_eval_split, swarm_round)
 from repro_torch.models.model import Model
 from repro_torch.optim.optimizers import make_optimizer
 from repro_torch.utils.device import resolve_device
+from repro_torch.utils.tree import tree_leaves
+
+
+def eval_client(eval_fn, cfg, params, X, y, batch: int = 64) -> float:
+    """Masked fixed-shape evaluation of ONE client (pads with label -1
+    rows), on the device of ``params``: the centralized baseline's eval,
+    and the oracle of the engine's client-stacked eval."""
+    device = next(iter(tree_leaves(params))).device
+    n = len(y)
+    correct, total = 0.0, 0
+    for s in range(0, n, batch):
+        k = len(y[s:s + batch])
+        xb, yb = pad_eval_split(X[s:s + batch], y[s:s + batch], batch)
+        m = eval_fn(params, make_batch(cfg, xb, yb, device))
+        correct += float(m["acc"]) * k
+        total += k
+    return correct / max(total, 1)
 
 
 @dataclass
@@ -92,7 +110,7 @@ class SwarmTrainer:
     def round(self, r: Optional[int] = None, draws: RoundDraws = None) -> RoundLog:
         """One protocol round; ``draws`` injects its random inputs."""
         r = len(self.history) if r is None else r
-        self.state, m = swarm_round(self.state, self.swarm_data, self.engine_cfg, draws)
+        self.state, m = swarm_round(self.state, self.swarm_data, self.engine_cfg, draws=draws)
         log = _round_log(r, m)
         self.history.append(log)
         return log

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _attn
 from repro_torch.kernels import flash_decode as _decode
 from repro_torch.kernels import kmeans_assign as _assign
 from repro_torch.kernels import param_stats as _stats
@@ -36,3 +37,26 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos,
     if q.device.type == "cpu":
         return ref.decode_attention(q, k, v, pos, window)
     return _decode.flash_decode(q, k, v, pos, window)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                    window: int = 0, block_q: int = 128, block_k: int = 128,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Forward GQA attention of q (B,H,Sq,D) against k, v (B,KV,Sk,D),
+    causal and / or windowed, query row 0 at position ``q_offset``.
+    Raises ValueError where the reference does: unless each sequence
+    length is a multiple of ``min(block, S)``."""
+    if q.device.type == "cpu":
+        _attn.check_blocks(q.shape[2], k.shape[2], block_q, block_k)
+        return ref.attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    return _attn.flash_attention(q, k, v, causal=causal, window=window, block_q=block_q,
+                                 block_k=block_k, q_offset=q_offset)
+
+
+def flash_attention_bsh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        **kw) -> torch.Tensor:
+    """:func:`flash_attention` in the model's (B,S,H,D) layout."""
+    if q.device.type == "cpu":
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), **kw)
+        return out.transpose(1, 2)
+    return _attn.flash_attention_bsh(q, k, v, **kw)

@@ -55,3 +55,36 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgt,bktd->bkgd", p, v.float())
     return o.reshape(B, H, 1, D).to(q.dtype)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+              window: int = 0, q_offset: int = 0) -> torch.Tensor:
+    """Forward GQA attention: q (B,H,Sq,D), k, v (B,KV,Sk,D) with
+    H % KV == 0, query head h reading kv head h // G. Query row i sits
+    at global position ``q_offset + i``; ``causal`` keeps cols <= that
+    position and ``window > 0`` keeps cols > position - window. fp32
+    softmax scaled by 1/sqrt(D), masked scores at -1e30, the output in
+    q's dtype.
+
+    A query row with no valid key gives 0, as the reference's Pallas
+    kernel does (its ``acc / max(l, 1e-30)`` with l = 0); the
+    reference's own oracle ``ref_attention`` gives the mean of v there
+    (a softmax over all -1e30 scores is uniform). Every other row is
+    ``ref_attention``'s."""
+    B, H, Sq, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, KV, G, Sq, D).float()
+    s = torch.einsum("bkgsd,bktd->bkgst", qg, k.float()) / math.sqrt(D)
+    rows = q_offset + torch.arange(Sq, device=q.device)[:, None]
+    cols = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = cols <= rows
+    if window > 0:
+        mask = mask & (cols > rows - window)
+    s = torch.where(mask, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgst,bktd->bkgsd", p, v.float())
+    o = torch.where(mask.any(dim=1)[:, None], o, 0.0)
+    return o.reshape(B, H, Sq, D).to(q.dtype)

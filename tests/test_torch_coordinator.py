@@ -106,6 +106,17 @@ def test_kmeans_pp_seeding_from_a_generator():
     assert torch.equal(C0, torch.zeros((3, 4)))
 
 
+@pytest.mark.parametrize("u1,pick", [(0.0, 1), (0.05, 1), (0.0999, 1), (0.1001, 2),
+                                     (0.5, 2), (0.9999, 2)])
+def test_kmeans_pp_seeding_inverts_the_squared_distances(u1, pick):
+    """Seed 0 is row floor(u0 * N); seed 1 inverts the cumulative squared
+    distances [0, 1, 9]: row 1 for u1 < 0.1, row 2 above, never the
+    seed itself."""
+    X = torch.tensor([[0.0], [1.0], [3.0]])
+    C = tkm.kmeans_pp_init(X, 2, u=torch.tensor([0.2, u1], dtype=torch.float64))
+    assert C[:, 0].tolist() == [0.0, X[pick, 0].item()]
+
+
 @pytest.mark.parametrize("seed", range(24))
 def test_brain_storm_with_reference_draws_matches_reference(seed):
     """Random p1, p2 (so replacements and swaps both happen), the

@@ -12,6 +12,7 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
+from repro_torch.kernels import flash_attention as k_attn  # noqa: E402
 from repro_torch.kernels import flash_decode as k_decode  # noqa: E402
 from repro_torch.kernels import kmeans_assign as k_assign  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
@@ -147,3 +148,97 @@ def test_smoke_generate_on_the_card_matches_the_cpu(cuda):
     assert k_decode.flash_decode.launches - before == model.cfg.n_layers * eng.n_decode_calls
     cpu = serve.generate(model, params, prompts, max_new_tokens=5, buckets=buckets, device="cpu")
     assert [r.tokens for r in res] == [r.tokens for r in cpu]
+
+
+# tests/test_kernels.py's FLASH_CASES (B, H, KV, S, D, causal, window, bq,
+# bk) with q_offset 0, then q_offset / no-valid-key / ragged cases:
+# (B, H, KV, Sq, Sk, D, causal, window, q_offset)
+ATTN_CASES = [
+    (1, 4, 4, 128, 128, 64, True, 0, 0),
+    (2, 8, 2, 256, 256, 64, True, 0, 0),
+    (1, 8, 1, 256, 256, 128, True, 0, 0),
+    (2, 4, 4, 128, 128, 64, False, 0, 0),
+    (1, 4, 2, 256, 256, 64, True, 64, 0),
+    (1, 2, 2, 512, 512, 64, True, 128, 0),
+    (1, 4, 2, 64, 64, 32, False, 16, 100),       # no row has a key
+    (1, 2, 1, 64, 128, 32, True, 24, 140),       # some rows have none
+    (2, 8, 2, 512, 2048, 64, True, 0, 1536),     # a prefill chunk at the cache's end
+    (1, 4, 1, 100, 100, 64, True, 0, 0),         # ragged tiles
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ATTN_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_matches_plain_on_the_card(cuda, case, dtype):
+    """fp32 2e-5, bf16 2e-2: the reference's tolerances for its own
+    kernel against its oracle."""
+    B, H, KV, Sq, Sk, D, causal, window, off = case
+    gen = torch.Generator(device=cuda).manual_seed(Sq + Sk + D)
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, H, Sq, D), generator=gen, device=cuda).to(dt)
+    k, v = (torch.randn((B, KV, Sk, D), generator=gen, device=cuda).to(dt) for _ in range(2))
+    kw = dict(causal=causal, window=window, q_offset=off)
+    got = k_attn.flash_attention(q, k, v, block_q=Sq, block_k=Sk, **kw)
+    expect = ref.attention(q, k, v, **kw)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    assert got.dtype == q.dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), expect.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_reads_and_writes_strided_bsh(cuda, dtype):
+    """(B,S,H,D) activations through flash_attention_bsh, and views with
+    odd strides (16-byte loads off), against the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    dt = getattr(torch, dtype)
+    q = torch.randn((2, 192, 8, 64), generator=gen, device=cuda).to(dt)
+    kv = torch.randn((2, 192, 2, 2, 64), generator=gen, device=cuda).to(dt)
+    k, v = kv[:, :, :, 0], kv[:, :, :, 1]                 # strided, as a fused kv would be
+    got = k_attn.flash_attention_bsh(q, k, v, causal=True, window=50, block_q=64, block_k=64)
+    expect = ref.attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                           causal=True, window=50).transpose(1, 2)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    assert got.shape == q.shape and got.is_contiguous()
+    torch.testing.assert_close(got.float(), expect.float(), rtol=tol, atol=tol)
+    odd = torch.randn((1, 4, 70, 65), generator=gen, device=cuda).to(dt)[..., 1:]
+    kk = torch.randn((1, 2, 70, 65), generator=gen, device=cuda).to(dt)[..., 1:]
+    got = k_attn.flash_attention(odd, kk, kk, block_q=70, block_k=70)
+    torch.testing.assert_close(got.float(), ref.attention(odd, kk, kk).float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.cuda
+def test_ops_flash_attention_on_the_card_launches_the_kernel_only(cuda, monkeypatch):
+    def plain(*a, **kw):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q = torch.randn((1, 4, 128, 64), generator=gen, device=cuda)
+    k, v = (torch.randn((1, 2, 128, 64), generator=gen, device=cuda) for _ in range(2))
+    expect = ref.attention(q, k, v)
+    monkeypatch.setattr(ref, "attention", plain)
+    before = k_attn.flash_attention.launches
+    got = ops.flash_attention(q, k, v)
+    got_bsh = ops.flash_attention_bsh(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    assert k_attn.flash_attention.launches == before + 2
+    torch.testing.assert_close(got, expect, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(got_bsh.transpose(1, 2), expect, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_what_it_does_not_take(cuda):
+    kv = torch.zeros((1, 2, 64, 64), device=cuda)
+    for dt in (torch.float16, torch.float8_e4m3fn):
+        x = torch.zeros((1, 4, 64, 64), device=cuda).to(dt)
+        with pytest.raises(TypeError, match="float32 and bfloat16"):
+            k_attn.flash_attention(x, kv.to(dt), kv.to(dt))
+    with pytest.raises(ValueError, match="D in"):
+        k_attn.flash_attention(torch.zeros((1, 4, 64, 48), device=cuda),
+                               torch.zeros((1, 2, 64, 48), device=cuda),
+                               torch.zeros((1, 2, 64, 48), device=cuda))
+    with pytest.raises(ValueError, match="must divide blocks"):
+        k_attn.flash_attention(torch.zeros((1, 4, 96, 64), device=cuda), kv, kv, block_q=64)
+    with pytest.raises(ValueError, match="H % KV"):
+        k_attn.flash_attention(torch.zeros((1, 3, 64, 64), device=cuda), kv, kv)

@@ -157,7 +157,7 @@ def test_whole_swarm_round_matches_reference(clients, jax_setup, jax_state0):
 
     tstate = state_from_numpy(jax_state0._asdict(), "cpu")
     tdata = teng.make_swarm_data(build_model(get_config(ARCH)).cfg, clients, device="cpu")
-    tnew, tm = teng.swarm_round(tstate, tdata, _port_cfg(), draws)
+    tnew, tm = teng.swarm_round(tstate, tdata, _port_cfg(), draws=draws)
 
     np.testing.assert_array_equal(tm.assignments.numpy(), np.asarray(jm.assignments))
     np.testing.assert_array_equal(tm.centers.numpy(), np.asarray(jm.centers))
