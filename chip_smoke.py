@@ -8,7 +8,10 @@ It needs a CUDA device and the repository's ``src/``; without either it
 exits non-zero and prints no result. It imports nothing of JAX. Phases:
 
 1. build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
-   source, in parallel) and print the card's name and power limit;
+   source, in parallel), print ptxas' registers, shared memory and
+   spills and a SASS census of the attention kernels (``cuobjdump
+   -sass``: tensor-core ``HMMA`` and asynchronous-copy ``LDGSTS``
+   instructions), and print the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card at
    the main path's shapes and a few harder ones, and time kernel, plain
    version and a one-call PyTorch yardstick;
@@ -22,7 +25,8 @@ exits non-zero and prints no result. It imports nothing of JAX. Phases:
    the card and on the CPU (the plain versions there) and compare;
 5. hold the flash_decode kernel against its plain version at the serve
    path's shapes (q (4,32,1,64) against a bf16 cache stored
-   (4,S,8,64), S 1024 and 2048, per-row positions) and harder ones, and
+   (4,S,8,64), S 1024 and 2048, per-row positions), harder ones, and
+   one call replayed three times in a CUDA graph on new inputs, and
    time kernel, plain version and ``scaled_dot_product_attention``;
 6. drive the serve path: granite-3-2b as registered (40 layers, full
    width, random weights from a seeded generator on the card) through
@@ -35,8 +39,9 @@ exits non-zero and prints no result. It imports nothing of JAX. Phases:
    time) and compare tokens and logits;
 8. hold the flash_attention kernel against its plain version (the
    reference's FLASH_CASES in fp32 and bf16, rows with no valid key, a
-   prefill chunk at q_offset 1536, strided (B,S,H,D) input, granite's
-   full prefill shape) and time kernel, plain version and
+   prefill chunk at q_offset 1536, strided (B,S,H,D) input, bf16 at D 32
+   and 128, ragged tiles, an unaligned strided view, granite's full
+   prefill shape) and time kernel, plain version and
    ``scaled_dot_product_attention`` at granite's shape (B 4, H 32, KV 8,
    S 2048, D 64, bf16, causal);
 9. drive flash_attention on its path: one granite-3-2b attention layer
@@ -58,6 +63,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -155,6 +161,62 @@ def bound_ms(n_bytes: float, n_ops: float, peak_flops: float = FP32_FLOPS):
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     by_ops = n_ops / peak_flops * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def ptxas_report(text: str) -> list:
+    """One line a kernel from ``-Xptxas -v`` output: its name with the
+    template arguments made readable, its registers and shared memory,
+    then its stack and spills."""
+    out, name, parts = [], None, []
+
+    def demangle(sym: str) -> str:
+        # the kernel's <length><name>I..., its length digits possibly run
+        # on from the anonymous namespace's hash before them
+        for m in re.finditer(r"(?=(\d+))", sym):
+            n, end = int(m.group(1)), m.start() + len(m.group(1))
+            base = sym[end:end + n]
+            if sym[end + n:end + n + 1] == "I" and base.isidentifier():
+                args = sym[end + n + 1:].split("EEv")[0]
+                args = args.replace("13__nv_bfloat16", "bf16,").replace("6__half", "fp16,")
+                args = re.sub(r"^f(?=L)", "fp32,", args).replace("Li", "").rstrip("E,")
+                return f"{base}<{args}>"
+        return sym
+
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            if name:
+                out.append(f"{name}: {'; '.join(parts)}")
+            name, parts = demangle(m.group(1)), []
+        elif name and ("bytes stack" in line or "registers" in line):
+            parts.append(line.split(":", 1)[-1].strip())
+    if name:
+        out.append(f"{name}: {'; '.join(parts)}")
+    return out
+
+
+# census of the attention libraries' SASS: (library, instruction, at least)
+SASS_CENSUS = (("flash_attention", "HMMA", 1), ("flash_attention", "LDGSTS", 1),
+               ("flash_decode", "LDGSTS", 1))
+
+
+def sass_census(build_mod) -> dict:
+    """``{library: {"HMMA": n, "LDGSTS": n}}`` from ``cuobjdump -sass`` of
+    the built libraries (cuobjdump beside nvcc; missing, it raises), and
+    asserts :data:`SASS_CENSUS`: the bf16 attention kernel's products on
+    the tensor cores, both kernels' tiles by cp.async."""
+    tool = Path(build_mod.nvcc_path()).parent / "cuobjdump"
+    if not tool.is_file():
+        raise RuntimeError(f"cuobjdump not found beside nvcc ({tool})")
+    counts = {}
+    for name in sorted({lib for lib, _, _ in SASS_CENSUS}):
+        sass = subprocess.run([str(tool), "-sass", str(build_mod.library_path(name))],
+                              capture_output=True, text=True, check=True, timeout=120).stdout
+        counts[name] = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HMMA", "LDGSTS")}
+        log(f"[build] SASS census {name}: {counts[name]}")
+    for lib, op, least in SASS_CENSUS:
+        assert counts[lib][op] >= least, f"{lib} has {counts[lib][op]} {op} instructions"
+    return counts
 
 
 # ------------------------------------------------------------------ phase 2
@@ -423,9 +485,40 @@ def check_flash_decode(torch, dev):
         if name.startswith("path"):
             path_err = max(path_err, err)
         log(f"[kernels] flash_decode {name}: max abs err {err:.3e} (tol {tol:g})")
-    log(f"[kernels] flash_decode: {len(cases)} cases agree with the plain version; "
-        f"max abs err on the path cases {path_err:.3e}")
+    check_flash_decode_graph(torch, dev, gen)
+    log(f"[kernels] flash_decode: {len(cases)} cases and 3 graph replays agree with the plain "
+        f"version; max abs err on the path cases {path_err:.3e}")
     return path_err
+
+
+def check_flash_decode_graph(torch, dev, gen):
+    """One serve-shape call captured in a CUDA graph, replayed three
+    times on new inputs written in place, each replay against the plain
+    version (2e-2, bf16): the fused merge's counters are back at 0 after
+    every launch."""
+    from repro_torch.kernels import flash_decode, ref
+    B, H, KV, S, D = 4, 32, 8, 2048, 64
+    q, k, v = _decode_case(torch, dev, gen, B, H, KV, S, D, torch.bfloat16)
+    pos = torch.tensor([2047, 1535, 1023, 511], dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flash_decode.flash_decode(q, k, v, pos)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_decode.flash_decode(q, k, v, pos)
+    for rep in range(3):
+        for t in (q, k, v):
+            t.copy_(torch.randn(t.shape, generator=gen, device=dev))
+        pos.copy_(torch.randint(0, S, (B,), generator=gen, device=dev, dtype=torch.int32))
+        graph.replay()
+        expect = ref.decode_attention(q, k, v, pos)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), expect.float(), rtol=2e-2, atol=2e-2,
+                                   msg=lambda m: f"flash_decode graph replay {rep}: {m}")
+        log(f"[kernels] flash_decode graph replay {rep} (pos {pos.tolist()}): max abs err "
+            f"{(out.float() - expect.float()).abs().max().item():.3e} (tol 0.02)")
 
 
 def time_flash_decode(torch, dev):
@@ -697,13 +790,32 @@ def check_flash_attention(torch, dev):
          (128, 128), False),
         ("strided (B,S,H,D) window 256", (2, H, KV, S, S, D), bf16, True, 256, 0, (128, 128),
          True),
+        ("bf16 D=32", (2, 8, 2, 256, 256, 32), bf16, True, 0, 0, (256, 256), False),
+        ("bf16 D=128 window 100", (1, 8, 1, 512, 512, 128), bf16, True, 100, 0, (512, 512),
+         False),
+        ("bf16 ragged Sq 100 Sk 200", (1, 4, 2, 100, 200, 64), bf16, True, 0, 100, (100, 200),
+         False),
+        ("bf16 ragged D=128 non-causal", (2, 8, 1, 200, 200, 128), bf16, False, 0, 0,
+         (200, 200), False),
+        ("bf16 unaligned strided (B,S,H,D)", (2, 8, 2, 130, 130, 64), bf16, True, 90, 0,
+         (130, 130), "unaligned"),
         ("granite prefill", (B, H, KV, S, S, D), bf16, True, 0, 0, (128, 128), False),
     ]
     path_err = 0.0
     for name, (b, h, kv, sq, sk, d), dt, causal, win, off, (bq, bk), bsh in cases:
         q, k, v = _attn_inputs(torch, dev, gen, b, h, kv, sq, sk, d, dt)
         kw = dict(causal=causal, window=win, q_offset=off)
-        if bsh:
+        if bsh == "unaligned":
+            # (B,S,H,D) views 2 bytes past a 16-byte boundary with odd
+            # strides: the kernel stages its tiles with ordinary loads
+            pad = [torch.zeros(t.shape[:3] + (1,), dtype=dt, device=dev) for t in (q, k, v)]
+            q, k, v = (torch.cat([z, t], dim=3).transpose(1, 2).contiguous()[..., 1:]
+                       .transpose(1, 2) for z, t in zip(pad, (q, k, v)))
+            assert q.data_ptr() % 16 and not flash_attention._aligned16(q)
+            got = flash_attention.flash_attention_bsh(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), block_q=bq,
+                block_k=bk, **kw).transpose(1, 2)
+        elif bsh:
             got = flash_attention.flash_attention_bsh(
                 q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
                 v.transpose(1, 2).contiguous(), block_q=bq, block_k=bk, **kw).transpose(1, 2)
@@ -859,6 +971,15 @@ def table2(torch, dev):
     return launches, accs, serial_acc, sweep_s, serial_s
 
 
+def _kernel_line(name, source, replaces, launches, err, times) -> dict:
+    """One entry of the ``{"kernels": [...]}`` line; ``times`` is a
+    timing function's (ms, plain_ms, library_ms, bound_ms, bound_by)."""
+    ms, plain_ms, lib_ms, b, by = times
+    return {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}.cu",
+            "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b, "bound_by": by, "library_ms": lib_ms}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -884,10 +1005,10 @@ def main() -> int:
     t0 = time.perf_counter()
     build_logs = _build.build()
     build_s = time.perf_counter() - t0
-    for k, text in build_logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"[build] {k}: {line.strip()}")
+    for k in _build.KERNELS:
+        for line in ptxas_report(_build.build_log(k)):
+            log(f"[build] {k}: {line}")
+    sass_census(_build)
     card = card_line()
     log(f"[build] {len(build_logs)} kernel libraries built in {build_s:.2f} s on {name}")
     log(card)
@@ -978,30 +1099,14 @@ def main() -> int:
     t2_launches, accs, serial_acc, sweep_s, serial_s = table2(torch, dev)
 
     kernels = [
-        {"name": "param_stats_batched", "route": "cuda",
-         "source": "src/repro_torch/csrc/param_stats.cu",
-         "replaces": "src/repro/kernels/param_stats.py:92",
-         "launches": launches["param_stats_batched"], "max_abs_err": k1_err,
-         "ms": k1[0], "plain_ms": k1[1], "bound_ms": k1[3], "bound_by": k1[4],
-         "library_ms": k1[2]},
-        {"name": "kmeans_assign", "route": "cuda",
-         "source": "src/repro_torch/csrc/kmeans_assign.cu",
-         "replaces": "src/repro/kernels/kmeans_assign.py:44",
-         "launches": launches["kmeans_assign"], "max_abs_err": k2_err,
-         "ms": k2[0], "plain_ms": k2[1], "bound_ms": k2[3], "bound_by": k2[4],
-         "library_ms": k2[2]},
-        {"name": "flash_decode", "route": "cuda",
-         "source": "src/repro_torch/csrc/flash_decode.cu",
-         "replaces": "src/repro/kernels/flash_decode.py:93",
-         "launches": k3_launches, "max_abs_err": k3_err,
-         "ms": k3[0], "plain_ms": k3[1], "bound_ms": k3[3], "bound_by": k3[4],
-         "library_ms": k3[2]},
-        {"name": "flash_attention", "route": "cuda",
-         "source": "src/repro_torch/csrc/flash_attention.cu",
-         "replaces": "src/repro/kernels/flash_attention.py:89",
-         "launches": k4_launches, "max_abs_err": k4_err,
-         "ms": k4[0], "plain_ms": k4[1], "bound_ms": k4[3], "bound_by": k4[4],
-         "library_ms": k4[2]},
+        _kernel_line("param_stats_batched", "param_stats", "src/repro/kernels/param_stats.py:92",
+                     launches["param_stats_batched"], k1_err, k1),
+        _kernel_line("kmeans_assign", "kmeans_assign", "src/repro/kernels/kmeans_assign.py:44",
+                     launches["kmeans_assign"], k2_err, k2),
+        _kernel_line("flash_decode", "flash_decode", "src/repro/kernels/flash_decode.py:93",
+                     k3_launches, k3_err, k3),
+        _kernel_line("flash_attention", "flash_attention",
+                     "src/repro/kernels/flash_attention.py:89", k4_launches, k4_err, k4),
     ]
     log(f"[done] {time.perf_counter() - t_all:.1f} s in all; "
         f"round seconds {round_s}; Table II sweep {sweep_s:.3f} s, serial bso-sl "

@@ -15,31 +15,53 @@
 // prefill shape (B 4, H 32, KV 8, S 2048, D 64, bf16, causal) that is
 // ~68.7 GFLOP against ~84 MB of q, k, v and output, ~800 operations a
 // byte, above the card's ~295 for bf16 tensor cores: the floor is the
-// FLOPs over the tensor-core peak.
+// FLOPs over the tensor-core peak. So the bf16 kernel has to run both
+// products on the tensor cores and keep them fed.
 //
-// Design (a right and simple first kernel; it runs the products on the
-// fp32 FMA units, not the tensor cores, so it sits far above that floor).
-// - The Pallas grid (B, H, n_q, n_k) walks the k-blocks in sequence into
-//   VMEM scratch. Here one CTA holds one (q tile of 64 rows, head, batch
-//   row) and loops over 64-key K/V tiles itself; the running (m, l, acc)
-//   stay in registers for the whole loop.
-// - 128 threads. Thread (r, c) = (tid / 8, tid % 8) owns query rows
-//   4r..4r+3 and, in a tile, score columns c + 8j (j < 8) and output
-//   columns c + 8j (j < D/8). The 8 threads of a row group are 8
-//   neighbouring lanes of one warp, so a row's max and sum are three
-//   xor-shuffles.
-// - Q, K (transposed) and V tiles go through shared memory as fp32. Rows
-//   are padded by one float so that the lanes of a warp hit distinct
-//   banks: 4 row groups x 8 columns read 32 banks, the rest broadcast.
-//   The probabilities of a tile go through shared memory for P.V.
-// - Tiles wholly outside the causal / window band of the CTA's rows are
-//   skipped: they would leave (m, l, acc) unchanged, so this is exact.
-// - q, k, v and the output are read and written through strides with D
-//   the unit-stride axis, so a (B,S,H,D) activation is used as a
-//   (B,H,S,D) view without a transposing copy. Loads are 16 bytes wide
-//   when every base and stride allows.
-// mma.sync / wgmma on the tensor cores, TMA or cp.async double-buffered
-// tiles and warp specialisation are later work.
+// Two kernels, chosen by the wrapper from the dtype; one call is one
+// launch of one of them.
+//
+// flash_attention_mma (bf16), in the shape of FlashAttention-2:
+// - One CTA holds a q tile of one (head, batch row): 4 warps of 32 rows
+//   each at D <= 64 (128 rows), of 16 rows at D 128 (64 rows; 32 would
+//   not fit the registers). A warp's two m16 row tiles share every K/V
+//   fragment it reads from shared memory, which halves the ldmatrix
+//   traffic a product. The CTA loops over 64-key K/V tiles; the running
+//   (m, l, acc) stay in registers for the whole loop.
+// - Both products run on the tensor cores as mma.sync m16n8k16 (bf16 in,
+//   fp32 accumulators). Q is staged once and kept in registers as A
+//   fragments (ldmatrix). K fragments come from ldmatrix, V fragments
+//   from ldmatrix.trans. S = Q.K^T stays in registers, and its m16n8
+//   accumulator fragments, rounded to bf16 pairs, are the A fragments of
+//   P.V: P never goes through shared memory.
+// - K/V tiles stay bf16 in shared memory, rows padded by 8 bf16 (16
+//   bytes) so that the 8 rows an ldmatrix phase reads fall in distinct
+//   banks. Tiles are double-buffered with cp.async (16-byte copies,
+//   commit_group / wait_group): tile t+1 is in flight while tile t is
+//   multiplied. Where a base or a stride is not a multiple of 16 bytes
+//   the same kernel stages with ordinary loads.
+// - The online softmax runs on the accumulator fragments: a thread holds
+//   two rows, whose max and sum take two xor-shuffles over the lane quad
+//   (the sum only once, at the end). exp2 on the SFU (ex2.approx) with
+//   scale*log2(e) folded in.
+// - The causal / window / ragged-Sk mask is applied only to tiles that
+//   cross the band's edge or Sk; tiles wholly inside run unmasked, and
+//   tiles wholly outside are never visited.
+// - blockIdx.z walks the q tiles heaviest first (q tile n_q - 1 - z): the
+//   long causal rows start in the first wave and the short ones fill the
+//   tail.
+//
+// flash_attention_fwd (fp32): the products on the fp32 FMA units from
+// shared memory (TF32 tensor cores cannot meet fp32's 2e-5). 128
+// threads; thread (r, c) = (tid / 8, tid % 8) owns query rows 4r..4r+3
+// and, in a tile, score and output columns c + 8j. Q, K (transposed) and
+// V tiles go through shared memory as fp32 with padded rows; the
+// probabilities of a tile go through shared memory for P.V.
+//
+// Both read q, k, v and write the output through strides with D the
+// unit-stride axis, so a (B,S,H,D) activation is used as a (B,H,S,D)
+// view without a transposing copy. wgmma with TMA and a warp-specialised
+// producer (FlashAttention-3's shape) are later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -47,7 +69,7 @@
 
 namespace {
 
-constexpr int BQ = 64;     // query rows a CTA
+constexpr int BQ = 64;     // query rows a CTA (fma; mma: MmaTile<D>::BQ)
 constexpr int BK = 64;     // keys a tile
 constexpr int NT = 128;    // threads a CTA
 constexpr int RPT = 4;     // query rows a thread
@@ -235,42 +257,365 @@ __global__ void __launch_bounds__(NT)
 }
 
 template <int D>
-constexpr size_t smem_bytes() {
+constexpr size_t fma_smem_bytes() {
   return (size_t)(BQ * (D + 1) + D * (BK + 1) + BK * D + BQ * (BK + 1)) * sizeof(float);
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int KV, int Sq,
-           int Sk, int causal, int window, int q_offset, const Strides& st, int vec,
-           cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+// ------------------------------------------------------------ bf16: mma.sync
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; src_bytes 0 writes zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                        uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                          uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x on the SFU (MUFU.EX2, ~2 ulp; -inf gives 0): the probabilities are
+// rounded to bf16 for P.V, far coarser than its error
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// two floats -> one bf16 pair, the first in the low half (the lower column)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// m16 row tiles a warp holds: two (32 rows) where the registers allow,
+// so that every K/V fragment read from shared memory feeds two products
+template <int D>
+struct MmaTile {
+  static constexpr int MT = D <= 64 ? 2 : 1;
+  static constexpr int BQ = 4 * 16 * MT;             // query rows a CTA (4 warps)
+  static constexpr int LD = D + 8;                   // bf16 a shared row: 16 bytes of pad
+  static constexpr int KV_ELEMS = BK * LD;           // one K or V tile
+  static constexpr size_t BYTES = (size_t)(BQ * LD + 4 * KV_ELEMS) * sizeof(bf16);  // Q, K x 2, V x 2
+};
+
+// Rows [row0, row0 + ROWS) of one (S, D) head into dst (rows of LD bf16).
+// Rows at or past `limit` are zeros. vec: 16-byte cp.async (the caller
+// commits the group); else ordinary loads and stores.
+template <int D, int ROWS>
+__device__ __forceinline__ void stage_bf16(const bf16* __restrict__ src, long long s_stride,
+                                           int row0, int limit, bf16* dst, int vec) {
+  constexpr int LD = MmaTile<D>::LD;
+  if (vec) {
+    constexpr int CPR = D / 8;  // 16-byte chunks a row
+    for (int e = threadIdx.x; e < ROWS * CPR; e += NT) {
+      const int i = e / CPR, c = (e % CPR) * 8;
+      const bool ok = row0 + i < limit;
+      const bf16* g = ok ? src + (long long)(row0 + i) * s_stride + c : src;
+      cp_async16(smem_u32(dst + i * LD + c), g, ok ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < ROWS * D; e += NT) {
+      const int i = e / D, d = e % D;
+      dst[i * LD + d] =
+          row0 + i < limit ? src[(long long)(row0 + i) * s_stride + d] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT)
+    flash_attention_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, bf16* __restrict__ o, int H, int KV, int Sq,
+                        int Sk, int causal, int window, int q_offset, float scale_log2,
+                        Strides st, int vec) {
+  constexpr int MT = MmaTile<D>::MT;
+  constexpr int BQM = MmaTile<D>::BQ;
+  constexpr int LD = MmaTile<D>::LD;
+  constexpr int TILE = MmaTile<D>::KV_ELEMS;
+  constexpr int KS = D / 16;   // k-steps of Q.K^T
+  constexpr int NB = BK / 8;   // n-blocks of S (8 keys each)
+  constexpr int ND = D / 8;    // n-blocks of O (8 columns each)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ks = Qs + BQM * LD;      // 2 stages
+  bf16* Vs = Ks + 2 * TILE;      // 2 stages
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQM;  // heaviest q tile first
+  const int kvh = h / (H / KV);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;  // accumulator row and column pair of this lane
+
+  const bf16* qb = q + b * st.q_b + h * st.q_h;
+  const bf16* kb = k + b * st.k_b + kvh * st.k_h;
+  const bf16* vb = v + b * st.v_b + kvh * st.v_h;
+
+  // the band of columns any row of this tile may see
+  const int pos_lo = q_offset + q0;
+  const int pos_hi = q_offset + min(q0 + BQM, Sq) - 1;
+  const int col_hi = causal ? min(Sk - 1, pos_hi) : Sk - 1;
+  const int col_lo = window > 0 ? max(0, pos_lo - window + 1) : 0;
+  const int t_first = col_lo / BK * BK;
+  const int n_tiles = col_hi >= t_first ? (col_hi - t_first) / BK + 1 : 0;
+
+  stage_bf16<D, BQM>(qb, st.q_s, q0, Sq, Qs, vec);
+  if (n_tiles > 0) {
+    stage_bf16<D, BK>(kb, st.k_s, t_first, Sk, Ks, vec);
+    stage_bf16<D, BK>(vb, st.v_s, t_first, Sk, Vs, vec);
+  }
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
+
+  // A fragments of this warp's MT x 16 rows (rows warp*16*MT + 16*mt ..)
+  uint32_t qf[MT][KS][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+      ldsm_x4(smem_u32(Qs + ((warp * MT + mt) * 16 + (lane & 15)) * LD + ks * 16 +
+                       (lane >> 4) * 8),
+              qf[mt][ks][0], qf[mt][ks][1], qf[mt][ks][2], qf[mt][ks][3]);
+
+  // rows g and g + 8 of each m-tile: running max (in scaled log2 units),
+  // this lane's share of the running sum, and the output accumulators
+  float m_r[MT][2], l_r[MT][2];
+  float acc[MT][ND][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m_r[mt][r] = -INFINITY;
+      l_r[mt][r] = 0.f;
+    }
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nd][e] = 0.f;
+  }
+  // position of row g of m-tile 0; m-tile mt adds 16 mt, row g + 8 adds 8
+  const int pos_g = pos_lo + warp * 16 * MT + g;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int t0 = t_first + it * BK;
+    const int buf = it & 1;
+    __syncthreads();  // every warp is done with the other stage (tile it - 1)
+    if (it + 1 < n_tiles) {
+      stage_bf16<D, BK>(kb, st.k_s, t0 + BK, Sk, Ks + (buf ^ 1) * TILE, vec);
+      stage_bf16<D, BK>(vb, st.v_s, t0 + BK, Sk, Vs + (buf ^ 1) * TILE, vec);
+    }
+    cp_commit();
+    cp_wait<1>();  // tile it has landed; tile it + 1 stays in flight
+    __syncthreads();
+    const bf16* Kt = Ks + buf * TILE;
+    const bf16* Vt = Vs + buf * TILE;
+
+    // S = Q.K^T for the warp's rows x 64 keys; each K fragment feeds MT products
+    float s[MT][NB][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[mt][nb][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+      for (int nb = 0; nb < NB; nb += 2) {
+        uint32_t b0, b1, b2, b3;
+        ldsm_x4(smem_u32(Kt + (nb * 8 + (lane >> 4) * 8 + (lane & 7)) * LD + ks * 16 +
+                         ((lane >> 3) & 1) * 8),
+                b0, b1, b2, b3);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(s[mt][nb], qf[mt][ks], b0, b1);
+          mma_bf16(s[mt][nb + 1], qf[mt][ks], b2, b3);
+        }
+      }
+    }
+
+    // the mask, only where the tile crosses the band's edge or Sk
+    const bool edge = t0 + BK > Sk || (causal && t0 + BK - 1 > pos_lo) ||
+                      (window > 0 && t0 <= pos_hi - window);
+    if (edge) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = t0 + nb * 8 + 2 * t + (e & 1);
+            const int pos = pos_g + 16 * mt + (e >> 1) * 8;
+            const bool ok =
+                col < Sk && (!causal || col <= pos) && (window <= 0 || col > pos - window);
+            if (!ok) s[mt][nb][e] = -INFINITY;
+          }
+    }
+
+    // online softmax on the fragments: e = 0, 1 are row g, e = 2, 3 row g + 8
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+          mx = fmaxf(mx, fmaxf(s[mt][nb][2 * r], s[mt][nb][2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+        const float m_new = fmaxf(m_r[mt][r], mx * scale_log2);
+        // no valid column yet: keep exp2() away from (-inf) - (-inf)
+        const float m_use = m_new == -INFINITY ? 0.f : m_new;
+        const float alpha = fast_exp2(m_r[mt][r] - m_use);
+        float psum = 0.f;
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+          for (int e = 2 * r; e < 2 * r + 2; ++e) {
+            s[mt][nb][e] = fast_exp2(fmaf(s[mt][nb][e], scale_log2, -m_use));  // 0 if masked
+            psum += s[mt][nb][e];
+          }
+        l_r[mt][r] = l_r[mt][r] * alpha + psum;
+        m_r[mt][r] = m_new;
+#pragma unroll
+        for (int nd = 0; nd < ND; ++nd) {
+          acc[mt][nd][2 * r] *= alpha;
+          acc[mt][nd][2 * r + 1] *= alpha;
+        }
+      }
+
+    // O += P.V: the S fragments of keys 16kk..16kk+15 are P's A fragment;
+    // each V fragment feeds MT products
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        a[mt][0] = pack_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1]);
+        a[mt][1] = pack_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3]);
+        a[mt][2] = pack_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
+        a[mt][3] = pack_bf16(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
+      }
+#pragma unroll
+      for (int nd = 0; nd < ND; nd += 2) {
+        uint32_t b0, b1, b2, b3;
+        ldsm_x4_t(smem_u32(Vt + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD + nd * 8 +
+                           (lane >> 4) * 8),
+                  b0, b1, b2, b3);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(acc[mt][nd], a[mt], b0, b1);
+          mma_bf16(acc[mt][nd + 1], a[mt], b2, b3);
+        }
+      }
+    }
+  }
+
+  bf16* ob = o + b * st.o_b + h * st.o_h;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = l_r[mt][r];
+      l += __shfl_xor_sync(kFull, l, 1);
+      l += __shfl_xor_sync(kFull, l, 2);
+      const int row = q0 + (warp * MT + mt) * 16 + g + 8 * r;
+      if (row < Sq) {
+        const float inv = 1.f / fmaxf(l, 1e-30f);
+        bf16* orow = ob + row * st.o_s;
+#pragma unroll
+        for (int nd = 0; nd < ND; ++nd) {
+          orow[nd * 8 + 2 * t] = __float2bfloat16_rn(acc[mt][nd][2 * r] * inv);
+          orow[nd * 8 + 2 * t + 1] = __float2bfloat16_rn(acc[mt][nd][2 * r + 1] * inv);
+        }
+      }
+    }
+}
+
+// ------------------------------------------------------------ launchers
+
+struct Shape {
+  int B, H, KV, Sq, Sk, causal, window, q_offset, vec;
+};
+
+template <int D>
+int launch_fma(const void* q, const void* k, const void* v, void* o, const Shape& sh,
+               const Strides& st, dim3 grid, cudaStream_t stream) {
+  constexpr size_t smem = fma_smem_bytes<D>();
   // the opt-in above 48 KB of shared memory; it is per device, so it is
   // set at every launch (a host-side call of about a microsecond)
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_fwd<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_fwd<float, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_attention_fwd<T, D><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H, KV, Sq, Sk, causal, window, q_offset, 1.0f / sqrtf((float)D), st,
-      vec);
+  flash_attention_fwd<float, D><<<grid, NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), sh.H, sh.KV, sh.Sq, sh.Sk, sh.causal, sh.window, sh.q_offset,
+      1.0f / sqrtf((float)D), st, sh.vec);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_d(int D, const void* q, const void* k, const void* v, void* o, int B, int H, int KV,
-             int Sq, int Sk, int causal, int window, int q_offset, const Strides& st, int vec,
-             cudaStream_t stream) {
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v, void* o, const Shape& sh,
+               const Strides& st, dim3 grid, cudaStream_t stream) {
+  constexpr size_t smem = MmaTile<D>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_mma<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const float log2e = 1.4426950408889634f;
+  flash_attention_mma<D><<<grid, NT, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), sh.H, sh.KV, sh.Sq, sh.Sk, sh.causal, sh.window, sh.q_offset,
+      log2e / sqrtf((float)D), st, sh.vec);
+  return (int)cudaGetLastError();
+}
+
+template <bool MMA>
+int launch_d(int D, const void* q, const void* k, const void* v, void* o, const Shape& sh,
+             const Strides& st, dim3 grid, cudaStream_t s) {
   switch (D) {
     case 32:
-      return launch<T, 32>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, q_offset, st, vec,
-                           stream);
+      return MMA ? launch_mma<32>(q, k, v, o, sh, st, grid, s)
+                 : launch_fma<32>(q, k, v, o, sh, st, grid, s);
     case 64:
-      return launch<T, 64>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, q_offset, st, vec,
-                           stream);
+      return MMA ? launch_mma<64>(q, k, v, o, sh, st, grid, s)
+                 : launch_fma<64>(q, k, v, o, sh, st, grid, s);
     case 128:
-      return launch<T, 128>(q, k, v, o, B, H, KV, Sq, Sk, causal, window, q_offset, st, vec,
-                            stream);
+      return MMA ? launch_mma<128>(q, k, v, o, sh, st, grid, s)
+                 : launch_fma<128>(q, k, v, o, sh, st, grid, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -279,27 +624,38 @@ int launch_d(int D, const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // q (B,H,Sq,D), k and v (B,KV,Sk,D), o (B,H,Sq,D), each given by element
-// strides of its first three axes (D unit-stride). dtype 0 = fp32,
-// 1 = bf16, the same for all four. The wrapper checks the shapes:
-// H % KV == 0, D in {32, 64, 128}, Sq and Sk >= 1, window >= 0, and
-// vec = 1 only when every base and stride is a multiple of 16 bytes.
-// Returns cudaGetLastError() after the launch on `stream`.
+// strides of its first three axes (D unit-stride). kernel 0 = the fp32
+// FMA kernel (grid (n_q, H, B)), 1 = the bf16 tensor-core kernel (grid
+// (H, B, n_q), q tiles heaviest first), n_q = ceil(Sq / rows a CTA): 64
+// for fma, 128 for mma at D <= 64 and 64 at D 128; the wrapper
+// chooses the kernel and the grid (kernels/flash_attention.py
+// launch_plan) and the launcher refuses a grid that does not cover the
+// shape. The wrapper checks the rest: H % KV == 0, D in {32, 64, 128},
+// Sq and Sk >= 1, window >= 0, and vec = 1 only when every base and
+// stride is a multiple of 16 bytes. Returns cudaGetLastError() after the
+// launch on `stream`.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
-                                      int dtype, int B, int H, int KV, int Sq, int Sk, int D,
+                                      int kernel, int B, int H, int KV, int Sq, int Sk, int D,
                                       int causal, int window, int q_offset, long long q_sb,
                                       long long q_sh, long long q_ss, long long k_sb,
                                       long long k_sh, long long k_ss, long long v_sb,
                                       long long v_sh, long long v_ss, long long o_sb,
-                                      long long o_sh, long long o_ss, int vec, void* stream) {
+                                      long long o_sh, long long o_ss, int vec, int gx, int gy,
+                                      int gz, void* stream) {
   const Strides st{q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss};
+  const Shape sh{B, H, KV, Sq, Sk, causal, window, q_offset, vec};
+  // rows a CTA: 64 for fma, MmaTile<D>::BQ for mma
+  const int bq = kernel == 1 && D <= 64 ? 128 : 64;
+  const int n_q = (Sq + bq - 1) / bq;
+  const dim3 grid(gx, gy, gz);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
+  switch (kernel) {
     case 0:
-      return launch_d<float>(D, q, k, v, o, B, H, KV, Sq, Sk, causal, window, q_offset, st, vec,
-                             s);
+      if (gx != n_q || gy != H || gz != B) return (int)cudaErrorInvalidValue;
+      return launch_d<false>(D, q, k, v, o, sh, st, grid, s);
     case 1:
-      return launch_d<__nv_bfloat16>(D, q, k, v, o, B, H, KV, Sq, Sk, causal, window, q_offset,
-                                     st, vec, s);
+      if (gx != H || gy != B || gz != n_q) return (int)cudaErrorInvalidValue;
+      return launch_d<true>(D, q, k, v, o, sh, st, grid, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -54,7 +54,8 @@ def build(names=KERNELS) -> dict:
     """Compile every library in ``names`` that is not built yet, one
     ``nvcc`` per source, all started together. Returns
     ``{name: compiler output}`` (ptxas' register and shared-memory
-    report) for the sources it compiled."""
+    report) for the sources it compiled; the output is also kept beside
+    each library (:func:`build_log`)."""
     todo = [n for n in names if not library_path(n).is_file()]
     if not todo:
         return {}
@@ -73,10 +74,18 @@ def build(names=KERNELS) -> dict:
         if proc.returncode != 0:
             failed.append(f"nvcc failed on {n}.cu (exit {proc.returncode}):\n{err}")
         else:
+            library_path(n).with_suffix(".log").write_text(logs[n])
             os.replace(tmp, library_path(n))
     if failed:
         raise RuntimeError("\n".join(failed))
     return logs
+
+
+def build_log(name: str) -> str:
+    """The compiler output kept from the build of ``csrc/<name>.cu``'s
+    current library ("" if it was built without one)."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.is_file() else ""
 
 
 @functools.lru_cache(maxsize=None)

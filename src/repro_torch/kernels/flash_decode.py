@@ -3,8 +3,9 @@ the serve path's decode hot spot.
 
 Wraps ``csrc/flash_decode.cu``, the port of the Pallas kernel
 ``repro/kernels/flash_decode.py`` (``flash_decode``). The source note
-there says what bounds it and how the split and merge passes are laid
-out. Its plain version is :func:`repro_torch.kernels.ref.decode_attention`.
+there says what bounds it, how a CTA keeps its tiles in flight and how
+the last split of a (row, kv head) merges the partials in the same
+launch. Its plain version is :func:`repro_torch.kernels.ref.decode_attention`.
 """
 from __future__ import annotations
 
@@ -19,15 +20,21 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 HEAD_DIMS = (32, 64, 128, 256)
 MAX_GROUP = 32                        # query rows a CTA holds, one warp each
 MAX_GROUP_ELEMS = 2048                # G * D floats of q in shared memory
-TILE_ELEMS = 4096                     # keys x D of one shared-memory tile
-_CTAS_PER_SM = 2
+TILE_ELEMS = 2048                     # keys x D of one shared-memory tile
+_CTAS_PER_SM = 4
+MAX_SPLITS = 64                       # partials the last CTA of a (row, kv head) merges
+
+# the merge counters, one int32 per (row, kv head), by (device index,
+# stream): zeroed once at first use; every launch leaves them at 0
+_counters: dict = {}
+_retired: list = []                   # outgrown buffers a captured CUDA graph may still use
 
 
 def _lib():
     lib = _build.load("flash_decode")
     fn = lib.flash_decode_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
                        + [ctypes.c_longlong] * 8 + [ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -37,12 +44,32 @@ def split_plan(B: int, KV: int, S: int, D: int, n_sms: int):
     """(chunk, n_split): the cache's S columns cut into ``n_split``
     ranges of ``chunk`` columns (a multiple of the tile), enough to give
     the card ``_CTAS_PER_SM`` CTAs an SM across the B*KV (row, kv head)
-    pairs, never more ranges than tiles."""
+    pairs, never more ranges than tiles nor more than ``MAX_SPLITS``.
+
+    Short ranges keep a CTA's whole range in its ring of copies (at the
+    serve shape 4 tiles of 32 keys, all in flight at once) and spread
+    the bytes in flight over every SM; the cap bounds the partials the
+    last CTA merges."""
     tile = TILE_ELEMS // D
     n_tiles = math.ceil(S / tile)
     want = max(1, math.ceil(_CTAS_PER_SM * n_sms / (B * KV)))
-    chunk = math.ceil(n_tiles / min(want, n_tiles)) * tile
+    chunk_tiles = max(math.ceil(n_tiles / min(want, n_tiles)), math.ceil(n_tiles / MAX_SPLITS))
+    chunk = chunk_tiles * tile
     return chunk, math.ceil(S / chunk)
+
+
+def merge_counter(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The (device, stream)'s merge counters, at least ``n`` of them,
+    zeroed with ``torch.zeros`` at first use; the kernel leaves them at 0,
+    so replays of a captured graph and later calls find them so. A
+    buffer that is outgrown is kept alive, as a graph may hold it."""
+    key = (device.index, stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        if buf is not None:
+            _retired.append(buf)
+        buf = _counters[key] = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+    return buf
 
 
 def _aligned16(t: torch.Tensor) -> bool:
@@ -56,8 +83,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos,
     type on one CUDA device; k and v may be strided views (the serve
     cache's (B,S,KV,D) seen as (B,KV,S,D)) but D must be unit-stride.
     ``pos`` is an int or a () / (B,) integer tensor; ``window >= 0``.
-    Returns (B,H,1,D) in q's type. One count per call: the split pass
-    and the merge pass are its two CUDA launches."""
+    Returns (B,H,1,D) in q's type. One count per call, which is one
+    CUDA launch (the split pass with its merge fused in)."""
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_decode kernel needs q, k, v on one CUDA device, got "
                          f"{q.device}, {k.device}, {v.device}")
@@ -95,8 +122,10 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos,
     vec = int(_aligned16(k) and _aligned16(v))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        counter = merge_counter(q.device, stream, B * KV)
         err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_t.data_ptr(),
-                     out.data_ptr(), part.data_ptr(), _DTYPES[q.dtype], B, H, KV, S, D,
+                     out.data_ptr(), part.data_ptr(), counter.data_ptr(), _DTYPES[q.dtype],
+                     B, H, KV, S, D,
                      window, chunk, n_split, q.stride(0), q.stride(1), k.stride(0),
                      k.stride(1), k.stride(2), v.stride(0), v.stride(1), v.stride(2), vec,
                      stream)

@@ -129,6 +129,64 @@ def test_flash_decode_refuses_what_it_does_not_take(cuda):
 
 
 @pytest.mark.cuda
+def test_flash_decode_graph_replays_find_the_merge_counters_at_zero(cuda):
+    """One call captured in a CUDA graph and replayed three times on new
+    inputs written in place: each replay equals the plain version, which
+    it can only do if the last split of every (row, kv head) found its
+    counter back at 0."""
+    B, H, KV, S, D = 4, 32, 8, 2048, 64
+    q, k, v = _decode_inputs(cuda, B, H, KV, S, D, torch.bfloat16, True, seed=11)
+    pos = torch.tensor([2047, 1535, 1023, 511], dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        k_decode.flash_decode(q, k, v, pos)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = k_decode.flash_decode(q, k, v, pos)
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    for rep in range(3):
+        for t in (q, k, v):
+            t.copy_(torch.randn(t.shape, generator=gen, device=cuda))
+        pos.copy_(torch.randint(0, S, (B,), generator=gen, device=cuda, dtype=torch.int32))
+        graph.replay()
+        torch.testing.assert_close(out.float(), ref.decode_attention(q, k, v, pos).float(),
+                                   rtol=2e-2, atol=2e-2, msg=lambda m: f"replay {rep}: {m}")
+
+
+@pytest.mark.cuda
+def test_flash_decode_two_calls_of_different_shapes_in_a_row(cuda):
+    """Two shapes back to back on one stream share the counter buffer:
+    the second, with more (row, kv head) pairs and another split plan,
+    still merges right; then the first shape again."""
+    shapes = [(2, 8, 2, 300, 64, [299, 5]), (4, 32, 8, 2048, 64, [2047, 0, 1000, 64]),
+              (2, 8, 2, 300, 64, [17, 299])]
+    for i, (B, H, KV, S, D, p) in enumerate(shapes):
+        q, k, v = _decode_inputs(cuda, B, H, KV, S, D, torch.bfloat16, True, seed=20 + i)
+        pos = torch.tensor(p, dtype=torch.int32, device=cuda)
+        got = k_decode.flash_decode(q, k, v, pos)
+        torch.testing.assert_close(got.float(), ref.decode_attention(q, k, v, pos).float(),
+                                   rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_pos_zero_in_every_row(cuda, dtype):
+    """Only column 0 is valid: every split but the first is empty (l = 0)
+    and the output is v's first row."""
+    B, H, KV, S, D = 4, 32, 8, 2048, 64
+    q, k, v = _decode_inputs(cuda, B, H, KV, S, D, getattr(torch, dtype), True, seed=30)
+    pos = torch.zeros(B, dtype=torch.int32, device=cuda)
+    got = k_decode.flash_decode(q, k, v, pos)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(got.float(), ref.decode_attention(q, k, v, pos).float(),
+                               rtol=tol, atol=tol)
+    first = v[:, :, 0].repeat_interleave(H // KV, dim=1)[:, :, None]
+    torch.testing.assert_close(got.float(), first.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
 def test_smoke_generate_on_the_card_matches_the_cpu(cuda):
     """granite-3-2b's smoke config (fp32) through the engine on the card
     and on the CPU from the same weights: the same tokens, and the
@@ -242,3 +300,54 @@ def test_flash_attention_refuses_what_it_does_not_take(cuda):
         k_attn.flash_attention(torch.zeros((1, 4, 96, 64), device=cuda), kv, kv, block_q=64)
     with pytest.raises(ValueError, match="H % KV"):
         k_attn.flash_attention(torch.zeros((1, 3, 64, 64), device=cuda), kv, kv)
+
+
+# the tensor-core kernel's tile edges (B, H, KV, Sq, Sk, D, causal,
+# window, q_offset): D 32 and 128, Sq and Sk off the 64-row tile,
+# windows that cross a tile edge, q_offset chunks, G = 1, 4 and 8
+ATTN_BF16_CASES = [
+    (2, 8, 2, 256, 256, 32, True, 0, 0),         # D 32, G 4
+    (1, 4, 4, 512, 512, 128, True, 0, 0),        # D 128, G 1
+    (2, 8, 1, 200, 200, 128, False, 0, 0),       # D 128, G 8, ragged
+    (1, 4, 2, 100, 200, 64, True, 0, 100),       # Sq 100 against Sk 200
+    (1, 4, 2, 100, 200, 64, False, 0, 0),
+    (1, 8, 1, 256, 256, 64, True, 100, 0),       # window 100 crosses tile edges
+    (1, 4, 4, 300, 300, 32, False, 70, 0),
+    (2, 8, 2, 192, 1024, 64, True, 0, 832),      # a prefill chunk at the cache's end
+    (1, 8, 1, 128, 512, 128, True, 200, 384),    # a chunk with a window
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ATTN_BF16_CASES)
+def test_flash_attention_bf16_tile_edges(cuda, case):
+    """bf16 2e-2, the reference's tolerance for its kernel against its
+    oracle; one launch a call."""
+    B, H, KV, Sq, Sk, D, causal, window, off = case
+    gen = torch.Generator(device=cuda).manual_seed(Sq * 7 + Sk + D)
+    q = torch.randn((B, H, Sq, D), generator=gen, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn((B, KV, Sk, D), generator=gen, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    kw = dict(causal=causal, window=window, q_offset=off)
+    before = k_attn.flash_attention.launches
+    got = k_attn.flash_attention(q, k, v, block_q=Sq, block_k=Sk, **kw)
+    assert k_attn.flash_attention.launches == before + 1
+    torch.testing.assert_close(got.float(), ref.attention(q, k, v, **kw).float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bf16_unaligned_strided_bsh_stages_with_plain_loads(cuda):
+    """A (B,S,H,D) view whose base is 2 bytes past a 16-byte boundary and
+    whose strides are odd: the wrapper passes vec = 0 and the
+    tensor-core kernel stages its tiles with ordinary loads."""
+    gen = torch.Generator(device=cuda).manual_seed(40)
+    bf16 = torch.bfloat16
+    q = torch.randn((2, 130, 8, 65), generator=gen, device=cuda).to(bf16)[..., 1:]
+    kv = torch.randn((2, 130, 2, 2, 65), generator=gen, device=cuda).to(bf16)[..., 1:]
+    k, v = kv[:, :, :, 0], kv[:, :, :, 1]
+    assert q.data_ptr() % 16 and not k_attn._aligned16(q.transpose(1, 2))
+    got = k_attn.flash_attention_bsh(q, k, v, causal=True, window=90, block_q=130, block_k=130)
+    expect = ref.attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                           causal=True, window=90).transpose(1, 2)
+    torch.testing.assert_close(got.float(), expect.float(), rtol=2e-2, atol=2e-2)

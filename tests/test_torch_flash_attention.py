@@ -21,6 +21,7 @@ from repro.kernels import ref as jax_ref  # noqa: E402
 from repro.models import attention as jax_attn  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import ModelConfig  # noqa: E402
+from repro_torch.kernels import flash_attention as k_attn  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.models import attention  # noqa: E402
 from repro_torch.models.layers import apply_rope  # noqa: E402
@@ -171,3 +172,74 @@ def test_granite_attention_composed_from_the_kernel_matches_reference():
     o = ops.flash_attention_bsh(q, k, v, causal=True, block_q=32, block_k=32)
     got = o.reshape(B, S, -1) @ p["wo"]
     np.testing.assert_allclose(got.numpy(), expect, rtol=1e-4, atol=1e-4)
+
+
+def test_the_dtype_chooses_the_kernel():
+    """bf16 runs on the tensor cores, fp32 keeps the FMA kernel (TF32
+    would miss its 2e-5); nothing else is taken."""
+    assert k_attn.kernel_for(torch.bfloat16) == "mma"
+    assert k_attn.kernel_for(torch.float32) == "fma"
+    for dt in (torch.float16, torch.float64):
+        with pytest.raises(TypeError, match="float32 and bfloat16"):
+            k_attn.kernel_for(dt)
+
+
+@pytest.mark.parametrize("dtype,B,H,Sq,D,bq,grid", [
+    (torch.bfloat16, 4, 32, 2048, 64, 128, (32, 4, 16)),   # granite's prefill: (H, B, n_q)
+    (torch.bfloat16, 1, 4, 100, 32, 128, (4, 1, 1)),
+    (torch.bfloat16, 1, 4, 100, 128, 64, (4, 1, 2)),       # 16 rows a warp at D 128
+    (torch.float32, 4, 32, 2048, 64, 64, (32, 32, 4)),     # (n_q, H, B)
+    (torch.float32, 2, 8, 64, 128, 64, (1, 8, 2)),
+])
+def test_launch_plan_grid_covers_the_shape(dtype, B, H, Sq, D, bq, grid):
+    kernel, got_bq, got = k_attn.launch_plan(dtype, B, H, Sq, D)
+    assert kernel == k_attn.kernel_for(dtype) and (got_bq, got) == (bq, grid)
+    n_q = grid[2] if kernel == "mma" else grid[0]
+    assert (n_q - 1) * bq < Sq <= n_q * bq
+
+
+@pytest.mark.parametrize("Sq,q_offset", [(2048, 0), (100, 0), (512, 1536)])
+def test_causal_q_tiles_launch_heaviest_first(Sq, q_offset):
+    """The tensor-core kernel's CTAs take the q tiles in falling order of
+    the K/V tiles they walk, so the longest causal rows are in the first
+    wave and the shortest fill the tail; the FMA kernel keeps rising
+    order. Each order visits every q tile once."""
+    for dtype in (torch.bfloat16, torch.float32):
+        kernel, bq, grid = k_attn.launch_plan(dtype, 1, 1, Sq, 64)
+        n_q = grid[2] if kernel == "mma" else grid[0]
+        order = k_attn.q_tile_order(kernel, n_q)
+        assert sorted(order) == list(range(n_q))
+        work = [len(k_attn.tile_walk(t, bq, Sq, Sq + q_offset, True, 0, q_offset))
+                for t in order]
+        assert work == sorted(work, reverse=(kernel == "mma"))
+        if kernel == "mma":
+            assert order[0] == n_q - 1
+
+
+@pytest.mark.parametrize("Sq,Sk,causal,window,q_offset", [
+    (2048, 2048, True, 0, 0), (100, 200, True, 0, 100), (200, 200, False, 0, 0),
+    (256, 256, True, 100, 0), (512, 2048, True, 300, 1536), (64, 64, False, 16, 100),
+    (100, 100, False, 70, 0), (128, 200, True, 64, 72),
+])
+def test_tile_walk_masks_every_tile_that_crosses_the_band(Sq, Sk, causal, window, q_offset):
+    """Every valid (row, col) lies in a visited tile, and a tile that
+    runs unmasked is valid for every row of the q tile below Sq: the
+    mask-free fast path drops nothing."""
+    pos = q_offset + np.arange(Sq)[:, None]
+    cols = np.arange(Sk)[None, :]
+    valid = (cols <= pos) if causal else np.ones((Sq, Sk), bool)
+    if window > 0:
+        valid &= cols > pos - window
+    bk = k_attn.BLOCK_K
+    for bq in (64, 128):
+        n_masked = 0
+        for qt in range(-(-Sq // bq)):
+            rows = valid[qt * bq:(qt + 1) * bq]
+            seen = np.zeros(Sk, bool)
+            for t0, masked in k_attn.tile_walk(qt, bq, Sq, Sk, causal, window, q_offset):
+                seen[t0:t0 + bk] = True
+                n_masked += masked
+                if not masked:
+                    assert t0 + bk <= Sk and rows[:, t0:t0 + bk].all()
+            assert not (rows.any(axis=0) & ~seen).any()
+        assert n_masked > 0 or not valid.any()

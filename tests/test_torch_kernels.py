@@ -156,17 +156,36 @@ def test_plain_decode_attention_reads_a_strided_cache():
 
 
 @pytest.mark.parametrize("B,KV,S,D,expect", [
-    (4, 8, 2048, 64, (256, 8)),         # the serve path's buckets
-    (4, 8, 1024, 64, (128, 8)),
-    (1, 2, 80, 64, (64, 2)),            # ragged S: the last range is short
-    (64, 8, 2048, 64, (2048, 1)),       # enough (row, kv head) pairs: no split
-    (1, 8, 300, 256, (16, 19)),
+    (4, 8, 2048, 64, (128, 16)),        # the serve path's buckets: 4 tiles of 32 keys
+    (4, 8, 1024, 64, (64, 16)),
+    (1, 2, 80, 64, (32, 3)),            # ragged S: the last range is short
+    (64, 8, 2048, 64, (1024, 2)),       # many (row, kv head) pairs: few splits
+    (1, 8, 300, 256, (8, 38)),
+    (1, 1, 32768, 64, (512, 64)),       # a long cache: capped at MAX_SPLITS ranges
 ])
 def test_decode_split_plan(B, KV, S, D, expect):
     chunk, n_split = k_decode.split_plan(B, KV, S, D, 132)
     assert (chunk, n_split) == expect
     tile = k_decode.TILE_ELEMS // D
     assert chunk % tile == 0 and (n_split - 1) * chunk < S <= n_split * chunk
+    assert n_split <= k_decode.MAX_SPLITS
+
+
+def test_decode_merge_counter_is_zeroed_once_per_device_and_stream(monkeypatch):
+    """The fused merge's counters: torch.zeros at first use, the same
+    buffer on the next call from that (device, stream), another for
+    another stream, and a larger one (the outgrown one kept) when more
+    (row, kv head) pairs arrive."""
+    monkeypatch.setattr(k_decode, "_counters", {})
+    monkeypatch.setattr(k_decode, "_retired", [])
+    cpu = torch.device("cpu")
+    a = k_decode.merge_counter(cpu, 7, 32)
+    assert a.dtype == torch.int32 and a.numel() >= 32 and not a.any()
+    a[0] = 5                                  # a later call must see the same buffer
+    assert k_decode.merge_counter(cpu, 7, 32) is a
+    assert k_decode.merge_counter(cpu, 8, 32) is not a
+    big = k_decode.merge_counter(cpu, 7, 10_000)
+    assert big.numel() >= 10_000 and not big.any() and k_decode._retired == [a]
 
 
 def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():

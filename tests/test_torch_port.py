@@ -116,3 +116,37 @@ def test_resolve_device_never_falls_back_to_the_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_chip_smoke_reads_ptxas_report_per_kernel():
+    """chip_smoke.py's phase-1 report: one line a kernel from nvcc's
+    ``-Xptxas -v`` output, the mangled name made readable (the length
+    digits of the name run on from the anonymous namespace's hash)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke", SRC.parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    text = (
+        "ptxas info    : Compiling entry function '_ZN51_GLOBAL__N__04cf38d3_18_flash_attention"
+        "_cu_23f0aea719flash_attention_mmaILi64EEEvPK13__nv_bfloat16S3_S3_PS1_iiiiiiifNS_7Stri"
+        "desEi' for 'sm_90a'\n"
+        "ptxas info    : Function properties for x\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 248 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__149a08a1_15_flash_decode_cu_"
+        "3aa291d819flash_decode_kernelI6__halfLi256EEEvPKT_S4_S4_PKiPS2_PfS8_S8_PiiiiiifNS_7St"
+        "ridesEi' for 'sm_90a'\n"
+        "ptxas info    : Used 48 registers, used 1 barriers, 16 bytes smem\n")
+    assert smoke.ptxas_report(text) == [
+        "flash_attention_mma<64>: 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+        "loads; Used 248 registers, used 1 barriers",
+        "flash_decode_kernel<fp16,256>: Used 48 registers, used 1 barriers, 16 bytes smem"]
+    assert smoke.ptxas_report("") == []
+
+
+def test_build_log_is_empty_until_a_library_is_built(monkeypatch, tmp_path):
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    assert _build.build_log("flash_decode") == ""
+    _build.library_path("flash_decode").with_suffix(".log").write_text("ptxas info")
+    assert _build.build_log("flash_decode") == "ptxas info"
