@@ -13,13 +13,16 @@ exits non-zero and prints no result. It imports nothing of JAX. Phases:
    -sass``: tensor-core ``HMMA`` and asynchronous-copy ``LDGSTS``
    instructions), and print the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card at
-   the main path's shapes and a few harder ones, and time kernel, plain
-   version and a one-call PyTorch yardstick;
+   the main path's shapes and a few harder ones (param_stats also on one
+   call over a round's leaves of mixed types with a split row, and on
+   three replays of a CUDA graph), and time kernel, plain version and a
+   PyTorch yardstick;
 3. drive the main path: ``SwarmTrainer`` on squeezenet-dr at full width
    on the full Table I (3,657 images at 32 px, 14 clinics), adam at lr
    2e-3, batch 8, 12 local steps, k=3, p1=0.9, p2=0.8, 20 k-means
    iterations, 3 rounds, with every kernel's launch count read from
-   that run alone; then profile one more round (device time by kernel,
+   that run alone (param_stats: one launch a round over all 28 leaves);
+   then profile one more round (device time by kernel,
    the device's busy share);
 4. run one round from the same state and the same injected draws on
    the card and on the CPU (the plain versions there) and compare;
@@ -110,6 +113,12 @@ BATCH = 8
 K = 3
 KMEANS_ITERS = 20
 STATS_PASSES_PER_ROUND = 1        # one swarm_distribution_matrix per bso round
+# kernels that phase 1 holds to no stack frame and no spills
+NO_SPILL_KERNELS = ("param_stats", "kmeans_assign")
+# calls captured in one graph for the coordinator kernels' second device time
+GRAPH_CALLS = 20
+# the coordinator's kernels by name, as the profiled round reports them
+COORDINATOR_KERNELS = ("param_stats_kernel", "kmeans_assign_kernel")
 
 
 def log(msg: str) -> None:
@@ -142,10 +151,13 @@ def cuda_ms(torch, fn, reps: int = 100, trials: int = 7) -> float:
     return statistics.median(times)
 
 
-def graph_ms(torch, fn) -> float:
-    """Device time of ``fn``'s launches alone: ``fn`` captured once in a
-    CUDA graph, the replay timed as :func:`cuda_ms` times a call. The
-    host's per-call cost (Python, allocation, launch) drops out."""
+def graph_ms(torch, fn, calls: int = 1) -> float:
+    """Device time of ``fn``'s launches alone: ``calls`` calls of ``fn``
+    captured in a CUDA graph, the replay timed as :func:`cuda_ms` times a
+    call, over ``calls``. The host's per-call cost (Python, allocation,
+    launch) drops out; with ``calls`` > 1 so does most of the replay's own
+    cost (:func:`launch_floor_ms`), which a graph of one small kernel
+    cannot go below."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -153,8 +165,16 @@ def graph_ms(torch, fn) -> float:
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
-    return cuda_ms(torch, graph.replay)
+        for _ in range(calls):
+            fn()
+    return cuda_ms(torch, graph.replay) / calls
+
+
+def launch_floor_ms(torch, dev) -> float:
+    """:func:`graph_ms` of one one-element fill: what a replayed graph of
+    one small kernel costs whatever the kernel does."""
+    one = torch.zeros(1, device=dev)
+    return graph_ms(torch, lambda: one.fill_(1.0))
 
 
 def bound_ms(n_bytes: float, n_ops: float, peak_flops: float = FP32_FLOPS):
@@ -179,7 +199,14 @@ def ptxas_report(text: str) -> list:
                 args = sym[end + n + 1:].split("EEv")[0]
                 args = args.replace("13__nv_bfloat16", "bf16,").replace("6__half", "fp16,")
                 args = re.sub(r"^f(?=L)", "fp32,", args).replace("Li", "").rstrip("E,")
+                args = args.replace("Lb1", "true").replace("Lb0", "false")
                 return f"{base}<{args}>"
+        # a kernel that is not a template: <length><name>E
+        for m in re.finditer(r"(?=(\d+))", sym):
+            n, end = int(m.group(1)), m.start() + len(m.group(1))
+            base = sym[end:end + n]
+            if sym[end + n:end + n + 1] == "E" and base.isidentifier() and "_GLOBAL" not in base:
+                return base
         return sym
 
     for line in text.splitlines():
@@ -193,6 +220,17 @@ def ptxas_report(text: str) -> list:
     if name:
         out.append(f"{name}: {'; '.join(parts)}")
     return out
+
+
+def assert_no_spills(lib: str, lines: list) -> None:
+    """Every kernel of ``lib``'s :func:`ptxas_report` lines has a 0-byte
+    stack frame and no spill stores or loads."""
+    assert lines, f"no ptxas report for {lib}"
+    for line in lines:
+        found = re.findall(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                           r"(\d+) bytes spill loads", line)
+        assert found and all(f == ("0", "0", "0") for f in found), \
+            f"{lib} spills or uses a stack: {line}"
 
 
 # census of the attention libraries' SASS: (library, instruction, at least)
@@ -222,10 +260,24 @@ def sass_census(build_mod) -> dict:
 # ------------------------------------------------------------------ phase 2
 
 
+def _assert_stats_close(torch, got, expect, name):
+    """K1's tolerance: mean rtol 1e-5 / atol 1e-6, var rtol 1e-4 / atol
+    1e-6 (fp32 Welford partials merged in another order than the plain
+    two-pass sums, up to 1.7e7 elements); NaN where the plain version is
+    NaN (an empty row)."""
+    torch.testing.assert_close(got[..., 0], expect[..., 0], rtol=1e-5, atol=1e-6,
+                               equal_nan=True, msg=lambda s: f"{name} mean: {s}")
+    torch.testing.assert_close(got[..., 1], expect[..., 1], rtol=1e-4, atol=1e-6,
+                               equal_nan=True, msg=lambda s: f"{name} var: {s}")
+
+
 def check_param_stats(torch, dev, leaves):
-    """K1 against its plain version. Tolerance: mean rtol 1e-5 / atol
-    1e-6, var rtol 1e-4 / atol 1e-6 (fp32 Welford partials merged in
-    another order than the plain two-pass sums, up to 1.7e7 elements)."""
+    """K1 against its plain version at :func:`_assert_stats_close`'s
+    tolerance: each case through the one-leaf entry, the round's leaves
+    as one call, a mixed call (fp32 and bf16 leaves, an empty leaf, a
+    row that splits over CTAs) as one launch, and a captured call with
+    a split row replayed three times (:func:`check_param_stats_graph`).
+    Returns the max abs error over the round's leaves."""
     from repro_torch.kernels import param_stats, ref
     gen = torch.Generator(device=dev).manual_seed(1)
     cases = [("path", x) for x in leaves]
@@ -235,43 +287,114 @@ def check_param_stats(torch, dev, leaves):
     cases.append(("ragged", torch.randn((5, 1_000_003), generator=gen, device=dev)))
     cases.append(("ragged-small", torch.randn((14, 7), generator=gen, device=dev)))
     cases.append((">16M", torch.randn((1, (1 << 24) + 5), generator=gen, device=dev) + 0.3))
-    path_err = 0.0
     for name, x in cases:
         m, v = param_stats.param_stats_batched(x)
         rm, rv = ref.param_stats_batched(x)
         torch.cuda.synchronize()
-        torch.testing.assert_close(m, rm, rtol=1e-5, atol=1e-6, msg=lambda s: f"{name} mean: {s}")
-        torch.testing.assert_close(v, rv, rtol=1e-4, atol=1e-6, msg=lambda s: f"{name} var: {s}")
-        if name == "path":
-            path_err = max(path_err, (m - rm).abs().max().item(), (v - rv).abs().max().item())
+        _assert_stats_close(torch, torch.stack([m, v], 1), torch.stack([rm, rv], 1), name)
         if name == "cancellation":
             assert (v - 0.25).abs().max().item() < 0.01, f"cancellation var {v.tolist()}"
     m, v = param_stats.param_stats_batched(torch.zeros((2, 0), device=dev))
     assert torch.isnan(m).all() and torch.isnan(v).all(), "empty rows must give NaN"
-    log(f"[kernels] param_stats_batched: {len(cases)} cases agree with the plain version; "
-        f"max abs err on the path leaves {path_err:.3e}")
+
+    # the round's leaves as one call, as swarm_distribution_matrix makes it
+    before = param_stats.param_stats_leaves.launches
+    got, expect = param_stats.param_stats_leaves(leaves), ref.param_stats_leaves(leaves)
+    torch.cuda.synchronize()
+    assert param_stats.param_stats_leaves.launches == before + 1, "the round is not one launch"
+    _assert_stats_close(torch, got, expect, "path as one call")
+    path_err = (got - expect).abs().max().item()
+
+    # mixed: fp32 and bf16 leaves, an empty leaf and the >16M row (split)
+    mixed = _mixed_leaves(torch, dev, gen, leaves)
+    before = param_stats.param_stats_leaves.launches
+    got, expect = param_stats.param_stats_leaves(mixed), ref.param_stats_leaves(mixed)
+    torch.cuda.synchronize()
+    assert param_stats.param_stats_leaves.launches == before + 1, "the mixed call is not one launch"
+    _assert_stats_close(torch, got, expect, "mixed")
+    assert torch.isnan(got[:, 1]).all(), "the empty leaf must give NaN"
+    log(f"[kernels] param_stats: mixed call of {len(mixed)} leaves ({mixed[-1].shape[1]} "
+        f"elements a client in the last, {param_stats.slices(mixed[-1].shape[1])} CTAs a row) "
+        f"in one launch, max abs err {(got - expect).nan_to_num().abs().max().item():.3e}")
+    del mixed, got, expect
+    check_param_stats_graph(torch, dev, gen, leaves)
+    log(f"[kernels] param_stats_batched: {len(cases)} one-leaf cases, the round's "
+        f"{len(leaves)} leaves as one call, the mixed call and 3 graph replays agree with the "
+        f"plain version; max abs err on the path leaves {path_err:.3e}")
     return path_err
 
 
+def _mixed_leaves(torch, dev, gen, leaves):
+    """The round's leaves, every other one in bf16, an empty leaf, and a
+    (14, 2^24 + 5) fp32 leaf whose rows split over CTAs."""
+    out = [x.to(torch.bfloat16) if i % 2 else x for i, x in enumerate(leaves)]
+    out.insert(1, torch.zeros((leaves[0].shape[0], 0), device=dev))
+    out.append(torch.randn((leaves[0].shape[0], (1 << 24) + 5), generator=gen, device=dev)
+               + 0.3)
+    return out
+
+
+def check_param_stats_graph(torch, dev, gen, leaves):
+    """One call over the round's leaves and a split (14, 2^20 + 3) leaf,
+    captured in a CUDA graph (its merge counters made before the capture,
+    on the capture's stream) and replayed three times on new inputs
+    written in place. Each replay equals an eager call bitwise and the
+    plain version at K1's tolerance: the last CTA of each split row
+    found its counter back at 0."""
+    from repro_torch.kernels import param_stats, ref
+    xs = [x.clone() for x in leaves]
+    xs.append(torch.randn((leaves[0].shape[0], (1 << 20) + 3), generator=gen, device=dev))
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        param_stats.param_stats_leaves(xs)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = param_stats.param_stats_leaves(xs)
+    for rep in range(3):
+        for x in xs:
+            x.copy_(torch.randn(x.shape, generator=gen, device=dev) * (rep + 1) + rep)
+        graph.replay()
+        eager = param_stats.param_stats_leaves(xs)
+        expect = ref.param_stats_leaves(xs)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager), f"param_stats graph replay {rep} differs from a call"
+        _assert_stats_close(torch, out, expect, f"param_stats graph replay {rep}")
+        log(f"[kernels] param_stats graph replay {rep}: equal to an eager call, max abs err "
+            f"{(out - expect).abs().max().item():.3e}")
+
+
 def time_param_stats(torch, leaves):
+    """The round's leaves: the kernel and the plain version as one call
+    each, beside 28 ``torch.var_mean`` calls."""
     from repro_torch.kernels import param_stats, ref
 
     def kernel():
-        for x in leaves:
-            param_stats.param_stats_batched(x)
+        param_stats.param_stats_leaves(leaves)
 
     def plain():
-        for x in leaves:
-            ref.param_stats_batched(x)
+        ref.param_stats_leaves(leaves)
 
     def library():
         for x in leaves:
             torch.var_mean(x.view(x.shape[0], -1), 1, correction=0)
 
     ms, plain_ms, lib_ms = cuda_ms(torch, kernel), cuda_ms(torch, plain), cuda_ms(torch, library)
-    log(f"[kernels] param_stats_batched device time alone (CUDA graph of the 28 calls): "
+    log(f"[kernels] param_stats_batched device time alone (CUDA graph of one call over the "
+        f"{len(leaves)} leaves; var_mean: of its {len(leaves)} calls): "
         f"kernel {graph_ms(torch, kernel):.4f} ms, plain {graph_ms(torch, plain):.4f} ms, "
-        f"var_mean {graph_ms(torch, library):.4f} ms")
+        f"var_mean {graph_ms(torch, library):.4f} ms; a call of a graph of {GRAPH_CALLS}: "
+        f"kernel {graph_ms(torch, kernel, GRAPH_CALLS):.4f} ms, var_mean "
+        f"{graph_ms(torch, library, GRAPH_CALLS):.4f} ms")
+    # what sets the one call's time: its few long rows or its many short ones
+    longest = sorted(leaves, key=lambda x: x.numel())
+    for name, part in (("the 2 longest leaves", longest[-2:]),
+                       (f"the other {len(leaves) - 2}", longest[:-2])):
+        log(f"[kernels] param_stats_batched on {name} alone ({sum(x.numel() for x in part)} "
+            f"elements, {sum(x.shape[0] * param_stats.slices(x[0].numel()) for x in part)} "
+            f"CTAs): {graph_ms(torch, lambda: param_stats.param_stats_leaves(part), GRAPH_CALLS):.4f}"
+            f" ms a call of a graph of {GRAPH_CALLS}")
     n_el = sum(x.numel() for x in leaves)
     n_bytes = sum(x.numel() * x.element_size() + 2 * x.shape[0] * 4 for x in leaves)
     # 4 fp32 operations an element: a sum for the mean, then subtract,
@@ -283,9 +406,18 @@ def time_param_stats(torch, leaves):
 def check_kmeans_assign(torch, dev, X, C):
     from repro_torch.kernels import kmeans_assign, ref
     gen = torch.Generator(device=dev).manual_seed(2)
+    a, b = torch.randn((2, 56), generator=gen, device=dev)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
     cases = [("path", X, C),
-             ("wide", torch.randn((1000, 260), generator=gen, device=dev),
-              torch.randn((37, 260), generator=gen, device=dev)),
+             ("wide", rand(1000, 260), rand(37, 260)),
+             ("K=64, F=191", rand(500, 191), rand(64, 191)),
+             ("F=1", rand(300, 1), rand(5, 1)),
+             ("F=33", rand(300, 33), rand(7, 33)),
+             ("rows equal to two centroids, each twice", torch.stack([a, b] * 20),
+              torch.stack([a, b, a, b])),
              ("ties", torch.zeros((130, 4), device=dev), torch.zeros((5, 4), device=dev))]
     for name, x, c in cases:
         got = kmeans_assign.kmeans_assign(x, c)
@@ -294,7 +426,14 @@ def check_kmeans_assign(torch, dev, X, C):
         if not torch.equal(got, expect):
             bad = int((got != expect).sum())
             raise AssertionError(f"kmeans_assign {name}: {bad} of {got.numel()} ids differ")
-    log(f"[kernels] kmeans_assign: {len(cases)} cases equal to the plain version")
+    refused = False
+    try:                                 # K = 64 at F = 260: 66,816 B of shared memory
+        kmeans_assign.kmeans_assign(rand(4, 260), rand(64, 260))
+    except ValueError:
+        refused = True
+    assert refused, "kmeans_assign took C past its 48 KB of shared memory"
+    log(f"[kernels] kmeans_assign: {len(cases)} cases equal to the plain version; K=64 at "
+        f"F=260 refused (shared memory)")
     return 0.0
 
 
@@ -303,10 +442,14 @@ def time_kmeans_assign(torch, X, C):
     ms = cuda_ms(torch, lambda: kmeans_assign.kmeans_assign(X, C), reps=500)
     plain_ms = cuda_ms(torch, lambda: ref.kmeans_assign(X, C), reps=500)
     lib_ms = cuda_ms(torch, lambda: torch.cdist(X, C).argmin(1), reps=500)
+    kernel = lambda: kmeans_assign.kmeans_assign(X, C)  # noqa: E731
+    library = lambda: torch.cdist(X, C).argmin(1)       # noqa: E731
     log(f"[kernels] kmeans_assign device time alone (CUDA graph of one call): "
-        f"kernel {graph_ms(torch, lambda: kmeans_assign.kmeans_assign(X, C)):.4f} ms, "
+        f"kernel {graph_ms(torch, kernel):.4f} ms, "
         f"plain {graph_ms(torch, lambda: ref.kmeans_assign(X, C)):.4f} ms, "
-        f"cdist+argmin {graph_ms(torch, lambda: torch.cdist(X, C).argmin(1)):.4f} ms")
+        f"cdist+argmin {graph_ms(torch, library):.4f} ms; a call of a graph of {GRAPH_CALLS}: "
+        f"kernel {graph_ms(torch, kernel, GRAPH_CALLS):.4f} ms, cdist+argmin "
+        f"{graph_ms(torch, library, GRAPH_CALLS):.4f} ms")
     N, F = X.shape
     Kc = C.shape[0]
     n_bytes = (N * F + Kc * F) * 4 + N * 4
@@ -333,7 +476,7 @@ def main_path(torch, clients, dev):
     log(f"[main] squeezenet-dr, 14 clients, train stack {tuple(imgs.shape)} = "
         f"{imgs.numel() * imgs.element_size() / 1e6:.1f} MB on {imgs.device}")
 
-    param_stats.param_stats_batched.launches = 0
+    param_stats.param_stats_leaves.launches = 0
     kmeans_assign.kmeans_assign.launches = 0
     round_s = []
     for _ in range(ROUNDS):
@@ -346,10 +489,12 @@ def main_path(torch, clients, dev):
             f"centers={lg.centers.tolist()} events={lg.events}")
         assert math.isfinite(lg.train_loss), "train loss is not finite"
         assert 0.0 <= lg.mean_val_acc <= 1.0, "val accuracy outside [0, 1]"
-    launches = {"param_stats_batched": param_stats.param_stats_batched.launches,
+    launches = {"param_stats_batched": param_stats.param_stats_leaves.launches,
                 "kmeans_assign": kmeans_assign.kmeans_assign.launches}
+    # one launch a stats pass for every MAX_LEAVES leaves: 1 for the 28
     n_leaves = sum(1 for _ in _leaves(tr.params))
-    want = {"param_stats_batched": n_leaves * ROUNDS * STATS_PASSES_PER_ROUND,
+    want = {"param_stats_batched": math.ceil(n_leaves / param_stats.MAX_LEAVES) * ROUNDS
+            * STATS_PASSES_PER_ROUND,
             "kmeans_assign": (KMEANS_ITERS + 1) * ROUNDS}
     log(f"[main] launches {launches}, expected {want}")
     assert launches == want, f"launch counts {launches} != {want}"
@@ -382,6 +527,7 @@ def device_busy_us(prof):
 def profile_round(torch, tr) -> None:
     """One more round of the main path under ``torch.profiler``: device
     time by kernel and the device's busy share of the round's wall time."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -393,6 +539,12 @@ def profile_round(torch, tr) -> None:
     busy_us, spans = device_busy_us(prof)
     log(f"[profile] round of {wall_ms:.1f} ms wall: {len(spans)} device events, device busy "
         f"{busy_us / 1e3:.1f} ms ({busy_us / 1e3 / wall_ms:.1%}), idle {1 - busy_us / 1e3 / wall_ms:.1%}")
+    for kernel in COORDINATOR_KERNELS:
+        us = [e.time_range.end - e.time_range.start for e in prof.events()
+              if e.device_type == DeviceType.CUDA and kernel in e.name]
+        log(f"[profile] {kernel}: {len(us)} launches in the round, "
+            f"{statistics.mean(us) if us else float('nan'):.2f} us each on the device "
+            f"(min {min(us, default=float('nan')):.2f}, max {max(us, default=float('nan')):.2f})")
     table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=25)
     for line in table.splitlines():
         log(f"[profile] {line}")
@@ -669,6 +821,7 @@ def profile_decode_tick(torch, eng) -> None:
     under ``torch.profiler``: device busy share, top device ops, K3's
     share of the device time."""
     import numpy as np
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve import Request
@@ -926,7 +1079,7 @@ def table2(torch, dev):
                                             device=dev)
     test_stack = stack_eval_split(model.cfg, clients, "test", device=dev)
 
-    param_stats.param_stats_batched.launches = 0
+    param_stats.param_stats_leaves.launches = 0
     kmeans_assign.kmeans_assign.launches = 0
     t0 = time.perf_counter()
     accs, run = baselines.run_sweep_table(model, clients, swarm, opt, TABLE2_SEED,
@@ -934,11 +1087,12 @@ def table2(torch, dev):
                                           test_stack=test_stack)
     torch.cuda.synchronize()
     sweep_s = time.perf_counter() - t0
-    launches = {"param_stats_batched": param_stats.param_stats_batched.launches,
+    launches = {"param_stats_batched": param_stats.param_stats_leaves.launches,
                 "kmeans_assign": kmeans_assign.kmeans_assign.launches}
     n_leaves = sum(1 for _ in _leaves(run.state[0].params))
     M = len(SWEEP_METHODS)
-    want = {"param_stats_batched": M * TABLE2_ROUNDS * n_leaves * STATS_PASSES_PER_ROUND,
+    want = {"param_stats_batched": M * TABLE2_ROUNDS * math.ceil(n_leaves / param_stats.MAX_LEAVES)
+            * STATS_PASSES_PER_ROUND,
             "kmeans_assign": M * TABLE2_ROUNDS * (KMEANS_ITERS + 1)}
     log(f"[table2] sweep of {M} methods x {TABLE2_ROUNDS} rounds in {sweep_s:.3f} s; launches "
         f"{launches}, expected {want}")
@@ -1006,8 +1160,11 @@ def main() -> int:
     build_logs = _build.build()
     build_s = time.perf_counter() - t0
     for k in _build.KERNELS:
-        for line in ptxas_report(_build.build_log(k)):
+        lines = ptxas_report(_build.build_log(k))
+        for line in lines:
             log(f"[build] {k}: {line}")
+        if k in NO_SPILL_KERNELS:
+            assert_no_spills(k, lines)
     sass_census(_build)
     card = card_line()
     log(f"[build] {len(build_logs)} kernel libraries built in {build_s:.2f} s on {name}")
@@ -1028,8 +1185,13 @@ def main() -> int:
     k2_err = check_kmeans_assign(torch, dev, feats, cents)
     k1 = time_param_stats(torch, leaves)
     k2 = time_kmeans_assign(torch, feats, cents)
-    log(f"[kernels] param_stats_batched, 28 leaves x 14 clients: kernel {k1[0]:.4f} ms, "
-        f"plain {k1[1]:.4f} ms, var_mean {k1[2]:.4f} ms, bound {k1[3]:.6f} ms ({k1[4]})")
+    log(f"[kernels] param_stats_batched, 28 leaves x 14 clients in one call: kernel "
+        f"{k1[0]:.4f} ms, plain {k1[1]:.4f} ms, var_mean x 28 {k1[2]:.4f} ms, bound "
+        f"{k1[3]:.6f} ms ({k1[4]})")
+    log(f"[kernels] launch floor: a CUDA graph of one one-element fill replays in "
+        f"{launch_floor_ms(torch, dev):.4f} ms")
+    log(f"[kernels] swarm_distribution_matrix (the round's stats upload, through the "
+        f"wrapper): {cuda_ms(torch, lambda: swarm_distribution_matrix(stacked)):.4f} ms a call")
     log(f"[kernels] kmeans_assign (14,56)x(3,56): kernel {k2[0]:.4f} ms, plain {k2[1]:.4f} ms, "
         f"cdist+argmin {k2[2]:.4f} ms, bound {k2[3]:.7f} ms ({k2[4]})")
 

@@ -4,8 +4,8 @@
 Each client uploads only per-tensor (mean, variance) of its parameters,
 never the parameters: O(#tensors) features. The feature pair of a
 floating leaf is ``[mean, log1p(var)]``, leaves in sorted path order.
-The per-leaf reduction is :func:`repro_torch.kernels.ops.param_stats_batched`:
-on the card the ``param_stats`` kernel, launched once per leaf over the
+The reduction is :func:`repro_torch.kernels.ops.param_stats_leaves`: on
+the card the ``param_stats`` kernel, one launch over every leaf of the
 whole client stack.
 """
 from __future__ import annotations
@@ -29,12 +29,9 @@ def swarm_distribution_matrix(stacked_params, n_clients: int = None) -> torch.Te
         raise ValueError(
             f"stacked_params has client axis {leaves[0].shape[0]} but n_clients="
             f"{n_clients}; slice the tree to the requested subset")
-    cols = []
-    for leaf in leaves:
-        m, v = ops.param_stats_batched(leaf.contiguous())
-        cols.append(m)
-        cols.append(torch.log1p(v))
-    return torch.stack(cols, dim=1)
+    stats = ops.param_stats_leaves([leaf.contiguous() for leaf in leaves])   # (N, T, 2)
+    stats[:, :, 1].log1p_()
+    return stats.view(stats.shape[0], -1)
 
 
 def param_distribution(params) -> torch.Tensor:

@@ -10,7 +10,7 @@ explicit :class:`SwarmState`::
 Clients are stacked along dim 0 of every tensor. Local training vmaps
 one client's train step (gradient and optimizer update together) over
 that axis with ``torch.func.vmap``; the coordinator runs on the device
-beside it: the ``param_stats`` kernel per parameter leaf, the
+beside it: one ``param_stats`` launch over every parameter leaf, the
 ``kmeans_assign`` kernel per Lloyd step, the brain storm and Eq. 2, with
 no host round trip inside a round.
 

@@ -1,43 +1,80 @@
-// param_stats_batched: per-client (mean, var) of a client-stacked tensor.
+// param_stats: per-client (mean, var) of every parameter leaf of a round,
+// in one launch.
 //
 // Replaces the Pallas kernel repro/kernels/param_stats.py
 // (param_stats_batched, body _stats_kernel): the paper's §III.B
-// distribution summary, fp32 (mean, var) over the trailing axes of an
-// (N, n) tensor read at its source width (fp32 or bf16).
+// distribution summary, fp32 (mean, var) over the trailing axes of a
+// client-stacked (N, n) leaf read at its source width (fp32 or bf16).
 //
-// Bound: bytes. Each element is read once and costs a handful of fp32
-// operations, far below the H100's 295 operations per byte, so the
-// floor is N*n*itemsize over 3.35 TB/s. On the BSO-SL round the
-// tensors are small (5 to 9,216 elements a client), and one launch is
-// made per parameter leaf, so launch latency dominates there.
+// Bound: bytes, far from it. Each element is read once and costs a
+// handful of fp32 operations, so the floor is the leaves' bytes over
+// 3.35 TB/s: 1.76 MB and 0.53 us for squeezenet-dr's 28 leaves of 14
+// clients. Those rows are short (5 to 9,216 elements a client), so what
+// bounds a round's call is the launch and one wave of short CTAs. The
+// design before this one made two launches a leaf, 56 a round, and spent
+// its time in them.
 //
-// Design. The TPU kernel walks a client's blocks in order on an
-// (N, n_blocks) grid and carries its sums from one grid step to the
-// next. Hopper blocks run in no order, so nothing is carried:
-//   pass 1, grid (S, N): CTA (s, c) walks a grid-stride slice of client
-//     c's row. Each thread keeps an fp32 Welford triple (count, mean,
-//     M2); the triples merge with Chan's formula across warp shuffles
-//     and then across the CTA's warps, and the CTA writes its partial.
-//   pass 2, grid (N): one CTA merges client c's S partials the same way
-//     and writes mean and var = max(M2 / n, 0); n == 0 gives NaN.
+// Design. One launch takes up to kMaxLeaves leaves. Their table (data
+// pointer, elements a client, dtype, first CTA, slices a client, first
+// partial, first counter) travels by value as a __grid_constant__ kernel
+// parameter, so nothing is copied to the device before the launch, and a
+// captured CUDA graph replays with the pointers it captured. A CTA finds
+// its (leaf, client, slice) by a binary search over the table's first
+// CTAs.
+//   - A row of at most `chunk` elements (every row of the round) is one
+//     CTA. Its 256 threads read the row in 16-byte vectors, four in flight
+//     a thread, with scalars at an unaligned head and at the tail. Each
+//     thread folds each vector's values into an fp32 (count, mean, M2)
+//     triple with Chan's formula; the triples merge across warp shuffles
+//     and then across the CTA's warps, and thread 0 writes mean and
+//     var = max(M2 / n, 0); n == 0 gives NaN.
+//   - A longer row is cut into slices of `chunk` elements, a CTA each.
+//     A CTA writes its partial triple, fences, and adds one to the row's
+//     counter; the CTA that brings it to the slice count merges the row's
+//     partials in slice order, writes the row and sets the counter back to
+//     0. The counters belong to the wrapper (one buffer per device and
+//     stream, zeroed once), so every launch, graph replays included,
+//     finds them at 0.
 // Welford/Chan is this kernel's guard against cancellation when
 // mean^2 >> var (the TPU kernel shifts by its first block's mean
-// instead). Indices are 64-bit, so rows of 2^31 elements and more work.
+// instead). Element indices are 64-bit, so rows of 2^31 elements and more
+// work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMergeThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxLeaves = 64;
+constexpr int kUnroll = 4;  // 16-byte vectors in flight a thread
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+// One leaf of a launch; the wrapper writes the same 40-byte record
+// (kernels/param_stats.py LEAF_RECORD).
+struct Leaf {
+  const void* x;  // (N, n) row-major
+  long long n;    // elements a client
+  int cta0;       // first CTA of the leaf
+  int slices;     // CTAs a client
+  int part0;      // first partial (slices > 1)
+  int ctr0;       // first merge counter (slices > 1)
+  int dtype;      // 0 = float32, 1 = bfloat16
+  int pad;
+};
+static_assert(sizeof(Leaf) == 40, "the wrapper's LEAF_RECORD is 40 bytes");
+
+struct Table {
+  Leaf leaf[kMaxLeaves];
+  int n_leaves;
+};
+static_assert(sizeof(Table) <= 4000, "the table must fit the 4 KB of kernel parameters");
 
 // Chan et al.'s pairwise merge of two (count, mean, M2) triples into a.
-__device__ __forceinline__ void chan_merge(long long& na, float& ma, float& m2a,
-                                           long long nb, float mb, float m2b) {
+template <typename C>
+__device__ __forceinline__ void chan_merge(C& na, float& ma, float& m2a, C nb, float mb,
+                                           float m2b) {
   if (nb == 0) return;
   if (na == 0) {
     na = nb;
@@ -45,28 +82,100 @@ __device__ __forceinline__ void chan_merge(long long& na, float& ma, float& m2a,
     m2a = m2b;
     return;
   }
-  const long long n = na + nb;
+  const C n = na + nb;
   const float delta = mb - ma;
-  const float fb = (float)nb / (float)n;
-  ma = ma + delta * fb;
+  const float fb = __fdividef((float)nb, (float)n);  // n < 2^126: within 2 ulp
+  ma = fmaf(delta, fb, ma);
   m2a = m2a + m2b + delta * delta * (float)na * fb;
   na = n;
 }
 
-__device__ __forceinline__ void warp_merge(long long& n, float& mean, float& m2) {
+// The V values of one vector as a triple (two passes in registers),
+// merged into the thread's.
+template <int V>
+__device__ __forceinline__ void fold(int& n, float& mean, float& m2, const float (&v)[V]) {
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < V; ++i) s += v[i];
+  const float gm = s * (1.f / V);
+  float g2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < V; ++i) g2 = fmaf(v[i] - gm, v[i] - gm, g2);
+  chan_merge(n, mean, m2, V, gm, g2);
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// A 16-byte vector as floats: 4 fp32, or 8 bf16 (a bf16 is the high half
+// of its fp32, so the widening is exact).
+__device__ __forceinline__ void unpack(const uint4& u, float (&v)[4]) {
+  v[0] = __uint_as_float(u.x);
+  v[1] = __uint_as_float(u.y);
+  v[2] = __uint_as_float(u.z);
+  v[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void unpack(const uint4& u, float (&v)[8]) {
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// Fold row[a, e) into this thread's triple: scalars up to the first
+// 16-byte boundary, the vectors kUnroll at a time, then the scalars of
+// the tail.
+template <typename T>
+__device__ __forceinline__ void range_stats(const T* __restrict__ row, long long a, long long e,
+                                            int& n, float& mean, float& m2) {
+  constexpr int V = 16 / sizeof(T);
+  const int tid = threadIdx.x;
+  const int mis = (int)((reinterpret_cast<uintptr_t>(row + a) & 15) / sizeof(T));
+  const long long head = min((long long)(mis ? V - mis : 0), e - a);
+  if (tid < head) chan_merge(n, mean, m2, 1, to_f32(row[a + tid]), 0.f);
+  const long long v0 = a + head;
+  const long long nv = (e - v0) / V;
+  const uint4* vp = reinterpret_cast<const uint4*>(row + v0);
+  long long j = tid;
+  for (; j + (kUnroll - 1) * kThreads < nv; j += kUnroll * kThreads) {
+    uint4 u[kUnroll];
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) u[k] = __ldg(vp + j + k * kThreads);
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      float v[V];
+      unpack(u[k], v);
+      fold<V>(n, mean, m2, v);
+    }
+  }
+  for (; j < nv; j += kThreads) {
+    float v[V];
+    unpack(__ldg(vp + j), v);
+    fold<V>(n, mean, m2, v);
+  }
+  const long long t0 = v0 + nv * V;
+  if (tid < e - t0) chan_merge(n, mean, m2, 1, to_f32(row[t0 + tid]), 0.f);
+}
+
+template <typename C>
+__device__ __forceinline__ void warp_merge(C& n, float& mean, float& m2) {
+#pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    const long long nb = __shfl_down_sync(0xffffffffu, n, off);
+    const C nb = __shfl_down_sync(0xffffffffu, n, off);
     const float mb = __shfl_down_sync(0xffffffffu, mean, off);
     const float m2b = __shfl_down_sync(0xffffffffu, m2, off);
     chan_merge(n, mean, m2, nb, mb, m2b);
   }
 }
 
-// Merge every thread's triple; thread 0 ends with the CTA's result.
-__device__ __forceinline__ void block_merge(long long& n, float& mean, float& m2) {
-  __shared__ long long s_n[32];
-  __shared__ float s_mean[32];
-  __shared__ float s_m2[32];
+// Merge every thread's triple; thread 0 ends with the CTA's.
+template <typename C>
+__device__ __forceinline__ void block_merge(C& n, float& mean, float& m2) {
+  __shared__ C s_n[kWarps];
+  __shared__ float s_mean[kWarps];
+  __shared__ float s_m2[kWarps];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   warp_merge(n, mean, m2);
@@ -77,90 +186,102 @@ __device__ __forceinline__ void block_merge(long long& n, float& mean, float& m2
   }
   __syncthreads();
   if (warp == 0) {
-    const int n_warps = blockDim.x >> 5;
-    n = lane < n_warps ? s_n[lane] : 0;
-    mean = lane < n_warps ? s_mean[lane] : 0.f;
-    m2 = lane < n_warps ? s_m2[lane] : 0.f;
+    n = lane < kWarps ? s_n[lane] : 0;
+    mean = lane < kWarps ? s_mean[lane] : 0.f;
+    m2 = lane < kWarps ? s_m2[lane] : 0.f;
     warp_merge(n, mean, m2);
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-stats_partial_kernel(const T* __restrict__ x, long long n, int S,
-                     long long* __restrict__ part_n, float* __restrict__ part_mean,
-                     float* __restrict__ part_m2) {
-  const long long client = blockIdx.y;
-  const int s = blockIdx.x;
-  const T* row = x + client * n;
-  long long cnt = 0;
-  float mean = 0.f, m2 = 0.f;
-  const long long stride = (long long)S * blockDim.x;
-  for (long long i = (long long)s * blockDim.x + threadIdx.x; i < n; i += stride) {
-    const float v = to_f32(row[i]);
-    cnt += 1;
-    const float delta = v - mean;
-    mean += delta / (float)cnt;
-    m2 += delta * (v - mean);
-  }
-  block_merge(cnt, mean, m2);
-  if (threadIdx.x == 0) {
-    const long long idx = client * S + s;
-    part_n[idx] = cnt;
-    part_mean[idx] = mean;
-    part_m2[idx] = m2;
-  }
+template <typename C>
+__device__ __forceinline__ void write_row(float* o, C n, float mean, float m2) {
+  o[0] = n == 0 ? nanf("") : mean;
+  o[1] = n == 0 ? nanf("") : fmaxf(m2 / (float)n, 0.f);
 }
 
-__global__ void __launch_bounds__(kMergeThreads)
-stats_merge_kernel(int S, const long long* __restrict__ part_n,
-                   const float* __restrict__ part_mean, const float* __restrict__ part_m2,
-                   float* __restrict__ out_mean, float* __restrict__ out_var) {
-  const long long client = blockIdx.x;
-  long long cnt = 0;
-  float mean = 0.f, m2 = 0.f;
-  for (int s = threadIdx.x; s < S; s += blockDim.x) {
-    const long long idx = client * S + s;
-    chan_merge(cnt, mean, m2, part_n[idx], part_mean[idx], part_m2[idx]);
+__global__ void __launch_bounds__(kThreads)
+param_stats_kernel(const __grid_constant__ Table table, long long chunk, float* __restrict__ out,
+                   long long out_stride, int* __restrict__ part_n, float* __restrict__ part_mean,
+                   float* __restrict__ part_m2, int* __restrict__ counter) {
+  __shared__ int s_last;
+  const int b = blockIdx.x;
+  // the leaf: the last whose first CTA is <= b (every leaf has a CTA)
+  int lo = 0, hi = table.n_leaves - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (table.leaf[mid].cta0 <= b)
+      lo = mid;
+    else
+      hi = mid - 1;
   }
+  const Leaf& leaf = table.leaf[lo];
+  const int local = b - leaf.cta0;
+  const int client = local / leaf.slices;
+  const int slice = local - client * leaf.slices;
+  const long long n = leaf.n;
+  const long long a = (long long)slice * chunk;
+  const long long e = min(n, a + chunk);
+
+  int cnt = 0;
+  float mean = 0.f, m2 = 0.f;
+  if (leaf.dtype == 0)
+    range_stats(static_cast<const float*>(leaf.x) + client * n, a, e, cnt, mean, m2);
+  else
+    range_stats(static_cast<const __nv_bfloat16*>(leaf.x) + client * n, a, e, cnt, mean, m2);
   block_merge(cnt, mean, m2);
+  float* o = out + client * out_stride + 2 * lo;
+  if (leaf.slices == 1) {
+    if (threadIdx.x == 0) write_row(o, cnt, mean, m2);
+    return;
+  }
+
+  // a split row: the last of its CTAs to finish merges the partials
+  const int p0 = leaf.part0 + client * leaf.slices;
   if (threadIdx.x == 0) {
-    if (cnt == 0) {
-      out_mean[client] = nanf("");
-      out_var[client] = nanf("");
-    } else {
-      out_mean[client] = mean;
-      out_var[client] = fmaxf(m2 / (float)cnt, 0.f);
-    }
+    part_n[p0 + slice] = cnt;
+    part_mean[p0 + slice] = mean;
+    part_m2[p0 + slice] = m2;
+    __threadfence();
+    s_last = atomicAdd(counter + leaf.ctr0 + client, 1) == leaf.slices - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  long long tn = 0;
+  float tm = 0.f, tm2 = 0.f;
+  for (int s = threadIdx.x; s < leaf.slices; s += kThreads)
+    chan_merge(tn, tm, tm2, (long long)__ldcg(part_n + p0 + s), __ldcg(part_mean + p0 + s),
+               __ldcg(part_m2 + p0 + s));
+  block_merge(tn, tm, tm2);
+  if (threadIdx.x == 0) {
+    write_row(o, tn, tm, tm2);
+    counter[leaf.ctr0 + client] = 0;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. x is (N, n) contiguous; the part_*
-// scratch holds N*S entries each. Returns cudaGetLastError() after the
-// two launches on `stream`.
-extern "C" int param_stats_batched_launch(const void* x, int dtype, long long N, long long n,
-                                          int S, void* part_n, void* part_mean, void* part_m2,
-                                          void* out_mean, void* out_var, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid1((unsigned)S, (unsigned)N);
-  if (dtype == 0) {
-    stats_partial_kernel<float><<<grid1, kThreads, 0, st>>>(
-        static_cast<const float*>(x), n, S, static_cast<long long*>(part_n),
-        static_cast<float*>(part_mean), static_cast<float*>(part_m2));
-  } else if (dtype == 1) {
-    stats_partial_kernel<__nv_bfloat16><<<grid1, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), n, S, static_cast<long long*>(part_n),
-        static_cast<float*>(part_mean), static_cast<float*>(part_m2));
-  } else {
+// leaves: n_leaves (1..64) Leaf records in host memory, each leaf's CTAs
+// following the one before's from CTA 0, n_ctas in all. out: (N, T, 2)
+// fp32 seen from this launch's first leaf, `out_stride` floats a client.
+// part: n_parts int32 counts, then n_parts fp32 means, then n_parts fp32
+// M2 (null when no row splits); counter: int32 per split row, 0 at the
+// launch and 0 again when the kernel ends. Returns cudaGetLastError()
+// after the launch on `stream`.
+extern "C" int param_stats_launch(const void* leaves, int n_leaves, int n_ctas, long long chunk,
+                                  void* out, long long out_stride, void* part, long long n_parts,
+                                  void* counter, void* stream) {
+  if (n_leaves < 1 || n_leaves > kMaxLeaves || n_ctas < 1 || chunk < 1)
     return (int)cudaErrorInvalidValue;
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  stats_merge_kernel<<<(unsigned)N, kMergeThreads, 0, st>>>(
-      S, static_cast<const long long*>(part_n), static_cast<const float*>(part_mean),
-      static_cast<const float*>(part_m2), static_cast<float*>(out_mean),
-      static_cast<float*>(out_var));
+  Table table{};
+  const Leaf* src = static_cast<const Leaf*>(leaves);
+  for (int i = 0; i < n_leaves; ++i) table.leaf[i] = src[i];
+  table.n_leaves = n_leaves;
+  int* pn = static_cast<int*>(part);
+  float* pm = pn ? reinterpret_cast<float*>(pn + n_parts) : nullptr;
+  float* pm2 = pm ? pm + n_parts : nullptr;
+  param_stats_kernel<<<(unsigned)n_ctas, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      table, chunk, static_cast<float*>(out), out_stride, pn, pm, pm2,
+      static_cast<int*>(counter));
   return (int)cudaGetLastError();
 }

@@ -13,7 +13,6 @@ import torch
 
 from repro_torch.kernels import _build
 
-_ROWS = 128
 SMEM_LIMIT = 48 * 1024                # static launch limit, no opt-in
 
 

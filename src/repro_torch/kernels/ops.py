@@ -23,6 +23,16 @@ def param_stats_batched(x: torch.Tensor):
     return _stats.param_stats_batched(x)
 
 
+def param_stats_leaves(leaves) -> torch.Tensor:
+    """(N, T, 2) fp32 per-client [mean, var] of T client-stacked leaves
+    of one client axis: a list on the CPU takes the plain version, any
+    other list the kernel (which refuses all but one CUDA device)."""
+    leaves = list(leaves)
+    if leaves and all(x.device.type == "cpu" for x in leaves):
+        return ref.param_stats_leaves(leaves)
+    return _stats.param_stats_leaves(leaves)
+
+
 def kmeans_assign(X: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     """(N,) int32 nearest-centroid ids of X (N, F) against C (K, F)."""
     if X.device.type == "cpu":

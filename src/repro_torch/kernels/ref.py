@@ -21,6 +21,13 @@ def param_stats_batched(x: torch.Tensor):
     return mean, var
 
 
+def param_stats_leaves(leaves) -> torch.Tensor:
+    """:func:`param_stats_batched` of each of ``leaves`` (T tensors of a
+    common client axis N), stacked: (N, T, 2) fp32 with ``[..., 0]`` the
+    mean and ``[..., 1]`` the var."""
+    return torch.stack([torch.stack(param_stats_batched(x), dim=1) for x in leaves], dim=1)
+
+
 def kmeans_assign(X: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     """Nearest-centroid ids: X (N,F), C (K,F) -> (N,) int32, with
     ``d = |x|^2 + |c|^2 - 2 x.c`` in fp32, unclamped; ties go to the

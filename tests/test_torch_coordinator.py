@@ -20,6 +20,7 @@ from repro_torch.core import aggregation as tagg  # noqa: E402
 from repro_torch.core import diststats as tds  # noqa: E402
 from repro_torch.core import kmeans as tkm  # noqa: E402
 from repro_torch.core.bso import BSODraws, brain_storm  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.utils.tree import tree_paths_and_leaves  # noqa: E402
 from torch_parity import jax_bso_draws, jax_kmeans_init_idx  # noqa: E402
 
@@ -48,6 +49,27 @@ def test_swarm_distribution_matrix_matches_reference(stacked, use_pallas):
     got = tds.swarm_distribution_matrix(params_from_numpy(stacked), n_clients=N)
     assert got.shape == expect.shape == (N, 56)
     np.testing.assert_allclose(got.numpy(), expect, rtol=1e-5, atol=1e-6)
+
+
+def test_swarm_distribution_matrix_is_one_stats_call_on_the_sorted_leaves(stacked, monkeypatch):
+    """One ops.param_stats_leaves call over the floating leaves in sorted
+    path order (on the card: one launch); the columns are [mean,
+    log1p(var)] per leaf, in that order, from the plain per-leaf stats."""
+    calls = []
+
+    def spy(leaves):
+        calls.append(list(leaves))
+        return ref.param_stats_leaves(leaves)
+
+    monkeypatch.setattr(tds.ops, "param_stats_leaves", spy)
+    tree = params_from_numpy(stacked)
+    got = tds.swarm_distribution_matrix(tree)
+    pairs = sorted(tree_paths_and_leaves(tree), key=lambda kv: kv[0])
+    assert len(calls) == 1 and len(calls[0]) == len(pairs) == 28
+    assert all(a is b for a, (_, b) in zip(calls[0], pairs))
+    for t, (_, leaf) in enumerate(pairs):
+        m, v = ref.param_stats_batched(leaf)
+        assert torch.equal(got[:, 2 * t], m) and torch.equal(got[:, 2 * t + 1], torch.log1p(v))
 
 
 def test_param_distribution_and_byte_counts_match_reference(stacked):

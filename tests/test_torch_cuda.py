@@ -52,8 +52,106 @@ def test_param_stats_kernel_matches_plain_on_the_card(cuda, dtype):
     assert torch.isnan(m).all() and torch.isnan(v).all()
 
 
+def _mixed_leaves(dev, gen, N=14, split=(1 << 16) + 5):
+    """The squeezenet-dr leaves of N clients, fp32 and bf16 in turn, an
+    empty leaf, and a leaf whose rows split over several CTAs."""
+    out = [(torch.randn((N,) + s, generator=gen, device=dev) * 0.1 + 0.02 * i)
+           .to(torch.float32 if i % 2 else torch.bfloat16)
+           for i, s in enumerate(SQUEEZENET_LEAVES)]
+    out.insert(3, torch.zeros((N, 0), device=dev))
+    out.append(torch.randn((N, split), generator=gen, device=dev) * 0.5 + 3.0)
+    return out
+
+
+def _assert_stats_close(got, expect):
+    """mean rtol 1e-5 / atol 1e-6, var rtol 1e-4 / atol 1e-6 (NaN where
+    the plain version is NaN): fp32 Welford partials merged in another
+    order than the plain two-pass version."""
+    torch.testing.assert_close(got[..., 0], expect[..., 0], rtol=1e-5, atol=1e-6, equal_nan=True)
+    torch.testing.assert_close(got[..., 1], expect[..., 1], rtol=1e-4, atol=1e-6, equal_nan=True)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,F,K", [(14, 56, 3), (1000, 260, 37), (129, 7, 1)])
+def test_param_stats_leaves_kernel_matches_plain_in_one_launch(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    leaves = _mixed_leaves(cuda, gen)
+    assert k_stats.slices(leaves[-1].shape[1]) > 1
+    before = k_stats.param_stats_leaves.launches
+    got = ops.param_stats_leaves(leaves)
+    assert k_stats.param_stats_leaves.launches == before + 1
+    assert got.shape == (14, len(leaves), 2)
+    _assert_stats_close(got, ref.param_stats_leaves(leaves))
+    assert torch.isnan(got[:, 3]).all()
+
+
+@pytest.mark.cuda
+def test_param_stats_leaves_past_the_table_take_one_launch_a_chunk(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    leaves = [torch.randn((3, 1 + i % 17), generator=gen, device=cuda)
+              for i in range(k_stats.MAX_LEAVES * 2 + 3)]
+    before = k_stats.param_stats_leaves.launches
+    got = k_stats.param_stats_leaves(leaves)
+    assert k_stats.param_stats_leaves.launches == before + 3
+    _assert_stats_close(got, ref.param_stats_leaves(leaves))
+
+
+@pytest.mark.cuda
+def test_param_stats_batched_is_the_one_leaf_entry_of_the_same_kernel(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn((5, 3, 40_000), generator=gen, device=cuda).to(torch.bfloat16)
+    before = k_stats.param_stats_leaves.launches
+    m, v = ops.param_stats_batched(x)
+    assert k_stats.param_stats_leaves.launches == before + 1
+    both = k_stats.param_stats_leaves([x])
+    assert torch.equal(m, both[:, 0, 0]) and torch.equal(v, both[:, 0, 1])
+    rm, rv = ref.param_stats_batched(x)
+    torch.testing.assert_close(m, rm, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(v, rv, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_param_stats_graph_replays_find_the_merge_counters_at_zero(cuda):
+    """A call with split rows captured in a CUDA graph (its counters made
+    before the capture, on the capture's stream) and replayed three
+    times on new inputs written in place: each replay equals an eager
+    call and the plain version, which the last CTA of a split row can
+    only give if it found its counter back at 0."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    leaves = _mixed_leaves(cuda, gen, split=(1 << 18) + 3)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        k_stats.param_stats_leaves(leaves)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = k_stats.param_stats_leaves(leaves)
+    for _ in range(3):
+        for x in leaves:
+            x.copy_(torch.randn(x.shape, generator=gen, device=cuda) * 2.0 - 1.0)
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, k_stats.param_stats_leaves(leaves), rtol=0, atol=0,
+                                   equal_nan=True)
+        _assert_stats_close(out, ref.param_stats_leaves(leaves))
+
+
+@pytest.mark.cuda
+def test_param_stats_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros((4, 8), device=cuda)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        k_stats.param_stats_leaves([x, torch.zeros((4, 8))])
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        k_stats.param_stats_leaves([x, torch.zeros((4, 8), device=cuda, dtype=torch.float16)])
+    with pytest.raises(ValueError, match="contiguous"):
+        k_stats.param_stats_leaves([x, torch.zeros((8, 4), device=cuda).t()])
+    with pytest.raises(ValueError, match="one client axis"):
+        k_stats.param_stats_leaves([x, torch.zeros((5, 8), device=cuda)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,F,K", [(14, 56, 3), (1000, 260, 37), (129, 7, 1), (500, 191, 64),
+                                   (300, 1, 5), (300, 33, 7), (70_000, 56, 3)])
 def test_kmeans_assign_kernel_matches_plain_on_the_card(cuda, N, F, K):
     gen = torch.Generator(device=cuda).manual_seed(N)
     X = torch.randn((N, F), generator=gen, device=cuda)
@@ -61,6 +159,28 @@ def test_kmeans_assign_kernel_matches_plain_on_the_card(cuda, N, F, K):
     before = k_assign.kmeans_assign.launches
     assert torch.equal(k_assign.kmeans_assign(X, C), ref.kmeans_assign(X, C))
     assert k_assign.kmeans_assign.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_kmeans_assign_rows_on_duplicated_centroids_go_to_the_first(cuda):
+    """Rows equal to one of two centroids that each appear twice: every
+    distance pair ties exactly, and the first copy wins, as in the plain
+    version."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    a, b = torch.randn((2, 56), generator=gen, device=cuda)
+    C = torch.stack([a, b, a, b])
+    X = torch.stack([a, b] * 20)
+    got = k_assign.kmeans_assign(X, C)
+    assert torch.equal(got, ref.kmeans_assign(X, C))
+    assert got.tolist() == [0, 1] * 20
+
+
+@pytest.mark.cuda
+def test_kmeans_assign_refuses_centroids_past_shared_memory(cuda):
+    """K = 64 at F = 260 needs 66,816 B of shared memory: refused."""
+    with pytest.raises(ValueError, match="shared memory"):
+        k_assign.kmeans_assign(torch.zeros((4, 260), device=cuda),
+                               torch.zeros((64, 260), device=cuda))
 
 
 # chip_smoke.py phase 5: B, H, KV, S, D, pos, window, stored in the serve

@@ -11,10 +11,13 @@ import numpy as np  # noqa: E402
 
 from repro.kernels import ops as jax_ops  # noqa: E402
 from repro.kernels import ref as jax_ref  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_decode as k_decode  # noqa: E402
 from repro_torch.kernels import kmeans_assign as k_assign  # noqa: E402
 from repro_torch.kernels import param_stats as k_stats  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.utils.tree import tree_paths_and_leaves  # noqa: E402
 
 
 def _bf16_from_torch(x):
@@ -192,15 +195,17 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     x = torch.randn(4, 9)
     X, C = torch.randn(6, 5), torch.randn(2, 5)
     q, kv = torch.randn(2, 4, 1, 32), torch.randn(2, 2, 10, 32)
-    before = (k_stats.param_stats_batched.launches, k_assign.kmeans_assign.launches,
+    before = (k_stats.param_stats_leaves.launches, k_assign.kmeans_assign.launches,
               k_decode.flash_decode.launches)
     m, v = ops.param_stats_batched(x)
     rm, rv = ref.param_stats_batched(x)
     assert torch.equal(m, rm) and torch.equal(v, rv)
+    both = ops.param_stats_leaves([x, x[:, :4].to(torch.bfloat16).contiguous()])
+    assert torch.equal(both, ref.param_stats_leaves([x, x[:, :4].to(torch.bfloat16)]))
     assert torch.equal(ops.kmeans_assign(X, C), ref.kmeans_assign(X, C))
     assert torch.equal(ops.flash_decode(q, kv, kv, 7, window=3),
                        ref.decode_attention(q, kv, kv, 7, window=3))
-    assert (k_stats.param_stats_batched.launches, k_assign.kmeans_assign.launches,
+    assert (k_stats.param_stats_leaves.launches, k_assign.kmeans_assign.launches,
             k_decode.flash_decode.launches) == before
 
 
@@ -224,11 +229,118 @@ def test_other_devices_go_to_the_kernels_which_refuse_them():
                               torch.zeros(2, 2, 8, 64), 3)
 
 
-@pytest.mark.parametrize("N,n,sms,expect", [(14, 9216, 132, 5), (14, 5, 132, 1),
-                                            (1, 16_777_216, 132, 528), (14, 0, 132, 1),
-                                            (60000, 10**6, 132, 1)])
-def test_param_stats_slices_per_client(N, n, sms, expect):
-    assert k_stats.n_slices(N, n, sms) == expect
+@pytest.mark.parametrize("n,expect", [(9216, 1), (5, 1), (0, 1), (16384, 1), (16385, 2),
+                                      (1_000_003, 62), (16_777_216, 1024),
+                                      (16_777_221, 1025)])
+def test_param_stats_slices_per_client(n, expect):
+    """A row up to ROW_PER_CTA elements (every row of squeezenet-dr's
+    round, 9,216 at most) is one CTA with no merge; a longer one splits
+    into ROW_PER_CTA slices."""
+    assert k_stats.slices(n) == expect
+
+
+def _cnn_leaf_sizes(arch):
+    """Elements a client of each floating leaf of a CNN, in sorted path
+    order (as swarm_distribution_matrix hands them to the kernel)."""
+    params = build_model(get_config(arch)).init(torch.Generator().manual_seed(0))
+    pairs = sorted(tree_paths_and_leaves(params), key=lambda kv: kv[0])
+    return [leaf.numel() for _, leaf in pairs if leaf.is_floating_point()]
+
+
+@pytest.mark.parametrize("arch,T", [("squeezenet-dr", 28), ("alexnet-dr", 10), ("vgg-dr", 12),
+                                    ("inception-dr", 20)])
+def test_param_stats_plan_makes_every_cnn_round_one_launch(arch, T):
+    sizes = _cnn_leaf_sizes(arch)
+    assert len(sizes) == T
+    (ln,) = k_stats.plan(sizes, 14)
+    assert (ln.start, ln.stop) == (0, T)
+    assert ln.n_ctas == 14 * sum(k_stats.slices(n) for n in sizes)
+
+
+@pytest.mark.parametrize("sizes,N,expect", [
+    # the round: one launch, a CTA a (leaf, client), nothing splits
+    (_cnn_leaf_sizes("squeezenet-dr"), 14, [(0, 28, 392, 0, 0)]),
+    # a split leaf between two short ones: 3 slices a client, after 2 CTAs
+    ([7, 40_000, 0], 2, [(0, 3, 2 + 6 + 2, 6, 2)]),
+    # more leaves than the table: chunks of MAX_LEAVES, numbered afresh
+    ([5] * 130, 3, [(0, 64, 192, 0, 0), (64, 128, 192, 0, 0), (128, 130, 6, 0, 0)]),
+])
+def test_param_stats_plan_offsets_slices_and_chunks(sizes, N, expect):
+    launches = k_stats.plan(sizes, N)
+    assert [(ln.start, ln.stop, ln.n_ctas, ln.n_parts, ln.n_counters)
+            for ln in launches] == expect
+    for ln in launches:
+        chunk = sizes[ln.start:ln.stop]
+        assert ln.slices == tuple(k_stats.slices(n) for n in chunk)
+        # each leaf's CTAs follow the one before's, client-major
+        assert ln.cta0 == tuple(N * sum(ln.slices[:i]) for i in range(len(chunk)))
+        split = [i for i, s in enumerate(ln.slices) if s > 1]
+        assert [ln.part0[i] for i in split] == [N * sum(ln.slices[j] for j in split[:k])
+                                               for k in range(len(split))]
+        assert [ln.ctr0[i] for i in split] == [N * k for k in range(len(split))]
+        assert all(ln.part0[i] == ln.ctr0[i] == -1 for i in range(len(chunk)) if i not in split)
+
+
+def test_param_stats_plan_of_a_2_31_element_row():
+    """A row of 2^31 elements (and one more) plans without allocating:
+    ROW_PER_CTA slices, partials and CTAs within int32."""
+    n = 2**31
+    (ln,) = k_stats.plan([n + 1, 3], 1)
+    assert ln.slices == (n // k_stats.ROW_PER_CTA + 1, 1)
+    assert ln.n_ctas == ln.slices[0] + 1 and ln.n_parts == ln.slices[0] and ln.n_counters == 1
+    assert ln.cta0 == (0, ln.slices[0]) and ln.part0 == (0, -1) and ln.ctr0 == (0, -1)
+    assert (ln.slices[0] - 1) * k_stats.ROW_PER_CTA < n + 1 <= ln.slices[0] * k_stats.ROW_PER_CTA
+
+
+def test_param_stats_table_record_is_the_kernels_struct():
+    """The wrapper's record and constants against csrc/param_stats.cu:
+    a 40-byte Leaf, and the table and slice sizes the kernel assumes."""
+    rec = k_stats.LEAF_RECORD
+    assert rec.size == 40 and rec.format == "<Qqiiiiii"   # 8, 8, then six 4-byte fields
+    src = (_build.CSRC / "param_stats.cu").read_text()
+    assert f"constexpr int kMaxLeaves = {k_stats.MAX_LEAVES};" in src
+    assert "static_assert(sizeof(Leaf) == 40" in src
+    assert k_stats.ROW_PER_CTA % 8 == 0          # a slice starts on a 16-byte vector
+
+
+def _leaf_list(seed):
+    """One seeded list of client-stacked leaves: ragged sizes, fp32 and
+    bf16 alternating, an empty leaf; the same numbers on both sides."""
+    rng = np.random.default_rng(seed)
+    shapes = [(3, 3, 4), (5,), (70_001,), (0,), (2, 33), (1,), (9216,), (16_385,)]
+    out = []
+    for i, s in enumerate(shapes):
+        x = (rng.normal(size=(6,) + s) * rng.uniform(0.01, 2.0) + rng.normal()).astype(np.float32)
+        out.append(torch.from_numpy(x).to(torch.float32 if i % 2 == 0 else torch.bfloat16))
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_plain_param_stats_leaves_matches_reference_per_leaf(seed):
+    """(N, T, 2) against the Pallas kernel (interpret) and the jnp oracle
+    leaf by leaf; rtol 1e-5 / atol 1e-6 as the one-leaf tests. The empty
+    leaf is NaN on every side."""
+    leaves = _leaf_list(seed)
+    got = ref.param_stats_leaves(leaves)
+    assert got.shape == (6, len(leaves), 2) and got.dtype == torch.float32
+    for t, x in enumerate(leaves):
+        jx = jnp.asarray(x.numpy()) if x.dtype == torch.float32 else _bf16_from_torch(x)
+        for jm, jv in (jax_ref.ref_param_stats_batched(jx), jax_ops.param_stats_batched(jx)):
+            np.testing.assert_allclose(got[:, t, 0].numpy(), np.asarray(jm), rtol=1e-5, atol=1e-6)
+            np.testing.assert_allclose(got[:, t, 1].numpy(), np.asarray(jv), rtol=1e-5, atol=1e-6)
+    assert torch.isnan(got[:, 3]).all()
+
+
+def test_param_stats_leaves_off_one_cuda_device_reaches_the_kernel_which_refuses():
+    """A list that is not all on the CPU is the kernel's, and the kernel
+    takes only leaves on one CUDA device; an empty list is refused."""
+    cpu = torch.zeros(2, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.param_stats_leaves([cpu, torch.empty((2, 3), device="meta")])
+    with pytest.raises(ValueError, match="CUDA"):
+        k_stats.param_stats_leaves([cpu])
+    with pytest.raises(ValueError, match="at least one leaf"):
+        ops.param_stats_leaves([])
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
