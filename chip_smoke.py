@@ -15,8 +15,9 @@ exits non-zero and prints no result. It imports nothing of JAX. Phases:
 2. hold each kernel against its plain PyTorch version on the card at
    the main path's shapes and a few harder ones (param_stats also on one
    call over a round's leaves of mixed types with a split row, and on
-   three replays of a CUDA graph), and time kernel, plain version and a
-   PyTorch yardstick;
+   three replays of a CUDA graph; kmeans_assign also with its
+   ``k_active`` operand at the grid's shape, (14,56) against (5,56)),
+   and time kernel, plain version and a PyTorch yardstick;
 3. drive the main path: ``SwarmTrainer`` on squeezenet-dr at full width
    on the full Table I (3,657 images at 32 px, 14 clinics), adam at lr
    2e-3, batch 8, 12 local steps, k=3, p1=0.9, p2=0.8, 20 k-means
@@ -57,7 +58,16 @@ exits non-zero and prints no result. It imports nothing of JAX. Phases:
    steps, k 3, p1 0.9, p2 0.8, 20 k-means iterations, 10 rounds, seed
    0) with the coordinator's launch counts read from the sweep alone,
    then ``run_method("bso-sl")`` serially; the accuracies are reported
-   beside the paper's.
+   beside the paper's;
+11. drive the hyper-parameter grid axis: benchmarks/cluster_ablation.py's
+   ``run()`` (half of Table I at 20 px, 14 clinics, squeezenet-dr, adam
+   lr 2e-3, batch 8, 10 local steps, 20 k-means iterations, 6 rounds,
+   seed 0) over its five CASES through ``run_grid_table`` (pad k 5),
+   with K1 = 30 and K2 = 630 launches asserted, every K2 launch carrying
+   ``k_active``; then a scheduled grid (local_steps 4 and 10 by k 2 and
+   3, 2 rounds), and one grid round (k 2 under the pad 5, its own lr and
+   step count) on the card and on the CPU from one state and one set of
+   draws, compared.
 
 Any failure raises. The line before the last is one JSON object
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -113,6 +123,25 @@ BATCH = 8
 K = 3
 KMEANS_ITERS = 20
 STATS_PASSES_PER_ROUND = 1        # one swarm_distribution_matrix per bso round
+# the grid axis (phase 11): benchmarks/cluster_ablation.py's run()
+# defaults and its CASES (copied), and a grid whose rows' step counts
+# differ, so that run_grid_table derives a schedule
+GRID_IMAGE = 20
+GRID_DATA_SCALE = 2
+GRID_ROUNDS = 6
+GRID_LOCAL_STEPS = 10
+GRID_SEED = 0
+GRID_CASES = [
+    ("k1_fedavg_like", dict(k=1)),
+    ("k3_paper", dict(k=3)),
+    ("k5", dict(k=5)),
+    ("k3_no_brainstorm", dict(k=3, p1=1.0, p2=1.0)),
+    ("k3_max_disruption", dict(k=3, p1=0.0, p2=0.0)),
+]
+GRID_SCHEDULE_AXES = {"local_steps": (4, 10), "k": (2, 3)}
+GRID_SCHEDULE_ROUNDS = 2
+# K2's operand at the grid's shape: (14,56) against the pad's 5 centroids
+GRID_K_MAX = 5
 # kernels that phase 1 holds to no stack frame and no spills
 NO_SPILL_KERNELS = ("param_stats", "kmeans_assign")
 # calls captured in one graph for the coordinator kernels' second device time
@@ -437,6 +466,72 @@ def check_kmeans_assign(torch, dev, X, C):
     return 0.0
 
 
+def check_kmeans_assign_k_active(torch, dev, X):
+    """K2 with its ``k_active`` operand (a () int32 tensor on the card)
+    against the plain version, ids equal: the grid's shape at k_active
+    1, 2, 3 and 5 of 5; dead centroids that are copies of rows of X, so
+    nearer than every live one; ties; k_active 0, below 0 and above K;
+    the streaming variant (F > 128). Each call is one launch that
+    carried the operand; a k_active on the host is refused."""
+    from repro_torch.kernels import kmeans_assign, ref
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    grid_c = X[torch.randperm(X.shape[0], generator=gen, device=dev)[:GRID_K_MAX]].contiguous()
+    grid_c += 0.01 * rand(*grid_c.shape)
+    dead = torch.cat([rand(3, X.shape[1]) + 3.0, X[:2]]).contiguous()
+    cases = [(f"grid k_active={v}", X, grid_c, v) for v in (1, 2, 3, GRID_K_MAX)]
+    cases += [("dead centroids nearest", X, dead, 3),
+              ("ties", torch.zeros((130, 4), device=dev), torch.zeros((5, 4), device=dev), 3),
+              ("k_active=0", X, grid_c, 0), ("k_active=-2", X, grid_c, -2),
+              ("k_active=7 > K", X, grid_c, 7),
+              ("F=200 (streaming variant)", rand(300, 200), rand(6, 200), 4)]
+    for name, x, c, v in cases:
+        ka = torch.tensor(v, dtype=torch.int32, device=dev)
+        before = (kmeans_assign.kmeans_assign.launches,
+                  kmeans_assign.kmeans_assign.k_active_launches)
+        got = kmeans_assign.kmeans_assign(x, c, ka)
+        expect = ref.kmeans_assign(x, c, ka)
+        torch.cuda.synchronize()
+        assert (kmeans_assign.kmeans_assign.launches,
+                kmeans_assign.kmeans_assign.k_active_launches) == \
+            (before[0] + 1, before[1] + 1), f"kmeans_assign {name}: not one k_active launch"
+        if not torch.equal(got, expect):
+            bad = int((got != expect).sum())
+            raise AssertionError(f"kmeans_assign {name}: {bad} of {got.numel()} ids differ")
+        if v <= 0:
+            assert not got.any(), f"kmeans_assign {name}: no live centroid must give id 0"
+    refused = False
+    try:
+        kmeans_assign.kmeans_assign(X, grid_c, torch.tensor(3, dtype=torch.int32))
+    except ValueError:
+        refused = True
+    assert refused, "kmeans_assign took a k_active on the host"
+    log(f"[kernels] kmeans_assign with k_active: {len(cases)} cases equal to the plain version; "
+        f"a k_active on the host refused")
+    return grid_c
+
+
+def time_kmeans_assign_k_active(torch, X, C):
+    """K2 at the grid's shape with and without its operand: one call
+    through the wrapper, one call replayed in a CUDA graph, and a call of
+    a graph of :data:`GRAPH_CALLS`, logged."""
+    from repro_torch.kernels import kmeans_assign
+    ka = torch.tensor(3, dtype=torch.int32, device=X.device)
+    out = {}
+    for name, fn in (("without", lambda: kmeans_assign.kmeans_assign(X, C)),
+                     ("with", lambda: kmeans_assign.kmeans_assign(X, C, ka))):
+        out[name] = (cuda_ms(torch, fn, reps=500), graph_ms(torch, fn),
+                     graph_ms(torch, fn, GRAPH_CALLS))
+    log(f"[kernels] kmeans_assign ({X.shape[0]},{X.shape[1]})x({C.shape[0]},{C.shape[1]}), "
+        f"k_active 3: through the wrapper / one call in a graph / a call of a graph of "
+        f"{GRAPH_CALLS}: without the operand "
+        f"{' / '.join(f'{t:.4f}' for t in out['without'])} ms, with it "
+        f"{' / '.join(f'{t:.4f}' for t in out['with'])} ms")
+
+
 def time_kmeans_assign(torch, X, C):
     from repro_torch.kernels import kmeans_assign, ref
     ms = cuda_ms(torch, lambda: kmeans_assign.kmeans_assign(X, C), reps=500)
@@ -461,10 +556,35 @@ def time_kmeans_assign(torch, X, C):
 # ------------------------------------------------------------- phases 3, 4
 
 
+def _coordinator_counts():
+    from repro_torch.kernels import kmeans_assign, param_stats
+    return {"param_stats_batched": param_stats.param_stats_leaves.launches,
+            "kmeans_assign": kmeans_assign.kmeans_assign.launches,
+            "kmeans_assign with k_active": kmeans_assign.kmeans_assign.k_active_launches}
+
+
+def _zero_coordinator_counts():
+    from repro_torch.kernels import kmeans_assign, param_stats
+    param_stats.param_stats_leaves.launches = 0
+    kmeans_assign.kmeans_assign.launches = 0
+    kmeans_assign.kmeans_assign.k_active_launches = 0
+
+
+def _grid_want(rows: int, rounds: int, n_leaves: int) -> dict:
+    """The coordinator's launches of ``rows`` rows of ``rounds`` bso
+    rounds: one K1 pass a round (a launch for every MAX_LEAVES leaves),
+    ``KMEANS_ITERS + 1`` K2 assigns, on a grid row each with
+    ``k_active``."""
+    from repro_torch.kernels import param_stats
+    k2 = rows * rounds * (KMEANS_ITERS + 1)
+    return {"param_stats_batched": rows * rounds * math.ceil(n_leaves / param_stats.MAX_LEAVES)
+            * STATS_PASSES_PER_ROUND,
+            "kmeans_assign": k2, "kmeans_assign with k_active": k2}
+
+
 def main_path(torch, clients, dev):
     from repro_torch.configs import OptimizerConfig, SwarmConfig, get_config
     from repro_torch.core.swarm import SwarmTrainer
-    from repro_torch.kernels import kmeans_assign, param_stats
     from repro_torch.models import build_model
 
     swarm = SwarmConfig(n_clients=14, n_clusters=K, p1=0.9, p2=0.8,
@@ -476,8 +596,7 @@ def main_path(torch, clients, dev):
     log(f"[main] squeezenet-dr, 14 clients, train stack {tuple(imgs.shape)} = "
         f"{imgs.numel() * imgs.element_size() / 1e6:.1f} MB on {imgs.device}")
 
-    param_stats.param_stats_leaves.launches = 0
-    kmeans_assign.kmeans_assign.launches = 0
+    _zero_coordinator_counts()
     round_s = []
     for _ in range(ROUNDS):
         t0 = time.perf_counter()
@@ -489,13 +608,10 @@ def main_path(torch, clients, dev):
             f"centers={lg.centers.tolist()} events={lg.events}")
         assert math.isfinite(lg.train_loss), "train loss is not finite"
         assert 0.0 <= lg.mean_val_acc <= 1.0, "val accuracy outside [0, 1]"
-    launches = {"param_stats_batched": param_stats.param_stats_leaves.launches,
-                "kmeans_assign": kmeans_assign.kmeans_assign.launches}
-    # one launch a stats pass for every MAX_LEAVES leaves: 1 for the 28
-    n_leaves = sum(1 for _ in _leaves(tr.params))
-    want = {"param_stats_batched": math.ceil(n_leaves / param_stats.MAX_LEAVES) * ROUNDS
-            * STATS_PASSES_PER_ROUND,
-            "kmeans_assign": (KMEANS_ITERS + 1) * ROUNDS}
+    launches = _coordinator_counts()
+    # one launch a stats pass for every MAX_LEAVES leaves: 1 for the 28;
+    # the plain path's assigns carry no k_active
+    want = {**_grid_want(1, ROUNDS, len(_leaves(tr.params))), "kmeans_assign with k_active": 0}
     log(f"[main] launches {launches}, expected {want}")
     assert launches == want, f"launch counts {launches} != {want}"
     test_acc = tr.mean_accuracy("test")
@@ -909,7 +1025,7 @@ def card_vs_cpu_serve(torch, dev, dtype: str):
     return toks_card == toks_cpu, diff, scale
 
 
-# ------------------------------------------------------------ phases 8-10
+# ------------------------------------------------------------ phases 8-11
 
 
 def _attn_inputs(torch, dev, gen, B, H, KV, Sq, Sk, D, dtype):
@@ -1067,7 +1183,6 @@ def table2(torch, dev):
     from repro_torch.core import baselines
     from repro_torch.core.engine import SWEEP_METHODS, stack_eval_split
     from repro_torch.data.dr import make_dr_swarm_data, scale_table
-    from repro_torch.kernels import kmeans_assign, param_stats
     from repro_torch.models import build_model
 
     clients = make_dr_swarm_data(image_size=TABLE2_IMAGE, seed=TABLE2_SEED, table=scale_table(1))
@@ -1079,21 +1194,17 @@ def table2(torch, dev):
                                             device=dev)
     test_stack = stack_eval_split(model.cfg, clients, "test", device=dev)
 
-    param_stats.param_stats_leaves.launches = 0
-    kmeans_assign.kmeans_assign.launches = 0
+    _zero_coordinator_counts()
     t0 = time.perf_counter()
     accs, run = baselines.run_sweep_table(model, clients, swarm, opt, TABLE2_SEED,
                                           batch_size=BATCH, cfg=cfg, data=data,
                                           test_stack=test_stack)
     torch.cuda.synchronize()
     sweep_s = time.perf_counter() - t0
-    launches = {"param_stats_batched": param_stats.param_stats_leaves.launches,
-                "kmeans_assign": kmeans_assign.kmeans_assign.launches}
-    n_leaves = sum(1 for _ in _leaves(run.state[0].params))
+    launches = _coordinator_counts()
     M = len(SWEEP_METHODS)
-    want = {"param_stats_batched": M * TABLE2_ROUNDS * math.ceil(n_leaves / param_stats.MAX_LEAVES)
-            * STATS_PASSES_PER_ROUND,
-            "kmeans_assign": M * TABLE2_ROUNDS * (KMEANS_ITERS + 1)}
+    want = {**_grid_want(M, TABLE2_ROUNDS, len(_leaves(run.state[0].params))),
+            "kmeans_assign with k_active": 0}
     log(f"[table2] sweep of {M} methods x {TABLE2_ROUNDS} rounds in {sweep_s:.3f} s; launches "
         f"{launches}, expected {want}")
     assert launches == want, f"sweep launch counts {launches} != {want}"
@@ -1123,6 +1234,124 @@ def table2(torch, dev):
         f"{accs['bso-sl']:.4f}, |diff| {abs(serial_acc - accs['bso-sl']):.2e}); orderings, "
         f"not asserted (ORDERING_TOL {ORDERING_TOL}): {ordering}")
     return launches, accs, serial_acc, sweep_s, serial_s
+
+
+def grid_path(torch, dev):
+    """Phase 11: the CASES ablation through ``run_grid_table`` (pad k 5),
+    launch counts read from that call alone; then the scheduled grid.
+    Returns (launch counts, results, final states, seconds of the
+    ablation and of the scheduled grid, the clients, the data)."""
+    from repro_torch.configs import OptimizerConfig, SwarmConfig, get_config
+    from repro_torch.core import baselines
+    from repro_torch.core.engine import make_swarm_data, stack_eval_split
+    from repro_torch.data.dr import make_dr_swarm_data, scale_table
+    from repro_torch.models import build_model
+
+    clients = make_dr_swarm_data(image_size=GRID_IMAGE, seed=GRID_SEED,
+                                 table=scale_table(GRID_DATA_SCALE))
+    model = build_model(get_config("squeezenet-dr"))
+    opt = OptimizerConfig(name="adam", lr=2e-3)
+    swarm = SwarmConfig(n_clients=14, rounds=GRID_ROUNDS, local_steps=GRID_LOCAL_STEPS,
+                        kmeans_iters=KMEANS_ITERS)
+    data = make_swarm_data(model.cfg, clients, device=dev)
+    test_stack = stack_eval_split(model.cfg, clients, "test", device=dev)
+    specs = [spec for _, spec in GRID_CASES]
+    log(f"[grid] {len(specs)} cases x {GRID_ROUNDS} rounds, {sum(c['n_train'] for c in clients)} "
+        f"train images at {GRID_IMAGE} px in 14 clinics, {GRID_LOCAL_STEPS} local steps")
+
+    _zero_coordinator_counts()
+    t0 = time.perf_counter()
+    results, run = baselines.run_grid_table(model, clients, swarm, opt, GRID_SEED, specs=specs,
+                                            batch_size=BATCH, data=data, test_stack=test_stack)
+    torch.cuda.synchronize()
+    grid_s = time.perf_counter() - t0
+    launches = _coordinator_counts()
+    want = _grid_want(len(specs), GRID_ROUNDS, len(_leaves(run.state[0].params)))
+    log(f"[grid] ablation in {grid_s:.3f} s; launches {launches}, expected {want}")
+    assert launches == want, f"grid launch counts {launches} != {want}"
+    ms = run.metrics
+    for g, ((name, spec), res) in enumerate(zip(GRID_CASES, results)):
+        assert math.isfinite(res["acc"]) and 0.0 <= res["acc"] <= 1.0, f"{name}: {res}"
+        assert torch.isfinite(ms.train_loss[g]).all(), f"{name}: train loss not finite"
+        assert int(ms.assignments[g].max()) < spec["k"], f"{name}: a client in a pad cluster"
+        assert (ms.centers[g][:, spec["k"]:] == -1).all(), f"{name}: a pad cluster has a center"
+        if spec.get("p1") == 1.0 and spec.get("p2") == 1.0:
+            assert not ms.n_replaced[g].any() and not ms.n_swapped[g].any(), \
+                f"{name}: p1 = p2 = 1 must make no brain-storm event"
+        log(f"[grid] {name}: Eq. 3 test acc {res['acc']:.4f}; val acc by round "
+            f"{[round(a, 4) for a in ms.mean_val_acc[g].tolist()]}; events (replaced, swapped) "
+            f"{list(zip(ms.n_replaced[g].tolist(), ms.n_swapped[g].tolist()))}")
+
+    # the scheduled grid: rows of 4 steps compute 4, not 10
+    schedules = []
+    run_grid = baselines.run_grid
+
+    def spy(*args, **kw):
+        schedules.append(args[5] if len(args) > 5 else kw.get("schedule"))
+        return run_grid(*args, **kw)
+
+    baselines.run_grid = spy
+    try:
+        _zero_coordinator_counts()
+        t0 = time.perf_counter()
+        sched_results, sched_run = baselines.run_grid_table(
+            model, clients, replace(swarm, rounds=GRID_SCHEDULE_ROUNDS), opt, GRID_SEED,
+            axes=GRID_SCHEDULE_AXES, batch_size=BATCH, data=data, test_stack=test_stack)
+        torch.cuda.synchronize()
+        sched_s = time.perf_counter() - t0
+    finally:
+        baselines.run_grid = run_grid
+    sched_launches = _coordinator_counts()
+    rows = len(sched_results)
+    want = _grid_want(rows, GRID_SCHEDULE_ROUNDS, len(_leaves(sched_run.state[0].params)))
+    expect_schedule = tuple(r["local_steps"] for r in sched_results)
+    log(f"[grid] scheduled grid {GRID_SCHEDULE_AXES} x {GRID_SCHEDULE_ROUNDS} rounds in "
+        f"{sched_s:.3f} s, schedule {schedules}; launches {sched_launches}, expected {want}; "
+        f"accs {[round(r['acc'], 4) for r in sched_results]}")
+    assert schedules == [expect_schedule] and min(expect_schedule) < GRID_LOCAL_STEPS, \
+        f"run_grid_table passed the schedule {schedules}, not {expect_schedule}"
+    assert sched_launches == want, f"scheduled grid launch counts {sched_launches} != {want}"
+    assert torch.isfinite(sched_run.metrics.train_loss).all()
+    return launches, results, run.state, grid_s, sched_s, clients, data
+
+
+def card_vs_cpu_grid(torch, state, clients, data_card):
+    """One grid round of the k=2 row under the pad 5, with its own lr
+    (1e-3) and 2 of 3 local steps, adam at eps 1e-6, on the card and on
+    the CPU from ``state`` and one set of injected draws. Returns (max
+    |param diff|, card metrics, cpu metrics, the card round's k_active
+    launches)."""
+    from repro_torch.configs import OptimizerConfig, get_config
+    from repro_torch.core import engine
+    from repro_torch.kernels import kmeans_assign
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.utils.tree import tree_map
+
+    cpu = torch.device("cpu")
+    model = build_model(get_config("squeezenet-dr"))
+    cfg = engine.EngineConfig(model=model,
+                              opt=make_optimizer(OptimizerConfig(name="adam", lr=2e-3, eps=1e-6)),
+                              local_steps=3, batch_size=BATCH, lr=2e-3, n_clusters=GRID_K_MAX,
+                              kmeans_iters=KMEANS_ITERS)
+    spec = dict(k=2, lr=1e-3, local_steps=2)
+    data_cpu = engine.make_swarm_data(model.cfg, clients, device=cpu)
+    draws = engine.draw_round(torch.Generator().manual_seed(12), data_cpu.train_n, cfg)
+    s_card = engine.copy_state(state)
+    s_cpu = s_card._replace(params=tree_map(lambda t: t.cpu(), s_card.params),
+                            opt_state=tree_map(lambda t: t.cpu(), s_card.opt_state),
+                            generator=torch.Generator(), n_samples=s_card.n_samples.cpu())
+    row_card = engine.grid_point(cfg, 14, device=data_card.train_n.device, **spec)
+    before = kmeans_assign.kmeans_assign.k_active_launches
+    new_card, m_card = engine.swarm_round(s_card, data_card, cfg, row_card, draws=draws)
+    torch.cuda.synchronize()
+    k2 = kmeans_assign.kmeans_assign.k_active_launches - before
+    new_cpu, m_cpu = engine.swarm_round(s_cpu, data_cpu, cfg,
+                                        engine.grid_point(cfg, 14, device=cpu, **spec),
+                                        draws=draws)
+    diff = max((a.cpu() - b).abs().max().item()
+               for a, b in zip(_leaves(new_card.params), _leaves(new_cpu.params)))
+    return diff, m_card, m_cpu, k2
 
 
 def _kernel_line(name, source, replaces, launches, err, times) -> dict:
@@ -1183,8 +1412,10 @@ def main() -> int:
     cents = feats[torch.randperm(14, generator=gen, device=dev)[:K]].contiguous()
     k1_err = check_param_stats(torch, dev, leaves)
     k2_err = check_kmeans_assign(torch, dev, feats, cents)
+    grid_cents = check_kmeans_assign_k_active(torch, dev, feats)
     k1 = time_param_stats(torch, leaves)
     k2 = time_kmeans_assign(torch, feats, cents)
+    time_kmeans_assign_k_active(torch, feats, grid_cents)
     log(f"[kernels] param_stats_batched, 28 leaves x 14 clients in one call: kernel "
         f"{k1[0]:.4f} ms, plain {k1[1]:.4f} ms, var_mean x 28 {k1[2]:.4f} ms, bound "
         f"{k1[3]:.6f} ms ({k1[4]})")
@@ -1260,11 +1491,28 @@ def main() -> int:
     # --- phase 10: Table II on the card, launch counts from the sweep alone
     t2_launches, accs, serial_acc, sweep_s, serial_s = table2(torch, dev)
 
+    # --- phase 11: the grid axis, launch counts from the ablation alone
+    g_launches, g_results, g_states, grid_s, sched_s, g_clients, g_data = grid_path(torch, dev)
+    gdiff, gm_card, gm_cpu, g_k2 = card_vs_cpu_grid(torch, g_states[1], g_clients, g_data)
+    log(f"[card-vs-cpu grid] k 2 of pad {GRID_K_MAX}, lr 1e-3, 2 of 3 local steps, adam eps "
+        f"1e-6: assignments {gm_card.assignments.tolist()} / {gm_cpu.assignments.tolist()}, "
+        f"centers {gm_card.centers.tolist()} / {gm_cpu.centers.tolist()}, max |param diff| "
+        f"{gdiff:.3e}, max |val acc diff| "
+        f"{(gm_card.val_acc.cpu() - gm_cpu.val_acc).abs().max().item():.3e}; {g_k2} k_active "
+        f"launches on the card")
+    assert g_k2 == KMEANS_ITERS + 1, f"the card's grid round made {g_k2} k_active launches"
+    assert torch.equal(gm_card.assignments.cpu(), gm_cpu.assignments), "grid assignments differ"
+    assert torch.equal(gm_card.centers.cpu(), gm_cpu.centers), "grid centers differ"
+    assert int(gm_card.assignments.max()) < 2, "a client in a pad cluster"
+    # atol 1e-4, as phase 4
+    assert gdiff <= 1e-4, f"card and CPU grid params differ by {gdiff}"
+
     kernels = [
         _kernel_line("param_stats_batched", "param_stats", "src/repro/kernels/param_stats.py:92",
-                     launches["param_stats_batched"], k1_err, k1),
+                     launches["param_stats_batched"] + g_launches["param_stats_batched"],
+                     k1_err, k1),
         _kernel_line("kmeans_assign", "kmeans_assign", "src/repro/kernels/kmeans_assign.py:44",
-                     launches["kmeans_assign"], k2_err, k2),
+                     launches["kmeans_assign"] + g_launches["kmeans_assign"], k2_err, k2),
         _kernel_line("flash_decode", "flash_decode", "src/repro/kernels/flash_decode.py:93",
                      k3_launches, k3_err, k3),
         _kernel_line("flash_attention", "flash_attention",
@@ -1273,7 +1521,10 @@ def main() -> int:
     log(f"[done] {time.perf_counter() - t_all:.1f} s in all; "
         f"round seconds {round_s}; Table II sweep {sweep_s:.3f} s, serial bso-sl "
         f"{serial_s:.3f} s; sweep launches {t2_launches}; accuracies {accs}, serial bso-sl "
-        f"{serial_acc:.4f}")
+        f"{serial_acc:.4f}; grid ablation {grid_s:.3f} s, scheduled grid {sched_s:.3f} s, grid "
+        f"launches {g_launches}, grid accuracies "
+        f"{ {name: round(r['acc'], 4) for (name, _), r in zip(GRID_CASES, g_results)} }; "
+        f"K1 and K2 launches in the kernels line: phases 3 and 11")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

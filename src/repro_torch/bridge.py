@@ -5,8 +5,8 @@ numpy arrays (``jax.tree.map(np.asarray, params)``). The port keeps the
 reference's key names and layouts (HWIO conv weights, the LM's stacked
 ``(L, ...)`` layers and its ``(B, S, KV, hd)`` KV cache included), so a
 round trip is the identity and the per-tensor statistics columns line
-up. The Table-II method rows and method-stacked states cross the same
-way.
+up. The Table-II method rows, the grid rows and method-stacked states
+cross the same way.
 """
 from __future__ import annotations
 
@@ -25,12 +25,12 @@ _NP_TO_TORCH = {
 
 
 def _leaf_from_numpy(a, device) -> torch.Tensor:
-    a = np.ascontiguousarray(np.asarray(a))
+    a = np.array(a, order="C")           # a contiguous copy; a () array stays ()
     if a.dtype.name == "bfloat16":        # ml_dtypes' bfloat16, as JAX hands it
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
     if a.dtype not in _NP_TO_TORCH:
         raise TypeError(f"no torch dtype for numpy {a.dtype}")
-    return torch.from_numpy(a.copy()).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -108,6 +108,30 @@ def method_params_from_numpy(method, device="cpu"):
 def method_params_to_numpy(method) -> dict:
     """Inverse of :func:`method_params_from_numpy`."""
     return {f: _leaf_to_numpy(t) for f, t in zip(method._fields, method)}
+
+
+def grid_point_from_numpy(point, device="cpu"):
+    """A reference ``GridPoint`` as a mapping (or its ``_asdict()``) of
+    numpy arrays, its ``method`` a mapping or a ``MethodParams``, one row
+    or a stacked (G, ...) grid config -> the port's
+    :class:`~repro_torch.core.engine.GridPoint`. A churn row is refused:
+    the churn axis is not ported (ROADMAP A9)."""
+    from repro_torch.core.engine import GridPoint
+    if point.get("churn") is not None:
+        raise NotImplementedError("a churn grid row cannot cross: the churn axis is not "
+                                  "ported yet (ROADMAP A9)")
+    method = point["method"]
+    if not isinstance(method, dict):
+        method = method._asdict()
+    dev = torch.device(device)
+    return GridPoint(method_params_from_numpy(method, device),
+                     *(_leaf_from_numpy(point[f], dev) for f in GridPoint._fields[1:]))
+
+
+def grid_point_to_numpy(point) -> dict:
+    """Inverse of :func:`grid_point_from_numpy` (``method`` as a dict)."""
+    return {"method": method_params_to_numpy(point.method),
+            **{f: _leaf_to_numpy(t) for f, t in zip(point._fields[1:], point[1:])}}
 
 
 def _row(tree, m):

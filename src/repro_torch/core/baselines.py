@@ -10,15 +10,19 @@ All four paper methods (centralized / local / FedAvg / BSO-SL) are
   ``run_sweep``, every row over one shared device-resident
   :class:`~repro_torch.core.engine.SwarmData`. Row m is exactly
   :func:`run_method` of ``methods[m]`` with ``sweep_keys(seed)[m]``.
+* :func:`run_grid_point` -- one hyper-parameter grid row, ``run_rounds``
+  over its :class:`~repro_torch.core.engine.GridPoint`.
+* :func:`run_grid_table` -- a whole grid through ``run_grid``; row g is
+  exactly :func:`run_grid_point` of ``specs[g]`` with
+  ``sweep_keys(seed, specs)[g]`` under the same pads.
 * :func:`train_centralized` -- the pooled-data host loop, the oracle of
   the engine's pooled-sampling centralized row.
 
-Everything runs on ``cuda`` unless given ``device="cpu"``. The grid
-entry points (``run_grid_point``, ``run_grid_table``) arrive with the
-grid axis (ROADMAP A8).
+Everything runs on ``cuda`` unless given ``device="cpu"``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import List, NamedTuple, Sequence
 
 import numpy as np
@@ -26,10 +30,11 @@ import torch
 
 from repro_torch.configs.base import OptimizerConfig, SwarmConfig
 from repro_torch.core.engine import (SWEEP_METHODS, EngineConfig, RoundMetrics, SwarmData,
-                                     make_batch, make_client_eval, make_swarm_data,
-                                     make_swarm_state, make_sweep_config, make_sweep_state,
-                                     method_params, resolve_local_steps, run_rounds, run_sweep,
-                                     stack_eval_split)
+                                     grid_axes, grid_point, make_batch,
+                                     make_client_eval, make_grid_config, make_grid_state,
+                                     make_swarm_data, make_swarm_state, make_sweep_config,
+                                     make_sweep_state, method_params, resolve_local_steps,
+                                     run_grid, run_rounds, run_sweep, stack_eval_split)
 from repro_torch.core.swarm import eval_client
 from repro_torch.models.model import Model
 from repro_torch.optim.optimizers import make_optimizer
@@ -128,6 +133,74 @@ def run_sweep_table(model: Model, clients_data, swarm: SwarmConfig, opt_cfg: Opt
     client_eval = make_client_eval(model)
     accs = {m: float(client_eval(s.params, test_stack).mean()) for m, s in zip(methods, states)}
     return accs, MethodRun(states, ms)
+
+
+def run_grid_point(spec: dict, model: Model, clients_data, swarm: SwarmConfig,
+                   opt_cfg: OptimizerConfig, seed: int, *, batch_size: int = 16,
+                   cfg: EngineConfig = None, data: SwarmData = None, test_stack=None,
+                   device=None):
+    """One hyper-parameter point, serially: ``run_rounds`` over the
+    :func:`~repro_torch.core.engine.grid_point` of ``spec`` (e.g.
+    ``{"k": 2, "p1": 1.0}``; empty = the paper point), whose pads come
+    from ``cfg``. It is the serial slice of the matching
+    :func:`run_grid_table` row. Returns ``(acc, MethodRun)`` like
+    :func:`run_method`."""
+    cfg, data = make_method_setup(model, clients_data, swarm, opt_cfg, batch_size=batch_size,
+                                  cfg=cfg, data=data, device=device)
+    dev = data.train_n.device
+    point = grid_point(cfg, len(clients_data), device=dev, **spec)
+    state = make_swarm_state(model, cfg.opt, clients_data, seed, device=dev)
+    state, ms = run_rounds(state, data, cfg, swarm.rounds, point)
+    scores = make_client_eval(model)(state.params,
+                                     _test_stack(model, clients_data, data, test_stack))
+    return float(scores.mean()), MethodRun(state, ms)
+
+
+def run_grid_table(model: Model, clients_data, swarm: SwarmConfig, opt_cfg: OptimizerConfig,
+                   seed: int, *, axes: dict = None, specs: Sequence[dict] = None,
+                   batch_size: int = 16, cfg: EngineConfig = None, data: SwarmData = None,
+                   test_stack=None, device=None):
+    """A whole hyper-parameter ablation through ``run_grid``, the grid's
+    sibling of :func:`run_sweep_table`.
+
+    Pass either ``axes`` (named axes, expanded row-major by
+    :func:`~repro_torch.core.engine.grid_axes`, e.g. ``axes={"k": (1, 2,
+    3), "p1": (0.9, 1.0)}``) or an explicit ``specs`` list of grid-point
+    keyword dicts. ``cfg``'s ``n_clusters`` and ``local_steps`` are the
+    grid's pads. When ``cfg`` is built here, every row is first pinned to
+    the caller's ``k`` and step count, then the pads are raised to the
+    grid's largest ``k`` and ``local_steps`` (never lowered), so a spec
+    that omits a knob keeps the caller's value. Rows with fewer steps
+    than the pad make ``run_grid`` compute only their own steps
+    (``schedule``). Row g is :func:`run_grid_point` of ``specs[g]`` with
+    ``sweep_keys(seed, specs)[g]``. Returns ``(results, MethodRun)``:
+    ``results`` is a ``{**spec, "acc": Eq. 3 test acc}`` row per grid
+    point in grid order, the MethodRun the per-row final states and (G,
+    rounds) metrics."""
+    if (axes is None) == (specs is None):
+        raise ValueError("pass exactly one of axes= or specs=")
+    if specs is None:
+        specs = grid_axes(**axes)
+    rows = specs
+    if cfg is None:
+        base_steps = resolve_local_steps(swarm, clients_data, batch_size)
+        rows = [{"k": swarm.n_clusters, "local_steps": base_steps, **s} for s in specs]
+        swarm = dataclasses.replace(
+            swarm, n_clusters=max(swarm.n_clusters, *(int(r["k"]) for r in rows)),
+            local_steps=max(base_steps, *(int(r["local_steps"]) for r in rows)))
+    cfg, data = make_method_setup(model, clients_data, swarm, opt_cfg, batch_size=batch_size,
+                                  cfg=cfg, data=data, device=device)
+    dev = data.train_n.device
+    states = make_grid_state(model, cfg.opt, clients_data, sweep_keys(seed, specs), device=dev)
+    grid = make_grid_config(cfg, len(clients_data), rows, dev)
+    row_steps = tuple(int(r.get("local_steps", cfg.local_steps)) for r in rows)
+    schedule = row_steps if min(row_steps) < cfg.local_steps else None
+    states, ms = run_grid(states, data, cfg, grid, swarm.rounds, schedule)
+    test_stack = _test_stack(model, clients_data, data, test_stack)
+    client_eval = make_client_eval(model)
+    results = [{**spec, "acc": float(client_eval(s.params, test_stack).mean())}
+               for spec, s in zip(specs, states)]
+    return results, MethodRun(states, ms)
 
 
 def train_centralized(model: Model, clients_data: List[dict], opt_cfg: OptimizerConfig,

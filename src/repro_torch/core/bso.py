@@ -13,6 +13,11 @@ ones. Nothing leaves the device.
 The random inputs are injectable: ``BSODraws`` holds r1 (k,), the
 member gumbels g (k, N), r2 (k,) and the partner gumbels g2 (k, k).
 By default they are drawn from a ``torch.Generator``.
+
+On the grid axis ``k`` is the static pad and ``p1`` / ``p2`` are ()
+tensors of the row. A pad slot no client is assigned to is unoccupied,
+so it never replaces, swaps or counts an event: the live slots act as
+in a native ``k`` run on the first slices of the same draws.
 """
 from __future__ import annotations
 
@@ -42,9 +47,10 @@ def draw_bso(k: int, n: int, generator: torch.Generator, device) -> BSODraws:
         g2=_gumbel((k, k), generator, device))
 
 
-def brain_storm(assignments, val_scores, k: int, p1: float, p2: float, *,
+def brain_storm(assignments, val_scores, k: int, p1, p2, *,
                 draws: BSODraws = None, generator: torch.Generator = None):
-    """Returns ``(assignments, centers, n_replaced, n_swapped)``:
+    """``p1`` / ``p2`` are floats or () tensors on the assignments'
+    device. Returns ``(assignments, centers, n_replaced, n_swapped)``:
     post-swap (N,) int32 assignments, (k,) int32 center client ids (-1
     for an empty cluster) and the round's event counts."""
     a = assignments.to(torch.int32)

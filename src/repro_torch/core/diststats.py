@@ -34,6 +34,25 @@ def swarm_distribution_matrix(stacked_params, n_clients: int = None) -> torch.Te
     return stats.view(stats.shape[0], -1)
 
 
+def swarm_distribution_matrix_loop(stacked_params, n_clients: int) -> torch.Tensor:
+    """The per-client oracle of :func:`swarm_distribution_matrix`: a loop
+    over clients and their leaves, one ``ops.param_stats_batched`` call
+    (on the card a one-leaf launch) a (client, leaf). It shares no code
+    with the batched matrix, so a fault in the one shows against the
+    other."""
+    pairs = sorted(tree_paths_and_leaves(stacked_params), key=lambda kv: kv[0])
+    rows = []
+    for i in range(n_clients):
+        feats = []
+        for _, leaf in pairs:
+            if not leaf.is_floating_point():
+                continue
+            m, v = ops.param_stats_batched(leaf[i:i + 1].contiguous())
+            feats += [m[0], torch.log1p(v[0])]
+        rows.append(torch.stack(feats))
+    return torch.stack(rows)
+
+
 def param_distribution(params) -> torch.Tensor:
     """One client's feature vector (2*T,): row 0 of the swarm matrix of
     a singleton-stacked tree."""

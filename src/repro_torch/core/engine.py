@@ -32,11 +32,26 @@ takes all its draws first, in one fixed order, whichever branch runs
 (:func:`draw_round`), so a method row and the plain branch it equals
 stay on one random stream round after round.
 
-Not ported yet: the grid, churn and hierarchical axes, the bucketed
-data layout and the fleet regime.
+The **hyper-parameter grid axis** (:class:`GridPoint`) carries the
+knobs the paper fixes (k, p1, p2, local steps, lr) as () tensors of a
+row on top of the method masks. ``cfg.n_clusters`` and
+``cfg.local_steps`` are the row's pads: the coordinator's k-means runs
+at ``cfg.n_clusters`` with the row's ``n_clusters`` as its
+``k_active`` (a device operand of the ``kmeans_assign`` kernel), and
+the local phase computes every static step and where-selects steps
+``>= local_steps`` back, so a row takes every draw of the round and
+keeps its random stream. :func:`run_grid` runs the rows one after
+another, as :func:`run_sweep` does; with a static ``schedule`` each row
+computes only its own step count. Under the same draws (the native
+run's are the first slices of the padded run's) a padded row is the
+native-k method row.
+
+Not ported yet: the churn and hierarchical axes (ROADMAP A9, A10), the
+bucketed data layout and the fleet regime.
 """
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass
 from typing import Any, NamedTuple
 
@@ -145,6 +160,82 @@ def sweep_row(sweep: MethodParams, m: int) -> MethodParams:
     return MethodParams(*(t[m] for t in sweep))
 
 
+class GridPoint(NamedTuple):
+    """One hyper-parameter grid row as data: the Table-II masks plus ()
+    tensors on the swarm's device that override :class:`EngineConfig`
+    statics, which act as the row's pads.
+
+    - ``n_clusters`` ``<= cfg.n_clusters``: k-means runs at the pad with
+      only the first ``n_clusters`` clusters live;
+    - ``local_steps`` ``<= cfg.local_steps``: every static step
+      computes, steps ``>= local_steps`` are where-selected back;
+    - ``p1`` / ``p2`` / ``lr``: value overrides.
+
+    Build rows with :func:`grid_point`, stack them with
+    :func:`make_grid_config`."""
+    method: MethodParams             # Table-II masks (grid rows: bso-sl)
+    n_clusters: torch.Tensor         # () int32 live clusters, 1..cfg.n_clusters
+    p1: torch.Tensor                 # () float32 center-replacement threshold
+    p2: torch.Tensor                 # () float32 center-swap threshold
+    local_steps: torch.Tensor        # () int32 applied local steps, 1..cfg.local_steps
+    lr: torch.Tensor                 # () float32 local-phase learning rate
+
+
+def grid_point(cfg: "EngineConfig", n_clients: int, *, method: str = "bso-sl", k=None,
+               p1=None, p2=None, local_steps=None, lr=None, dropout=None, stale_decay=None,
+               churn_mask=None, device=None) -> GridPoint:
+    """One :class:`GridPoint`; a ``None`` knob inherits ``cfg``'s value,
+    so the empty spec is the paper point. ``k`` and ``local_steps`` are
+    checked against the static maxima here, so the round only sees
+    in-range values. The churn knobs are not ported and raise."""
+    given = [n for n, v in (("dropout", dropout), ("stale_decay", stale_decay),
+                            ("churn_mask", churn_mask)) if v is not None]
+    if given:
+        raise NotImplementedError(f"the churn axes ({', '.join(given)}) are not ported yet "
+                                  "(ROADMAP A9)")
+    k = cfg.n_clusters if k is None else int(k)
+    if not 1 <= k <= cfg.n_clusters:
+        raise ValueError(f"grid k={k} outside [1, {cfg.n_clusters}] — "
+                         f"cfg.n_clusters is the static pad k_max")
+    steps = cfg.local_steps if local_steps is None else int(local_steps)
+    if not 1 <= steps <= cfg.local_steps:
+        raise ValueError(f"grid local_steps={steps} outside "
+                         f"[1, {cfg.local_steps}] — cfg.local_steps is "
+                         f"the static step budget")
+    return GridPoint(
+        method=method_params(method, n_clients, device),
+        n_clusters=torch.tensor(k, dtype=torch.int32, device=device),
+        p1=torch.tensor(cfg.p1 if p1 is None else p1, dtype=torch.float32, device=device),
+        p2=torch.tensor(cfg.p2 if p2 is None else p2, dtype=torch.float32, device=device),
+        local_steps=torch.tensor(steps, dtype=torch.int32, device=device),
+        lr=torch.tensor(cfg.lr if lr is None else lr, dtype=torch.float32, device=device))
+
+
+def grid_axes(**axes) -> list:
+    """The cartesian product of named axes as :func:`grid_point` specs,
+    row-major in the given axis order::
+
+        grid_axes(k=(1, 2), p1=(0.9, 1.0))
+        # -> [{'k': 1, 'p1': 0.9}, {'k': 1, 'p1': 1.0}, {'k': 2, ...}, ...]
+    """
+    names = list(axes)
+    return [dict(zip(names, combo)) for combo in itertools.product(*(axes[n] for n in names))]
+
+
+def make_grid_config(cfg: "EngineConfig", n_clients: int, specs, device=None) -> GridPoint:
+    """The :func:`grid_point` rows of ``specs`` stacked on a leading (G,)
+    axis."""
+    rows = [grid_point(cfg, n_clients, device=device, **spec) for spec in specs]
+    return GridPoint(method=MethodParams(*(torch.stack(f) for f in zip(*(r.method for r in rows)))),
+                     **{f: torch.stack([getattr(r, f) for r in rows])
+                        for f in GridPoint._fields[1:]})
+
+
+def grid_row(grid: GridPoint, g: int) -> GridPoint:
+    """Row ``g`` of a stacked grid config."""
+    return GridPoint(sweep_row(grid.method, g), *(t[g] for t in grid[1:]))
+
+
 @dataclass(frozen=True)
 class EngineConfig:
     """Static round configuration."""
@@ -246,6 +337,14 @@ def make_sweep_state(model: Model, opt: Optimizer, clients_data, seeds, *,
     return [make_swarm_state(model, opt, clients_data, s, device=device) for s in seeds]
 
 
+def make_grid_state(model: Model, opt: Optimizer, clients_data, seeds, *,
+                    device=None) -> list:
+    """One :class:`SwarmState` per grid row, as :func:`make_sweep_state`
+    builds them: a grid row and a serial :func:`run_rounds` from the
+    same seed share one random stream."""
+    return make_sweep_state(model, opt, clients_data, seeds, device=device)
+
+
 def init_opt_state(opt: Optimizer, params):
     """Fresh client-stacked optimizer state (vmap expands the unbatched
     ``step`` scalar; it is made a real (N,) tensor)."""
@@ -337,15 +436,26 @@ def sample_round_batch(data: SwarmData, own_row, pool_idx=None, pool=None) -> di
     return sample_swarm_batch(data.train, data.train_n, own_row, pool_idx, pool)
 
 
-def local_phase(step, params, opt_state, lr, batches):
+def local_phase(step, params, opt_state, lr, batches, n_active=None):
     """Local training: for each of ``batches`` (each an (N, B, ...)
     stacked batch), one train step vmapped over the client axis.
     Returns the new params and optimizer state and the (steps,) mean
-    client loss of each step."""
+    client loss of each step.
+
+    ``n_active`` (a () integer tensor, or None) is the grid row's step
+    count: every step computes, and steps ``>= n_active`` leave params
+    and optimizer state as they were, selected on the device (so
+    applying every step is the plain path, bitwise)."""
     vstep = vmap(step, in_dims=(0, 0, 0, None))
     losses = []
-    for batch in batches:
-        params, opt_state, m = vstep(params, opt_state, batch, lr)
+    for i, batch in enumerate(batches):
+        new_params, new_opt, m = vstep(params, opt_state, batch, lr)
+        if n_active is None:
+            params, opt_state = new_params, new_opt
+        else:
+            on = n_active > i
+            params = tree_map(lambda new, old: torch.where(on, new, old), new_params, params)
+            opt_state = tree_map(lambda new, old: torch.where(on, new, old), new_opt, opt_state)
         losses.append(torch.mean(m["loss"]))
     return params, opt_state, torch.stack(losses)
 
@@ -378,30 +488,35 @@ def eval_swarm(model: Model, params, data: SwarmData) -> torch.Tensor:
 # ---------------------------------------------------------------- the round
 
 
-def _coordinate(params, val, cfg: EngineConfig, draws: RoundDraws):
+def _coordinate(params, val, cfg: EngineConfig, draws: RoundDraws, grid: GridPoint = None):
     """Distribution upload -> k-means -> brain storm over the swarm:
-    (assignments, centers, n_replaced, n_swapped)."""
+    (assignments, centers, n_replaced, n_swapped). A grid row runs them
+    at the pad ``cfg.n_clusters`` with its ``n_clusters`` live and its
+    ``p1`` / ``p2``."""
     if draws.kmeans_init_idx is None and draws.kmeans_u is None:
         raise ValueError("RoundDraws needs kmeans_init_idx or kmeans_u for the coordinator")
+    k_active, p1, p2 = ((None, cfg.p1, cfg.p2) if grid is None
+                        else (grid.n_clusters, grid.p1, grid.p2))
     feats = swarm_distribution_matrix(params)
     _, a0 = kmeans(feats, cfg.n_clusters, cfg.kmeans_iters, init_idx=draws.kmeans_init_idx,
-                   u=draws.kmeans_u)
-    return brain_storm(a0, val, cfg.n_clusters, cfg.p1, cfg.p2, draws=draws.bso)
+                   u=draws.kmeans_u, k_active=k_active)
+    return brain_storm(a0, val, cfg.n_clusters, p1, p2, draws=draws.bso)
 
 
 def _coordinate_and_aggregate(params, opt_state, val, n_samples, cfg: EngineConfig,
-                              masks: MethodParams, draws: RoundDraws):
-    """The method-axis tail of :func:`swarm_round`: the coordinator
-    (stats, k-means, brain storm) always runs, then the row's
-    ``use_coord`` picks its assignments or ``base_assign``, and Eq. 2
-    runs over N segments (so the identity plan, the global plan and the
-    coordinator's clusters share one layout). Returns ``(params,
-    opt_state, assignments, centers, n_replaced, n_swapped)``."""
+                              masks: MethodParams, draws: RoundDraws, grid: GridPoint = None):
+    """The method- and grid-axis tail of :func:`swarm_round`: the
+    coordinator (stats, k-means, brain storm; masked to the grid row's
+    clusters) always runs, then the row's ``use_coord`` picks its
+    assignments or ``base_assign``, and Eq. 2 runs over N segments (so
+    the identity plan, the global plan and the coordinator's clusters
+    share one layout). Returns ``(params, opt_state, assignments,
+    centers, n_replaced, n_swapped)``."""
     N = n_samples.shape[0]
     if cfg.n_clusters > N:
         raise ValueError(f"the method axis needs n_clusters <= n_clients, got "
                          f"{cfg.n_clusters} > {N}")
-    bsa_a, bsa_c, n_rep, n_swap = _coordinate(params, val, cfg, draws)
+    bsa_a, bsa_c, n_rep, n_swap = _coordinate(params, val, cfg, draws, grid)
     use = masks.use_coord
     zero = torch.zeros((), dtype=torch.int32, device=val.device)
     assignments = torch.where(use, bsa_a, masks.base_assign.to(bsa_a.dtype))
@@ -414,45 +529,73 @@ def _coordinate_and_aggregate(params, opt_state, val, n_samples, cfg: EngineConf
     return params, opt_state, assignments, centers, n_rep, n_swap
 
 
+def _check_grid_device(grid: GridPoint, dev) -> None:
+    """A grid row's tensors must live on the swarm's device: the round
+    reads them there and never on the host."""
+    for name, t in [*zip(MethodParams._fields, grid.method), *zip(GridPoint._fields[1:], grid[1:])]:
+        if t.device != dev:
+            raise ValueError(f"GridPoint.{name} is on {t.device} but the swarm is on {dev}; "
+                             "build the grid with device=")
+
+
 def swarm_round(state: SwarmState, data: SwarmData, cfg: EngineConfig,
-                method: MethodParams = None, draws: RoundDraws = None):
+                method=None, draws: RoundDraws = None, steps: int = None):
     """One full BSO-SL round: local steps, eval, distribution upload,
     k-means, brain storm, Eq. 2 aggregation.
 
-    ``method`` puts the round on the Table-II axis (a :class:`MethodParams`
-    row; see :func:`_coordinate_and_aggregate`); None keeps the static
-    ``cfg.aggregation`` branches (``none`` skips the coordinator).
-    Random inputs come from ``draws`` when given, else from
-    ``state.generator`` through :func:`draw_round`."""
+    ``method`` puts the round on a traced axis: a :class:`MethodParams`
+    row (the Table-II axis; see :func:`_coordinate_and_aggregate`) or a
+    :class:`GridPoint` (the grid axis: the method masks plus the row's
+    k, p1, p2, local-step and lr overrides of the ``cfg`` statics, which
+    are its pads). None keeps the static ``cfg.aggregation`` branches
+    (``none`` skips the coordinator). Random inputs come from ``draws``
+    when given, else from ``state.generator`` through
+    :func:`draw_round`: a round takes every draw of ``cfg.local_steps``
+    steps whatever the row applies.
+
+    ``steps`` (a grid row only) computes just the first ``steps`` local
+    steps, so the row applies ``min(local_steps, steps)`` of them; at
+    ``steps == local_steps`` (see :func:`run_grid`) the result is the
+    masked path's."""
     if cfg.aggregation not in ("bso", "fedavg", "none"):
         raise ValueError(f"unknown aggregation {cfg.aggregation!r} "
                          "(one of 'bso', 'fedavg', 'none')")
     model, opt = cfg.model, cfg.opt
     N = data.train_n.shape[0]
     dev = data.train_n.device
+    grid = method if isinstance(method, GridPoint) else None
+    masks = method if grid is None else grid.method
+    if grid is not None:
+        _check_grid_device(grid, dev)
+    elif steps is not None:
+        raise ValueError("steps= applies to a GridPoint row only")
     if draws is None:
         draws = draw_round(state.generator, data.train_n, cfg)
 
-    # --- local phase
+    # --- local phase (a grid row applies only its first local_steps)
     step = make_train_step(model, opt)
-    pool = None if method is None else method.pool_data
+    pool = None if masks is None else masks.pool_data
     batch_idx = draws.batch_idx.to(dev).long()
     pool_idx = None if draws.pool_idx is None else draws.pool_idx.to(dev).long()
+    n_run = batch_idx.shape[0] if steps is None else steps
     batches = (sample_round_batch(data, batch_idx[i],
                                   None if pool_idx is None else pool_idx[i], pool)
-               for i in range(batch_idx.shape[0]))
-    params, opt_state, losses = local_phase(step, state.params, state.opt_state,
-                                            cfg.lr, batches)
-    train_loss = losses[-1]
+               for i in range(n_run))
+    lr, n_active = (cfg.lr, None) if grid is None else (grid.lr, grid.local_steps)
+    params, opt_state, losses = local_phase(step, state.params, state.opt_state, lr, batches,
+                                            n_active)
+    # the last applied step's loss, read on the device
+    train_loss = (losses[-1] if grid is None else losses.index_select(
+        0, (torch.clamp(n_active, max=n_run) - 1).long().reshape(1))[0])
 
     # --- eval: per-client val accuracy (shared within clusters, §III.C)
     val = eval_swarm(model, params, data)
 
     # --- coordinator + aggregation
     zero = torch.zeros((), dtype=torch.int32, device=dev)
-    if method is not None:
+    if masks is not None:
         params, opt_state, assignments, centers, n_rep, n_swap = _coordinate_and_aggregate(
-            params, opt_state, val, state.n_samples, cfg, method, draws)
+            params, opt_state, val, state.n_samples, cfg, masks, draws, grid)
     elif cfg.aggregation == "none":
         assignments = torch.zeros((N,), dtype=torch.int32, device=dev)
         centers = torch.zeros((0,), dtype=torch.int32, device=dev)
@@ -482,12 +625,13 @@ def _stack_metrics(ms) -> RoundMetrics:
 
 
 def run_rounds(state: SwarmState, data: SwarmData, cfg: EngineConfig, rounds: int,
-               method: MethodParams = None):
-    """``rounds`` calls of :func:`swarm_round` (on the method row
-    ``method``, if given); metrics gain a leading (rounds,) axis."""
+               method=None, steps: int = None):
+    """``rounds`` calls of :func:`swarm_round` (on the method or grid row
+    ``method``, if given; ``steps`` as there); metrics gain a leading
+    (rounds,) axis."""
     ms = []
     for _ in range(rounds):
-        state, m = swarm_round(state, data, cfg, method)
+        state, m = swarm_round(state, data, cfg, method, steps=steps)
         ms.append(m)
     return state, _stack_metrics(ms)
 
@@ -504,6 +648,43 @@ def run_sweep(states, data: SwarmData, cfg: EngineConfig, sweep: MethodParams, r
     finals, ms = [], []
     for m, state in enumerate(states):
         state, mm = run_rounds(state, data, cfg, rounds, sweep_row(sweep, m))
+        finals.append(state)
+        ms.append(mm)
+    return finals, _stack_metrics(ms)
+
+
+def run_grid(states, data: SwarmData, cfg: EngineConfig, grid: GridPoint, rounds: int,
+             schedule=None):
+    """A hyper-parameter ablation: row g is exactly ``run_rounds(states[g],
+    data, cfg, rounds, grid_row(grid, g))``, the rows run one after
+    another over the one shared ``data``. ``states`` is a list of per-row
+    states (:func:`make_grid_state`); ``grid`` the stacked rows
+    (:func:`make_grid_config`), whose statics in ``cfg`` are the pads.
+
+    ``schedule`` (a tuple of per-row step counts, each in ``[1,
+    cfg.local_steps]``, the rows' ``local_steps`` as the caller built
+    them) lets row g compute only its ``schedule[g]`` steps instead of
+    ``cfg.local_steps`` with the rest selected away. A round still takes
+    every draw, so the row keeps its random stream and its result is the
+    masked row's. Like the reference, the entries are not read back
+    against the rows' tensors (that would be a host sync); an entry
+    below a row's ``local_steps`` cuts the row to that many steps.
+    Returns the list of final states and the metrics with leading (G,
+    rounds) axes."""
+    G = grid.lr.shape[0]
+    if len(states) != G:
+        raise ValueError(f"{len(states)} states for {G} grid rows")
+    if schedule is not None:
+        schedule = tuple(int(s) for s in schedule)
+        if len(schedule) != G:
+            raise ValueError(f"schedule has {len(schedule)} entries for {G} grid rows")
+        for s in schedule:
+            if not 1 <= s <= cfg.local_steps:
+                raise ValueError(f"schedule entry {s} outside [1, {cfg.local_steps}]")
+    finals, ms = [], []
+    for g, state in enumerate(states):
+        state, mm = run_rounds(state, data, cfg, rounds, grid_row(grid, g),
+                               None if schedule is None else schedule[g])
         finals.append(state)
         ms.append(mm)
     return finals, _stack_metrics(ms)

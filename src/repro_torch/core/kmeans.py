@@ -1,13 +1,23 @@
 """k-means over client distribution summaries, paper §III.B
 (counterpart of ``repro.core.kmeans``).
 
-The plain static-``k`` path of the swarm round: k-means++ seeding,
-Lloyd iterations whose assign step is
+k-means++ seeding, Lloyd iterations whose assign step is
 :func:`repro_torch.kernels.ops.kmeans_assign` (the ``kmeans_assign``
 kernel on the card), and empty clusters re-seeded to *distinct* far
 points: the j-th empty cluster takes the j-th farthest point from its
-assigned centroid. The masked, weighted and ``k_active`` paths of the
-reference are not ported.
+assigned centroid.
+
+**Masked static-max clusters** (the grid axis): :func:`lloyd_step` and
+:func:`kmeans` take an optional ``k_active`` (a () integer tensor on
+X's device), so the static ``k`` is a pad and only clusters
+``< k_active`` can be assigned to or re-seeded. The assign step passes
+it to the kernel as a device operand; nothing reads it on the host. The
+seeding fills all ``k`` slots, as the reference's does, so with the
+first ``j`` uniforms of a ``k``-slot draw a ``k_active=j`` run is a
+native ``k=j`` run: the same assignments, and live centroids equal up
+to the mean step's matmul tiling. The reference's ``mask`` (churn,
+ROADMAP A9) and ``weights`` (two-tier coordination, A10) operands are
+not ported.
 """
 from __future__ import annotations
 
@@ -51,9 +61,12 @@ def kmeans_pp_init(X, k: int, *, generator: torch.Generator = None, init_idx=Non
     return X[torch.cat(idx)]
 
 
-def lloyd_step(X, C, k: int) -> torch.Tensor:
-    """One Lloyd iteration: assign, recompute means, reseed empties."""
-    a = ops.kmeans_assign(X, C).long()
+def lloyd_step(X, C, k: int, k_active=None) -> torch.Tensor:
+    """One Lloyd iteration: assign, recompute means, reseed empties.
+    With ``k_active`` only clusters ``< k_active`` are assigned to and
+    count as re-seedable empties, so the dead pad slots never take a far
+    point that a live empty cluster would get."""
+    a = ops.kmeans_assign(X, C, k_active).long()
     onehot = torch.nn.functional.one_hot(a, k).to(X.dtype)       # (N, K)
     counts = onehot.sum(dim=0)                                   # (K,)
     newC = (onehot.T @ X) / torch.clamp(counts[:, None], min=1.0)
@@ -63,15 +76,19 @@ def lloyd_step(X, C, k: int) -> torch.Tensor:
     d = torch.sum(diff * diff, dim=1)
     far_order = torch.argsort(-d, stable=True)
     empty = counts == 0
+    if k_active is not None:
+        empty = empty & (torch.arange(k, device=X.device) < k_active)
     rank = torch.clamp(torch.cumsum(empty.int(), dim=0) - 1, 0, X.shape[0] - 1)
     return torch.where(empty[:, None], X[far_order[rank]], newC)
 
 
 def kmeans(X, k: int, iters: int = 20, *, generator: torch.Generator = None,
-           init_idx=None, u=None):
+           init_idx=None, u=None, k_active=None):
     """Returns (centroids (k, F), assignments (N,) int32). The seeding
-    takes ``init_idx`` or ``u`` (see :func:`kmeans_pp_init`)."""
+    takes ``init_idx`` or ``u`` (see :func:`kmeans_pp_init`). With
+    ``k_active`` the assignments lie in ``[0, k_active)`` and centroid
+    rows ``>= k_active`` are dead pad."""
     C = kmeans_pp_init(X, k, generator=generator, init_idx=init_idx, u=u)
     for _ in range(iters):
-        C = lloyd_step(X, C, k)
-    return C, ops.kmeans_assign(X, C)
+        C = lloyd_step(X, C, k, k_active)
+    return C, ops.kmeans_assign(X, C, k_active)

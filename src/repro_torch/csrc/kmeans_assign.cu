@@ -28,6 +28,16 @@
 // ties go to the first index. K above kBlockK loops over centroid
 // blocks. The TPU wrapper's padding of F to 128 lanes and K to 8
 // centroids was the TPU's tiling and is dropped.
+//
+// k_active. The grid axis runs k-means at a static pad K with only the
+// first k_active centroids live (the reference masks the others' distances
+// to +inf before its argmin). k_active is a pointer to one int32 on the
+// device, so a captured graph replays with whatever the buffer holds and
+// the caller never reads it on the host; null means all K. Each CTA reads
+// it once and clamps it to [0, K], then stages, sums and compares only the
+// live centroids, in the same order with the same strict `<`: a live
+// centroid's distance is computed exactly as without the operand, and with
+// no live centroid the id is 0, as an argmin over all-inf gives.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -58,10 +68,13 @@ __device__ __forceinline__ void load_row(float (&xr)[kRowRegs], const float* __r
 template <bool kInRegs>
 __global__ void __launch_bounds__(kWarps * 32)
 kmeans_assign_kernel(const float* __restrict__ X, const float* __restrict__ C,
-                     int* __restrict__ out, long long N, int F, int K) {
+                     const int* __restrict__ k_active, int* __restrict__ out, long long N,
+                     int F, int K) {
   extern __shared__ float smem[];
   float* s_c = smem;           // (K, F)
   float* s_c2 = smem + K * F;  // (K,)
+  // from here on K counts the live centroids (s_c2 above keeps the pad's layout)
+  if (k_active != nullptr) K = min(max(__ldg(k_active), 0), K);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const long long stride = (long long)gridDim.x * kWarps;
@@ -126,20 +139,22 @@ kmeans_assign_kernel(const float* __restrict__ X, const float* __restrict__ C,
 
 }  // namespace
 
-// X (N, F) and C (K, F) fp32 contiguous, out (N,) int32. Returns
+// X (N, F) and C (K, F) fp32 contiguous, out (N,) int32, k_active one
+// int32 on the device or null (all K centroids live). Returns
 // cudaGetLastError() after the launch on `stream`.
-extern "C" int kmeans_assign_launch(const void* X, const void* C, void* out, long long N,
-                                    int F, int K, void* stream) {
+extern "C" int kmeans_assign_launch(const void* X, const void* C, const void* k_active,
+                                    void* out, long long N, int F, int K, void* stream) {
   const long long want = (N + kWarps - 1) / kWarps;
   const unsigned blocks = (unsigned)(want < kMaxCtas ? want : kMaxCtas);
   const size_t smem = ((size_t)K * F + K) * sizeof(float);
   const float* x = static_cast<const float*>(X);
   const float* c = static_cast<const float*>(C);
+  const int* ka = static_cast<const int*>(k_active);
   int* o = static_cast<int*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (F <= 32 * kRowRegs)
-    kmeans_assign_kernel<true><<<blocks, kWarps * 32, smem, st>>>(x, c, o, N, F, K);
+    kmeans_assign_kernel<true><<<blocks, kWarps * 32, smem, st>>>(x, c, ka, o, N, F, K);
   else
-    kmeans_assign_kernel<false><<<blocks, kWarps * 32, smem, st>>>(x, c, o, N, F, K);
+    kmeans_assign_kernel<false><<<blocks, kWarps * 32, smem, st>>>(x, c, ka, o, N, F, K);
   return (int)cudaGetLastError();
 }

@@ -4,6 +4,13 @@ Wraps ``csrc/kmeans_assign.cu``, the port of the Pallas kernel
 ``repro/kernels/kmeans_assign.py`` (``kmeans_assign``). The source note
 there says what bounds it and how it is laid out. Its plain version is
 :func:`repro_torch.kernels.ref.kmeans_assign`.
+
+The ``k_active`` operand (a () integer tensor on the card, or None for
+all K centroids) makes only centroids ``< k_active`` eligible: the grid
+axis's masked static-max k-means. The kernel reads it on the device, so
+the caller makes no host sync and a captured graph replays with whatever
+the buffer holds. ``launches`` counts every launch and
+``k_active_launches`` those that carried the operand.
 """
 from __future__ import annotations
 
@@ -20,15 +27,17 @@ def _lib():
     lib = _build.load("kmeans_assign")
     fn = lib.kmeans_assign_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def kmeans_assign(X: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+def kmeans_assign(X: torch.Tensor, C: torch.Tensor, k_active=None) -> torch.Tensor:
     """X (N, F) points, C (K, F) centroids, both fp32, contiguous and
-    on one CUDA device -> (N,) int32 nearest-centroid ids."""
+    on one CUDA device -> (N,) int32 nearest-centroid ids. ``k_active``:
+    None, or a () integer tensor on X's device (clamped to [0, K] on the
+    card; taken as int32)."""
     if X.device.type != "cuda" or C.device != X.device:
         raise ValueError(f"kmeans_assign kernel needs X and C on one CUDA device, "
                          f"got {X.device} and {C.device}")
@@ -45,16 +54,27 @@ def kmeans_assign(X: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     if smem > SMEM_LIMIT:
         raise ValueError(f"kmeans_assign stages C in shared memory: K*F={K * F} "
                          f"needs {smem} B, more than {SMEM_LIMIT} B")
+    if k_active is not None:
+        if not isinstance(k_active, torch.Tensor) or k_active.dim() != 0 \
+                or k_active.dtype.is_floating_point or k_active.dtype.is_complex \
+                or k_active.dtype == torch.bool or k_active.device != X.device:
+            raise ValueError(f"kmeans_assign's k_active must be a () integer tensor on "
+                             f"{X.device}, got {k_active!r}")
+        k_active = k_active.to(torch.int32)
     out = torch.empty((N,), dtype=torch.int32, device=X.device)
     if N == 0:
         return out
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
-        err = _lib()(X.data_ptr(), C.data_ptr(), out.data_ptr(), N, F, K, stream)
+        err = _lib()(X.data_ptr(), C.data_ptr(),
+                     None if k_active is None else k_active.data_ptr(),
+                     out.data_ptr(), N, F, K, stream)
     if err != 0:
         raise RuntimeError(f"kmeans_assign launch failed: CUDA error {err}")
     kmeans_assign.launches += 1
+    kmeans_assign.k_active_launches += k_active is not None
     return out
 
 
 kmeans_assign.launches = 0
+kmeans_assign.k_active_launches = 0

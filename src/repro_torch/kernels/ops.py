@@ -33,11 +33,13 @@ def param_stats_leaves(leaves) -> torch.Tensor:
     return _stats.param_stats_leaves(leaves)
 
 
-def kmeans_assign(X: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
-    """(N,) int32 nearest-centroid ids of X (N, F) against C (K, F)."""
+def kmeans_assign(X: torch.Tensor, C: torch.Tensor, k_active=None) -> torch.Tensor:
+    """(N,) int32 nearest-centroid ids of X (N, F) against C (K, F);
+    with ``k_active`` (a () integer tensor on X's device) only centroids
+    ``< k_active`` are eligible."""
     if X.device.type == "cpu":
-        return ref.kmeans_assign(X, C)
-    return _assign.kmeans_assign(X, C)
+        return ref.kmeans_assign(X, C, k_active)
+    return _assign.kmeans_assign(X, C, k_active)
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos,

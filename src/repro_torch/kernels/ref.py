@@ -28,15 +28,21 @@ def param_stats_leaves(leaves) -> torch.Tensor:
     return torch.stack([torch.stack(param_stats_batched(x), dim=1) for x in leaves], dim=1)
 
 
-def kmeans_assign(X: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+def kmeans_assign(X: torch.Tensor, C: torch.Tensor, k_active=None) -> torch.Tensor:
     """Nearest-centroid ids: X (N,F), C (K,F) -> (N,) int32, with
     ``d = |x|^2 + |c|^2 - 2 x.c`` in fp32, unclamped; ties go to the
-    first index."""
+    first index. With ``k_active`` (an int or a () integer tensor) only
+    centroids ``< k_active`` are eligible: the others get distance
+    ``+inf``, so ``k_active <= 0`` gives id 0 everywhere."""
     X = X.float()
     C = C.float()
     x2 = torch.sum(X * X, dim=1, keepdim=True)
     c2 = torch.sum(C * C, dim=1)[None, :]
     d = x2 + c2 - 2.0 * X @ C.T
+    if k_active is not None:
+        live = torch.arange(C.shape[0], device=d.device) < torch.as_tensor(k_active,
+                                                                            device=d.device)
+        d = torch.where(live[None, :], d, torch.inf)
     return torch.argmin(d, dim=1).to(torch.int32)
 
 

@@ -176,6 +176,61 @@ def test_kmeans_assign_rows_on_duplicated_centroids_go_to_the_first(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("N,F,K", [(14, 56, 5), (14, 56, 3), (300, 200, 6), (70_000, 56, 4)])
+def test_kmeans_assign_k_active_matches_plain_on_the_card(cuda, N, F, K):
+    """Every k_active from -1 to K + 1 as a () int32 tensor on the card
+    (F = 200 takes the streaming variant); the dead centroids are copies
+    of rows of X, nearer than every live one. Each call is one launch
+    that carried the operand."""
+    gen = torch.Generator(device=cuda).manual_seed(N + K)
+    X = torch.randn((N, F), generator=gen, device=cuda)
+    C = torch.randn((K, F), generator=gen, device=cuda)
+    C[K // 2:] = X[:K - K // 2]
+    for ka in range(-1, K + 2):
+        t = torch.tensor(ka, dtype=torch.int32, device=cuda)
+        before = (k_assign.kmeans_assign.launches, k_assign.kmeans_assign.k_active_launches)
+        got = ops.kmeans_assign(X, C, t)
+        assert torch.equal(got, ref.kmeans_assign(X, C, t)), f"k_active={ka}"
+        assert (k_assign.kmeans_assign.launches,
+                k_assign.kmeans_assign.k_active_launches) == (before[0] + 1, before[1] + 1)
+        if ka <= 0:
+            assert not got.any()
+    assert torch.equal(k_assign.kmeans_assign(X, C, torch.tensor(K, device=cuda)),
+                       k_assign.kmeans_assign(X, C))
+
+
+@pytest.mark.cuda
+def test_kmeans_assign_k_active_replays_in_a_graph_with_the_buffer_value(cuda):
+    """The operand is read on the device: a captured call replays with
+    whatever the buffer holds."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    X = torch.randn((14, 56), generator=gen, device=cuda)
+    C = torch.randn((5, 56), generator=gen, device=cuda)
+    ka = torch.tensor(5, dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        k_assign.kmeans_assign(X, C, ka)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = k_assign.kmeans_assign(X, C, ka)
+    for value in (1, 3, 0, 5, 2):
+        ka.fill_(value)
+        graph.replay()
+        assert torch.equal(out, ref.kmeans_assign(X, C, value)), value
+
+
+@pytest.mark.cuda
+def test_kmeans_assign_refuses_a_k_active_it_does_not_take(cuda):
+    X, C = torch.zeros((4, 8), device=cuda), torch.zeros((3, 8), device=cuda)
+    for bad in (torch.tensor(2), torch.tensor([2], device=cuda),
+                torch.tensor(2.0, device=cuda), torch.tensor(True, device=cuda), 2):
+        with pytest.raises(ValueError, match="k_active"):
+            k_assign.kmeans_assign(X, C, bad)
+
+
+@pytest.mark.cuda
 def test_kmeans_assign_refuses_centroids_past_shared_memory(cuda):
     """K = 64 at F = 260 needs 66,816 B of shared memory: refused."""
     with pytest.raises(ValueError, match="shared memory"):

@@ -77,6 +77,48 @@ def test_plain_kmeans_assign_ties_go_to_first_centroid():
     assert ref.kmeans_assign(X, C).tolist() == [0, 0]
 
 
+@pytest.mark.parametrize("N,F,K", [(14, 56, 5), (14, 56, 3), (37, 10, 4), (130, 260, 6)])
+def test_plain_kmeans_assign_k_active_matches_reference_assign(N, F, K):
+    """K2's plain version with ``k_active`` against the reference's
+    masked assign (``repro.core.kmeans.assign``) for every k_active from
+    -1 to K + 1 (an int and a () int32 tensor), and against the Pallas
+    kernel (interpret) with the dead centroids moved far away, an
+    independent check. The dead rows of C are copies of rows of X, so
+    they are nearer than every live centroid."""
+    from repro.core.kmeans import assign as jax_assign
+    rng = np.random.default_rng(N + F + K)
+    X = rng.normal(size=(N, F)).astype(np.float32)
+    C = rng.normal(size=(K, F)).astype(np.float32)
+    C[K // 2:] = X[:K - K // 2]
+    tX, tC = torch.from_numpy(X), torch.from_numpy(C)
+    for ka in range(-1, K + 2):
+        got = ref.kmeans_assign(tX, tC, ka)
+        assert got.dtype == torch.int32
+        assert torch.equal(got, ref.kmeans_assign(tX, tC, torch.tensor(ka, dtype=torch.int32)))
+        expect = np.asarray(jax_assign(jnp.asarray(X), jnp.asarray(C), jnp.int32(ka)))
+        np.testing.assert_array_equal(got.numpy(), expect, err_msg=f"k_active={ka}")
+        if ka >= 1:
+            far = C.copy()
+            far[ka:] = 1e6
+            np.testing.assert_array_equal(got.numpy(), np.asarray(jax_ops.kmeans_assign(X, far)),
+                                          err_msg=f"k_active={ka}")
+        if ka <= 0:
+            assert not got.any(), "no live centroid: every id is 0"
+        else:
+            assert int(got.max()) < ka
+    assert torch.equal(ref.kmeans_assign(tX, tC, None), ref.kmeans_assign(tX, tC))
+    assert torch.equal(ref.kmeans_assign(tX, tC, K), ref.kmeans_assign(tX, tC))
+
+
+def test_plain_kmeans_assign_k_active_ties_go_to_first_live_centroid():
+    X = torch.zeros((5, 4))
+    C = torch.zeros((4, 4))
+    assert ref.kmeans_assign(X, C, torch.tensor(3)).tolist() == [0] * 5
+    C[0] = 1.0
+    assert ref.kmeans_assign(X, C, torch.tensor(3)).tolist() == [1] * 5
+    assert ref.kmeans_assign(X, C, torch.tensor(1)).tolist() == [0] * 5
+
+
 # the reference's decode cases (tests/test_kernels.py DECODE_CASES):
 # B, H, KV, S, D, pos, window
 DECODE_CASES = [
@@ -203,6 +245,8 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     both = ops.param_stats_leaves([x, x[:, :4].to(torch.bfloat16).contiguous()])
     assert torch.equal(both, ref.param_stats_leaves([x, x[:, :4].to(torch.bfloat16)]))
     assert torch.equal(ops.kmeans_assign(X, C), ref.kmeans_assign(X, C))
+    ka = torch.tensor(1, dtype=torch.int32)
+    assert torch.equal(ops.kmeans_assign(X, C, ka), ref.kmeans_assign(X, C, ka))
     assert torch.equal(ops.flash_decode(q, kv, kv, 7, window=3),
                        ref.decode_attention(q, kv, kv, 7, window=3))
     assert (k_stats.param_stats_leaves.launches, k_assign.kmeans_assign.launches,
@@ -220,6 +264,9 @@ def test_other_devices_go_to_the_kernels_which_refuse_them():
         k_stats.param_stats_batched(torch.zeros(2, 3))
     with pytest.raises(ValueError, match="CUDA"):
         k_assign.kmeans_assign(torch.zeros(2, 3), torch.zeros(1, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.kmeans_assign(torch.empty((2, 3), device="meta"), torch.empty((1, 3), device="meta"),
+                          torch.empty((), dtype=torch.int32, device="meta"))
     meta = torch.empty((2, 4, 1, 64), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         ops.flash_decode(meta, torch.empty((2, 2, 8, 64), device="meta"),
