@@ -16,8 +16,10 @@ exits non-zero and prints no result. It imports nothing of JAX. Phases:
    the main path's shapes and a few harder ones (param_stats also on one
    call over a round's leaves of mixed types with a split row, and on
    three replays of a CUDA graph; kmeans_assign also with its
-   ``k_active`` operand at the grid's shape, (14,56) against (5,56)),
-   and time kernel, plain version and a PyTorch yardstick;
+   ``k_active`` operand at the grid's shape, (14,56) against (5,56);
+   param_stats also over each train stack of the bucketed layout of the
+   full Table I at 32 px, rows up to 2.4 M elements, one launch a
+   bucket), and time kernel, plain version and a PyTorch yardstick;
 3. drive the main path: ``SwarmTrainer`` on squeezenet-dr at full width
    on the full Table I (3,657 images at 32 px, 14 clinics), adam at lr
    2e-3, batch 8, 12 local steps, k=3, p1=0.9, p2=0.8, 20 k-means
@@ -67,7 +69,24 @@ exits non-zero and prints no result. It imports nothing of JAX. Phases:
    ``k_active``; then a scheduled grid (local_steps 4 and 10 by k 2 and
    3, 2 rounds), and one grid round (k 2 under the pad 5, its own lr and
    step count) on the card and on the CPU from one state and one set of
-   draws, compared.
+   draws, compared;
+12. drive the churn axis: benchmarks/churn_bench.py's ``run()`` defaults
+   (a quarter of Table I at 16 px, 14 clinics, squeezenet-dr, adam lr
+   2e-3, batch 8, 6 local steps, 20 k-means iterations, 4 rounds, seed
+   0) over its 8 rows (dropout 0, 0.2, 0.4, 0.6 by stale decay 0, 0.5)
+   through ``run_grid_table``, with K1 = 32 and K2 = 672 launches
+   asserted, all K2 with ``k_active``, and each row's presence share
+   asserted (1 at dropout 0, else inside a binomial band); the dropout-0
+   row against the churn-free ``run_grid_point`` of its seed; one churn
+   round (dropout 0.4, stale decay 0.5) on the card and on the CPU from
+   one state and one set of draws, compared, absent clients unchanged on
+   the card;
+13. drive the bucketed layout on the main path's data (phase 3's
+   settings): 2 rounds of ``run_rounds`` on each layout from one state,
+   with pad shares, stack bytes and round seconds printed, the first
+   local-step batch equal, assignments and centers equal, params within
+   1e-4, and K1 = 2 and K2 = 42 launches a layout asserted; then one
+   Table-II centralized round (``run_method``) on the bucketed layout.
 
 Any failure raises. The line before the last is one JSON object
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -142,6 +161,20 @@ GRID_SCHEDULE_AXES = {"local_steps": (4, 10), "k": (2, 3)}
 GRID_SCHEDULE_ROUNDS = 2
 # K2's operand at the grid's shape: (14,56) against the pad's 5 centroids
 GRID_K_MAX = 5
+# the churn axis (phase 12): benchmarks/churn_bench.py's run() defaults
+# (copied); a row's presence share must lie within CHURN_BAND_SIGMAS
+# binomial standard deviations of 1 - dropout
+CHURN_IMAGE = 16
+CHURN_DATA_SCALE = 4
+CHURN_ROUNDS = 4
+CHURN_LOCAL_STEPS = 6
+CHURN_SEED = 0
+CHURN_DROPOUTS = (0.0, 0.2, 0.4, 0.6)
+CHURN_STALE_DECAYS = (0.0, 0.5)
+CHURN_BAND_SIGMAS = 4.0
+# the bucketed layout (phase 13): 2 rounds of phase 3's settings
+BUCKET_ROUNDS = 2
+BUCKET_SEED = 0
 # kernels that phase 1 holds to no stack frame and no spills
 NO_SPILL_KERNELS = ("param_stats", "kmeans_assign")
 # calls captured in one graph for the coordinator kernels' second device time
@@ -392,6 +425,31 @@ def check_param_stats_graph(torch, dev, gen, leaves):
         _assert_stats_close(torch, out, expect, f"param_stats graph replay {rep}")
         log(f"[kernels] param_stats graph replay {rep}: equal to an eager call, max abs err "
             f"{(out - expect).abs().max().item():.3e}")
+
+
+def check_param_stats_buckets(torch, dev, clients):
+    """K1 over each train stack of the bucketed layout of ``clients``,
+    flattened to (N_b, n_max_b * H * W * 3): one launch a bucket, held to
+    :func:`_assert_stats_close`'s tolerance. Returns the max abs error."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import make_bucketed_swarm_data
+    from repro_torch.kernels import param_stats, ref
+    data = make_bucketed_swarm_data(get_config("squeezenet-dr"), clients, device=dev)
+    err = 0.0
+    for b, (ids, tr) in enumerate(zip(data.client_ids, data.train)):
+        x = tr["images"].reshape(len(ids), -1)
+        before = param_stats.param_stats_leaves.launches
+        m, v = param_stats.param_stats_batched(x)
+        rm, rv = ref.param_stats_batched(x)
+        torch.cuda.synchronize()
+        assert param_stats.param_stats_leaves.launches == before + 1, f"bucket {b}: not one launch"
+        got, expect = torch.stack([m, v], 1), torch.stack([rm, rv], 1)
+        _assert_stats_close(torch, got, expect, f"bucket {b}")
+        err = max(err, (got - expect).abs().max().item())
+        log(f"[kernels] param_stats_batched over bucket {b}'s train stack: {len(ids)} clients, "
+            f"rows of {x.shape[1]} elements, {param_stats.slices(x.shape[1])} CTAs a row, one "
+            f"launch, max abs err {(got - expect).abs().max().item():.3e}")
+    return err
 
 
 def time_param_stats(torch, leaves):
@@ -675,7 +733,6 @@ def card_vs_cpu(torch, tr, clients, local_steps: int, eps: float):
     from repro_torch.core.bso import draw_bso
     from repro_torch.optim.optimizers import make_optimizer
     from repro_torch.configs import OptimizerConfig
-    from repro_torch.utils.tree import tree_map
 
     cpu = torch.device("cpu")
     gen = torch.Generator().manual_seed(11)
@@ -689,9 +746,7 @@ def card_vs_cpu(torch, tr, clients, local_steps: int, eps: float):
     cfg = replace(tr.engine_cfg, local_steps=local_steps,
                   opt=make_optimizer(OptimizerConfig(name="adam", lr=2e-3, eps=eps)))
     s_card = engine.copy_state(tr.state)
-    s_cpu = s_card._replace(params=tree_map(lambda t: t.cpu(), s_card.params),
-                            opt_state=tree_map(lambda t: t.cpu(), s_card.opt_state),
-                            generator=gen, n_samples=s_card.n_samples.cpu())
+    s_cpu = _state_on_cpu(torch, s_card)
     new_card, m_card = engine.swarm_round(s_card, tr.swarm_data, cfg, draws=draws)
     new_cpu, m_cpu = engine.swarm_round(s_cpu, data_cpu, cfg, draws=draws)
     torch.cuda.synchronize()
@@ -1326,7 +1381,6 @@ def card_vs_cpu_grid(torch, state, clients, data_card):
     from repro_torch.kernels import kmeans_assign
     from repro_torch.models import build_model
     from repro_torch.optim.optimizers import make_optimizer
-    from repro_torch.utils.tree import tree_map
 
     cpu = torch.device("cpu")
     model = build_model(get_config("squeezenet-dr"))
@@ -1338,9 +1392,7 @@ def card_vs_cpu_grid(torch, state, clients, data_card):
     data_cpu = engine.make_swarm_data(model.cfg, clients, device=cpu)
     draws = engine.draw_round(torch.Generator().manual_seed(12), data_cpu.train_n, cfg)
     s_card = engine.copy_state(state)
-    s_cpu = s_card._replace(params=tree_map(lambda t: t.cpu(), s_card.params),
-                            opt_state=tree_map(lambda t: t.cpu(), s_card.opt_state),
-                            generator=torch.Generator(), n_samples=s_card.n_samples.cpu())
+    s_cpu = _state_on_cpu(torch, s_card)
     row_card = engine.grid_point(cfg, 14, device=data_card.train_n.device, **spec)
     before = kmeans_assign.kmeans_assign.k_active_launches
     new_card, m_card = engine.swarm_round(s_card, data_card, cfg, row_card, draws=draws)
@@ -1352,6 +1404,241 @@ def card_vs_cpu_grid(torch, state, clients, data_card):
     diff = max((a.cpu() - b).abs().max().item()
                for a, b in zip(_leaves(new_card.params), _leaves(new_cpu.params)))
     return diff, m_card, m_cpu, k2
+
+
+def _binomial_band(dropout: float, trials: int) -> float:
+    p = 1.0 - dropout
+    return CHURN_BAND_SIGMAS * math.sqrt(p * (1.0 - p) / trials)
+
+
+def churn_path(torch, dev):
+    """Phase 12: churn_bench's sweep through ``run_grid_table``, launch
+    counts read from that call alone, each row's presence share held to
+    its binomial band, then the dropout-0 row against the churn-free
+    ``run_grid_point`` of its seed. Returns (launch counts, results,
+    final states, specs, seconds, the clients, the data)."""
+    from repro_torch.configs import OptimizerConfig, SwarmConfig, get_config
+    from repro_torch.core import baselines
+    from repro_torch.core.engine import make_swarm_data, stack_eval_split
+    from repro_torch.data.dr import make_dr_swarm_data, scale_table
+    from repro_torch.models import build_model
+
+    clients = make_dr_swarm_data(image_size=CHURN_IMAGE, seed=CHURN_SEED,
+                                 table=scale_table(CHURN_DATA_SCALE))
+    model = build_model(get_config("squeezenet-dr"))
+    opt = OptimizerConfig(name="adam", lr=2e-3)
+    swarm = SwarmConfig(n_clients=len(clients), rounds=CHURN_ROUNDS,
+                        local_steps=CHURN_LOCAL_STEPS, kmeans_iters=KMEANS_ITERS)
+    specs = [{"dropout": d, "stale_decay": g} for g in CHURN_STALE_DECAYS for d in CHURN_DROPOUTS]
+    data = make_swarm_data(model.cfg, clients, device=dev)
+    test_stack = stack_eval_split(model.cfg, clients, "test", device=dev)
+    log(f"[churn] {len(specs)} rows x {CHURN_ROUNDS} rounds, {sum(c['n_train'] for c in clients)} "
+        f"train images at {CHURN_IMAGE} px in {len(clients)} clinics, {CHURN_LOCAL_STEPS} local "
+        f"steps")
+
+    _zero_coordinator_counts()
+    t0 = time.perf_counter()
+    results, run = baselines.run_grid_table(model, clients, swarm, opt, CHURN_SEED, specs=specs,
+                                            batch_size=BATCH, data=data, test_stack=test_stack)
+    torch.cuda.synchronize()
+    churn_s = time.perf_counter() - t0
+    launches = _coordinator_counts()
+    want = _grid_want(len(specs), CHURN_ROUNDS, len(_leaves(run.state[0].params)))
+    log(f"[churn] sweep in {churn_s:.3f} s; launches {launches}, expected {want}")
+    assert launches == want, f"churn launch counts {launches} != {want}"
+    ms = run.metrics
+    for g, (spec, res) in enumerate(zip(specs, results)):
+        present = ms.present[g]
+        share = present.float().mean().item()
+        band = _binomial_band(spec["dropout"], present.numel())
+        log(f"[churn] dropout {spec['dropout']}, stale decay {spec['stale_decay']}: Eq. 3 test acc "
+            f"{res['acc']:.4f}, final val acc {ms.mean_val_acc[g, -1].item():.4f}, presence "
+            f"{share:.4f} (band {1 - spec['dropout']:.2f} +- {band:.4f}), present a round "
+            f"{present.sum(1).tolist()}, staleness {run.state[g].staleness.tolist()}")
+        assert math.isfinite(res["acc"]) and torch.isfinite(ms.train_loss[g]).all(), spec
+        if spec["dropout"] == 0.0:
+            assert share == 1.0, f"{spec}: presence {share}"
+        else:
+            assert abs(share - (1.0 - spec["dropout"])) <= band, f"{spec}: presence {share}"
+
+    # the anchor: the dropout-0, stale-decay-0 row is the churn-free row
+    g0 = specs.index({"dropout": 0.0, "stale_decay": 0.0})
+    acc0, free = baselines.run_grid_point({}, model, clients, swarm, opt,
+                                          baselines.sweep_keys(CHURN_SEED, specs)[g0],
+                                          batch_size=BATCH, data=data, test_stack=test_stack)
+    torch.cuda.synchronize()
+    assert torch.equal(ms.assignments[g0], free.metrics.assignments), "anchor assignments differ"
+    assert torch.equal(ms.centers[g0], free.metrics.centers), "anchor centers differ"
+    pairs = list(zip(_leaves(run.state[g0].params), _leaves(free.state.params)))
+    bitwise = all(torch.equal(a, b) for a, b in pairs)
+    diff = max((a - b).abs().max().item() for a, b in pairs)
+    log(f"[churn] dropout-0 row vs the churn-free run_grid_point: assignments and centers equal, "
+        f"params bitwise equal {bitwise} (max |diff| {diff:.3e}), acc {results[g0]['acc']:.4f} / "
+        f"{acc0:.4f}")
+    # 1e-6 where not bitwise: no churn op moves a value, so only another
+    # summation order on the card could, by an ulp a round
+    assert bitwise or diff <= 1e-6, f"the dropout-0 row is {diff} from the churn-free row"
+    return launches, results, run.state, specs, churn_s, clients, data
+
+
+def card_vs_cpu_churn(torch, state, clients, data_card):
+    """One churn grid round (dropout 0.4, stale decay 0.5, 2 local
+    steps, adam at eps 1e-6) on the card and on the CPU from ``state``
+    and one set of injected draws (the churn uniforms among them).
+    Returns (max |param diff|, card metrics, cpu metrics, new card state,
+    new cpu state, whether every absent client's params and optimizer
+    state on the card are bitwise as they were)."""
+    from repro_torch.configs import OptimizerConfig, get_config
+    from repro_torch.core import engine
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizers import make_optimizer
+
+    cpu = torch.device("cpu")
+    n = len(clients)
+    model = build_model(get_config("squeezenet-dr"))
+    cfg = engine.EngineConfig(model=model,
+                              opt=make_optimizer(OptimizerConfig(name="adam", lr=2e-3, eps=1e-6)),
+                              local_steps=2, batch_size=BATCH, lr=2e-3, n_clusters=K,
+                              kmeans_iters=KMEANS_ITERS)
+    data_cpu = engine.make_swarm_data(model.cfg, clients, device=cpu)
+    gen = torch.Generator().manual_seed(13)
+    draws = engine.draw_round(gen, data_cpu.train_n, cfg)._replace(
+        churn_u=engine.draw_churn(gen, n, cpu))
+    s_card = engine.copy_state(state)
+    s_cpu = _state_on_cpu(torch, s_card)
+    spec = dict(dropout=0.4, stale_decay=0.5)
+    new_card, m_card = engine.swarm_round(
+        s_card, data_card, cfg, engine.grid_point(cfg, n, device=data_card.train_n.device, **spec),
+        draws=draws)
+    torch.cuda.synchronize()
+    new_cpu, m_cpu = engine.swarm_round(s_cpu, data_cpu, cfg,
+                                        engine.grid_point(cfg, n, device=cpu, **spec), draws=draws)
+    absent = ~m_card.present
+    frozen = all(torch.equal(a[absent], b[absent])
+                 for new, old in ((new_card.params, s_card.params),
+                                  (new_card.opt_state, s_card.opt_state))
+                 for a, b in zip(_leaves(new), _leaves(old)))
+    diff = max((a.cpu() - b).abs().max().item()
+               for a, b in zip(_leaves(new_card.params), _leaves(new_cpu.params)))
+    return diff, m_card, m_cpu, new_card, new_cpu, frozen
+
+
+def _state_on_cpu(torch, state):
+    """``state``'s tensors copied to the CPU, with a fresh generator (the
+    round it runs takes injected draws)."""
+    from repro_torch.utils.tree import tree_map
+    return state._replace(params=tree_map(lambda t: t.cpu(), state.params),
+                          opt_state=tree_map(lambda t: t.cpu(), state.opt_state),
+                          generator=torch.Generator(), n_samples=state.n_samples.cpu(),
+                          staleness=None if state.staleness is None else state.staleness.cpu(),
+                          churn_generator=None)
+
+
+def _stack_mb(stacks) -> float:
+    return sum(t.numel() * t.element_size() for s in stacks for t in s.values()) / 1e6
+
+
+def bucket_path(torch, dev, clients):
+    """Phase 13: both layouts of ``clients`` (phase 3's data), their pad
+    shares and bytes, 2 rounds of ``run_rounds`` on each from one state
+    with launch counts read from each layout's rounds alone, the first
+    local-step batch, assignments, centers and params compared; then one
+    centralized ``run_method`` round on the bucketed layout. Returns
+    (launch counts of the phase, {layout: round seconds}, {layout:
+    pad_fraction}, max |param diff| between the layouts)."""
+    from repro_torch.configs import OptimizerConfig, SwarmConfig, get_config
+    from repro_torch.core import baselines, engine
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizers import make_optimizer
+
+    model = build_model(get_config("squeezenet-dr"))
+    opt_cfg = OptimizerConfig(name="adam", lr=2e-3)
+    cfg = engine.EngineConfig(model=model, opt=make_optimizer(opt_cfg), local_steps=LOCAL_STEPS,
+                              batch_size=BATCH, lr=2e-3, n_clusters=K, kmeans_iters=KMEANS_ITERS)
+    layouts = {"rect": engine.make_swarm_data(model.cfg, clients, device=dev),
+               "bucketed": engine.make_bucketed_swarm_data(model.cfg, clients, device=dev)}
+    pads = {}
+    for name, data in layouts.items():
+        bucketed = isinstance(data, engine.BucketedSwarmData)
+        trains = data.train if bucketed else (data.train,)
+        vals = data.val if bucketed else (data.val,)
+        pads[name] = engine.pad_fraction(data)
+        log(f"[bucket] {name}: train stacks {[tuple(t['images'].shape) for t in trains]} = "
+            f"{_stack_mb(trains):.1f} MB, eval stacks {_stack_mb(vals):.1f} MB on {dev}; "
+            f"pad_fraction {pads[name]}" + (f"; buckets {data.client_ids}" if bucketed else ""))
+
+    s0 = engine.make_swarm_state(model, cfg.opt, clients, BUCKET_SEED, device=dev)
+    draws = engine.draw_round(engine.copy_state(s0).generator, layouts["rect"].train_n, cfg)
+    first = {name: engine.sample_round_batch(data, draws.batch_idx[0].to(dev).long())
+             for name, data in layouts.items()}
+    assert all(torch.equal(first["rect"][k], first["bucketed"][k]) for k in first["rect"]), \
+        "the layouts' first local-step batches differ"
+
+    finals, metrics, secs, total = {}, {}, {}, {}
+    for name, data in layouts.items():
+        state = engine.copy_state(s0)
+        _zero_coordinator_counts()
+        ms, secs[name] = [], []
+        for _ in range(BUCKET_ROUNDS):
+            t0 = time.perf_counter()
+            state, m = engine.run_rounds(state, data, cfg, 1)
+            torch.cuda.synchronize()
+            secs[name].append(time.perf_counter() - t0)
+            ms.append(m)
+        launches = _coordinator_counts()
+        want = {**_grid_want(1, BUCKET_ROUNDS, len(_leaves(state.params))),
+                "kmeans_assign with k_active": 0}
+        log(f"[bucket] {name}: rounds {[round(t, 4) for t in secs[name]]} s (after the first: "
+            f"{secs[name][1:]}), launches {launches}, expected {want}, val acc "
+            f"{[round(m.mean_val_acc.item(), 4) for m in ms]}")
+        assert launches == want, f"{name} launch counts {launches} != {want}"
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+        finals[name], metrics[name] = state, ms
+    for r, (a, b) in enumerate(zip(metrics["rect"], metrics["bucketed"])):
+        assert torch.equal(a.assignments, b.assignments), f"round {r}: assignments differ"
+        assert torch.equal(a.centers, b.centers), f"round {r}: centers differ"
+    pairs = list(zip(_leaves(finals["rect"].params), _leaves(finals["bucketed"].params)))
+    diff = max((a - b).abs().max().item() for a, b in pairs)
+    log(f"[bucket] rect vs bucketed after {BUCKET_ROUNDS} rounds: assignments and centers equal, "
+        f"params bitwise equal {all(torch.equal(a, b) for a, b in pairs)}, max |diff| {diff:.3e}, "
+        f"max |val acc diff| "
+        f"{(metrics['rect'][-1].val_acc - metrics['bucketed'][-1].val_acc).abs().max().item():.3e}")
+    # 1e-4, as phase 4: the bucketed eval runs cuDNN on fewer clients a
+    # call, which may pick other algorithms
+    assert diff <= 1e-4, f"the layouts' params differ by {diff}"
+
+    # where a bucketed round's extra time goes: its eval and one local
+    # step's batch, each layout timed in turns (rect, bucketed, bucketed,
+    # rect) between CUDA events, host time included (the device waits
+    # on it)
+    params, idx = finals["rect"].params, draws.batch_idx[0].to(dev).long()
+    parts = {}
+    for name in ("rect", "bucketed", "bucketed", "rect"):
+        data = layouts[name]
+        parts.setdefault(name, []).append(
+            (cuda_ms(torch, lambda: engine.eval_swarm(model, params, data), reps=20),
+             cuda_ms(torch, lambda: engine.sample_round_batch(data, idx), reps=50)))
+    log(f"[bucket] eval_swarm / one step's batch, ms a call in turns: "
+        + "; ".join(f"{name} {' and '.join(f'{e:.3f} / {b:.3f}' for e, b in ts)}"
+                    for name, ts in parts.items()))
+
+    swarm = SwarmConfig(n_clients=len(clients), n_clusters=K, kmeans_iters=KMEANS_ITERS,
+                        local_steps=LOCAL_STEPS, rounds=1)
+    _zero_coordinator_counts()
+    t0 = time.perf_counter()
+    acc, run = baselines.run_method("centralized", model, clients, swarm, opt_cfg, BUCKET_SEED,
+                                    batch_size=BATCH, cfg=cfg, data=layouts["bucketed"])
+    torch.cuda.synchronize()
+    launches = _coordinator_counts()
+    want = {**_grid_want(1, 1, len(_leaves(run.state.params))), "kmeans_assign with k_active": 0}
+    loss = run.metrics.train_loss[0].item()
+    log(f"[bucket] centralized round on the bucketed layout (pooled gather): "
+        f"{time.perf_counter() - t0:.3f} s, loss {loss:.4f}, Eq. 3 test acc {acc:.4f}, "
+        f"launches {launches}")
+    assert math.isfinite(loss), f"centralized loss {loss}"
+    assert launches == want, f"centralized launch counts {launches} != {want}"
+    total = {k: total[k] + v for k, v in launches.items()}
+    return total, secs, pads, diff
 
 
 def _kernel_line(name, source, replaces, launches, err, times) -> dict:
@@ -1411,6 +1698,7 @@ def main() -> int:
     feats = swarm_distribution_matrix(stacked)                  # (14, 56), as on the path
     cents = feats[torch.randperm(14, generator=gen, device=dev)[:K]].contiguous()
     k1_err = check_param_stats(torch, dev, leaves)
+    k1_err = max(k1_err, check_param_stats_buckets(torch, dev, clients))
     k2_err = check_kmeans_assign(torch, dev, feats, cents)
     grid_cents = check_kmeans_assign_k_active(torch, dev, feats)
     k1 = time_param_stats(torch, leaves)
@@ -1507,12 +1795,36 @@ def main() -> int:
     # atol 1e-4, as phase 4
     assert gdiff <= 1e-4, f"card and CPU grid params differ by {gdiff}"
 
+    # --- phase 12: the churn axis, launch counts from the sweep alone
+    c_launches, c_results, c_states, c_specs, churn_s, c_clients, c_data = churn_path(torch, dev)
+    c_row = c_specs.index({"dropout": 0.4, "stale_decay": 0.5})
+    cdiff, cm_card, cm_cpu, cs_card, cs_cpu, frozen = card_vs_cpu_churn(
+        torch, c_states[c_row], c_clients, c_data)
+    log(f"[card-vs-cpu churn] dropout 0.4, stale decay 0.5, 2 local steps, adam eps 1e-6: present "
+        f"{cm_card.present.int().tolist()} / {cm_cpu.present.int().tolist()}, staleness "
+        f"{cs_card.staleness.tolist()} / {cs_cpu.staleness.tolist()}, assignments "
+        f"{cm_card.assignments.tolist()} / {cm_cpu.assignments.tolist()}, centers "
+        f"{cm_card.centers.tolist()} / {cm_cpu.centers.tolist()}, max |param diff| {cdiff:.3e}, "
+        f"absent clients unchanged on the card: {frozen}")
+    assert 0 < int(cm_cpu.present.sum()) < len(c_clients), "the churn round drops no client or all"
+    assert torch.equal(cm_card.present.cpu(), cm_cpu.present), "churn presence differs"
+    assert torch.equal(cs_card.staleness.cpu(), cs_cpu.staleness), "churn staleness differs"
+    assert torch.equal(cm_card.assignments.cpu(), cm_cpu.assignments), "churn assignments differ"
+    assert torch.equal(cm_card.centers.cpu(), cm_cpu.centers), "churn centers differ"
+    assert frozen, "an absent client's params or optimizer state moved on the card"
+    # atol 1e-4, as phase 4
+    assert cdiff <= 1e-4, f"card and CPU churn params differ by {cdiff}"
+
+    # --- phase 13: the bucketed layout on the main path's data
+    b_launches, b_secs, b_pads, b_diff = bucket_path(torch, dev, clients)
+
     kernels = [
         _kernel_line("param_stats_batched", "param_stats", "src/repro/kernels/param_stats.py:92",
-                     launches["param_stats_batched"] + g_launches["param_stats_batched"],
-                     k1_err, k1),
+                     sum(n["param_stats_batched"]
+                         for n in (launches, g_launches, c_launches, b_launches)), k1_err, k1),
         _kernel_line("kmeans_assign", "kmeans_assign", "src/repro/kernels/kmeans_assign.py:44",
-                     launches["kmeans_assign"] + g_launches["kmeans_assign"], k2_err, k2),
+                     sum(n["kmeans_assign"]
+                         for n in (launches, g_launches, c_launches, b_launches)), k2_err, k2),
         _kernel_line("flash_decode", "flash_decode", "src/repro/kernels/flash_decode.py:93",
                      k3_launches, k3_err, k3),
         _kernel_line("flash_attention", "flash_attention",
@@ -1524,7 +1836,11 @@ def main() -> int:
         f"{serial_acc:.4f}; grid ablation {grid_s:.3f} s, scheduled grid {sched_s:.3f} s, grid "
         f"launches {g_launches}, grid accuracies "
         f"{ {name: round(r['acc'], 4) for (name, _), r in zip(GRID_CASES, g_results)} }; "
-        f"K1 and K2 launches in the kernels line: phases 3 and 11")
+        f"churn sweep {churn_s:.3f} s, churn launches {c_launches}, churn accuracies "
+        f"{[round(r['acc'], 4) for r in c_results]}; bucketed-layout round seconds {b_secs}, "
+        f"pad shares {{'rect': {b_pads['rect']['train']:.4f}, 'bucketed': "
+        f"{b_pads['bucketed']['train']:.4f}}}, layouts' max |param diff| {b_diff:.3e}, phase-13 "
+        f"launches {b_launches}; K1 and K2 launches in the kernels line: phases 3, 11, 12 and 13")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -5,8 +5,8 @@ numpy arrays (``jax.tree.map(np.asarray, params)``). The port keeps the
 reference's key names and layouts (HWIO conv weights, the LM's stacked
 ``(L, ...)`` layers and its ``(B, S, KV, hd)`` KV cache included), so a
 round trip is the identity and the per-tensor statistics columns line
-up. The Table-II method rows, the grid rows and method-stacked states
-cross the same way.
+up. The Table-II method rows, the grid rows (with their churn rows) and
+method-stacked states cross the same way.
 """
 from __future__ import annotations
 
@@ -73,27 +73,36 @@ cache_to_numpy = tree_to_numpy
 
 def state_from_numpy(state, device="cpu", *, seed: int = 0):
     """A reference ``SwarmState`` as a dict of numpy arrays (``params``,
-    ``opt_state``, ``round``, ``n_samples``) -> the port's
+    ``opt_state``, ``round``, ``n_samples``, ``staleness``) -> the port's
     :class:`~repro_torch.core.engine.SwarmState`. JAX's PRNG key has no
-    torch counterpart: the state's generator is seeded from ``seed``."""
-    from repro_torch.core.engine import SwarmState
+    torch counterpart: the state's generator is seeded from ``seed`` and
+    its churn generator is ``make_churn_generator(seed)``, as
+    ``make_swarm_state`` makes them. A missing or None ``staleness`` (a
+    state from before the churn axis) becomes zeros."""
+    from repro_torch.core.engine import SwarmState, make_churn_generator
     device = torch.device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    n_samples = _leaf_from_numpy(state["n_samples"], device)
+    staleness = state.get("staleness")
     return SwarmState(
         params=tree_from_numpy(state["params"], device),
         opt_state=tree_from_numpy(state["opt_state"], device),
         generator=gen,
         round=int(np.asarray(state["round"])),
-        n_samples=_leaf_from_numpy(state["n_samples"], device))
+        n_samples=n_samples,
+        staleness=(torch.zeros(n_samples.shape, dtype=torch.int32, device=device)
+                   if staleness is None else _leaf_from_numpy(staleness, device)),
+        churn_generator=make_churn_generator(seed, device))
 
 
 def state_to_numpy(state) -> dict:
-    """Inverse of :func:`state_from_numpy` (the generator stays behind)."""
+    """Inverse of :func:`state_from_numpy` (the generators stay behind)."""
     return {"params": tree_to_numpy(state.params),
             "opt_state": tree_to_numpy(state.opt_state),
             "round": np.int32(state.round),
-            "n_samples": _leaf_to_numpy(state.n_samples)}
+            "n_samples": _leaf_to_numpy(state.n_samples),
+            "staleness": None if state.staleness is None else _leaf_to_numpy(state.staleness)}
 
 
 def method_params_from_numpy(method, device="cpu"):
@@ -110,28 +119,48 @@ def method_params_to_numpy(method) -> dict:
     return {f: _leaf_to_numpy(t) for f, t in zip(method._fields, method)}
 
 
+def churn_params_from_numpy(churn, device="cpu"):
+    """A reference ``ChurnParams`` (or a mapping of its fields) of numpy
+    arrays, one row or stacked -> the port's
+    :class:`~repro_torch.core.engine.ChurnParams`; ``mask`` may be None."""
+    from repro_torch.core.engine import ChurnParams
+    if not isinstance(churn, dict):
+        churn = churn._asdict()
+    dev = torch.device(device)
+    mask = churn.get("mask")
+    return ChurnParams(_leaf_from_numpy(churn["dropout"], dev),
+                       _leaf_from_numpy(churn["stale_decay"], dev),
+                       None if mask is None else _leaf_from_numpy(np.asarray(mask, bool), dev))
+
+
+def churn_params_to_numpy(churn) -> dict:
+    """Inverse of :func:`churn_params_from_numpy` (a dict)."""
+    return {f: None if t is None else _leaf_to_numpy(t) for f, t in zip(churn._fields, churn)}
+
+
 def grid_point_from_numpy(point, device="cpu"):
     """A reference ``GridPoint`` as a mapping (or its ``_asdict()``) of
-    numpy arrays, its ``method`` a mapping or a ``MethodParams``, one row
-    or a stacked (G, ...) grid config -> the port's
-    :class:`~repro_torch.core.engine.GridPoint`. A churn row is refused:
-    the churn axis is not ported (ROADMAP A9)."""
+    numpy arrays, its ``method`` a mapping or a ``MethodParams`` and its
+    ``churn`` None, a mapping or a ``ChurnParams``, one row or a stacked
+    (G, ...) grid config -> the port's
+    :class:`~repro_torch.core.engine.GridPoint`."""
     from repro_torch.core.engine import GridPoint
-    if point.get("churn") is not None:
-        raise NotImplementedError("a churn grid row cannot cross: the churn axis is not "
-                                  "ported yet (ROADMAP A9)")
     method = point["method"]
     if not isinstance(method, dict):
         method = method._asdict()
     dev = torch.device(device)
+    churn = point.get("churn")
     return GridPoint(method_params_from_numpy(method, device),
-                     *(_leaf_from_numpy(point[f], dev) for f in GridPoint._fields[1:]))
+                     *(_leaf_from_numpy(point[f], dev) for f in GridPoint._fields[1:-1]),
+                     churn=None if churn is None else churn_params_from_numpy(churn, device))
 
 
 def grid_point_to_numpy(point) -> dict:
-    """Inverse of :func:`grid_point_from_numpy` (``method`` as a dict)."""
+    """Inverse of :func:`grid_point_from_numpy` (``method`` and ``churn``
+    as dicts)."""
     return {"method": method_params_to_numpy(point.method),
-            **{f: _leaf_to_numpy(t) for f, t in zip(point._fields[1:], point[1:])}}
+            **{f: _leaf_to_numpy(t) for f, t in zip(point._fields[1:-1], point[1:-1])},
+            "churn": None if point.churn is None else churn_params_to_numpy(point.churn)}
 
 
 def _row(tree, m):
@@ -139,7 +168,7 @@ def _row(tree, m):
         return {k: _row(v, m) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_row(v, m) for v in tree]
-    return np.asarray(tree)[m]
+    return None if tree is None else np.asarray(tree)[m]
 
 
 def _stack(trees):
@@ -147,7 +176,7 @@ def _stack(trees):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
     if isinstance(trees[0], list):
         return [_stack([t[i] for t in trees]) for i in range(len(trees[0]))]
-    return np.stack(trees)
+    return None if trees[0] is None else np.stack(trees)
 
 
 def sweep_state_from_numpy(state, device="cpu", *, seeds):

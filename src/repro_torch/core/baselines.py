@@ -31,7 +31,8 @@ import torch
 from repro_torch.configs.base import OptimizerConfig, SwarmConfig
 from repro_torch.core.engine import (SWEEP_METHODS, EngineConfig, RoundMetrics, SwarmData,
                                      grid_axes, grid_point, make_batch,
-                                     make_client_eval, make_grid_config, make_grid_state,
+                                     make_bucketed_swarm_data, make_client_eval,
+                                     make_grid_config, make_grid_state,
                                      make_swarm_data, make_swarm_state, make_sweep_config,
                                      make_sweep_state, method_params, resolve_local_steps,
                                      run_grid, run_rounds, run_sweep, stack_eval_split)
@@ -46,15 +47,15 @@ def make_method_setup(model: Model, clients_data, swarm: SwarmConfig,
                       opt_cfg: OptimizerConfig, *, batch_size: int = 16, lr=None,
                       cfg: EngineConfig = None, data: SwarmData = None, layout: str = "rect",
                       device=None):
-    """(EngineConfig, SwarmData) shared by every method slice. A given
-    ``cfg`` or ``data`` passes through untouched, so repeated slices
-    share one device-resident dataset. ``layout`` is the data layout
-    built here: ``"rect"`` (every client padded to the largest one) is
-    the one ported."""
-    if layout == "bucketed":
-        raise NotImplementedError("the bucketed layout is not ported yet (ROADMAP A9); "
-                                  "use layout='rect'")
-    if layout != "rect":
+    """(EngineConfig, data) shared by every method slice. A given ``cfg``
+    or ``data`` passes through untouched, so repeated slices share one
+    device-resident dataset. ``layout`` is the data layout built here:
+    ``"rect"`` (:class:`~repro_torch.core.engine.SwarmData`, every client
+    padded to the largest one) or ``"bucketed"``
+    (:class:`~repro_torch.core.engine.BucketedSwarmData`, size buckets,
+    each padded to its own largest client; on the CPU the same results
+    bitwise). Every entry point below takes either."""
+    if layout not in ("rect", "bucketed"):
         raise ValueError(f"unknown layout {layout!r} (one of 'rect', 'bucketed')")
     if cfg is None:
         cfg = EngineConfig(
@@ -64,7 +65,8 @@ def make_method_setup(model: Model, clients_data, swarm: SwarmConfig,
             aggregation="bso", n_clusters=swarm.n_clusters, p1=swarm.p1, p2=swarm.p2,
             kmeans_iters=swarm.kmeans_iters)
     if data is None:
-        data = make_swarm_data(model.cfg, clients_data, device=resolve_device(device))
+        build = make_bucketed_swarm_data if layout == "bucketed" else make_swarm_data
+        data = build(model.cfg, clients_data, device=resolve_device(device))
     return cfg, data
 
 
@@ -173,7 +175,10 @@ def run_grid_table(model: Model, clients_data, swarm: SwarmConfig, opt_cfg: Opti
     that omits a knob keeps the caller's value. Rows with fewer steps
     than the pad make ``run_grid`` compute only their own steps
     (``schedule``). Row g is :func:`run_grid_point` of ``specs[g]`` with
-    ``sweep_keys(seed, specs)[g]``. Returns ``(results, MethodRun)``:
+    ``sweep_keys(seed, specs)[g]``. The churn knobs (``dropout``,
+    ``stale_decay``, ``churn_mask``) ride the same surface, in every row
+    or none; a churn grid never takes a schedule. Returns
+    ``(results, MethodRun)``:
     ``results`` is a ``{**spec, "acc": Eq. 3 test acc}`` row per grid
     point in grid order, the MethodRun the per-row final states and (G,
     rounds) metrics."""
@@ -194,7 +199,8 @@ def run_grid_table(model: Model, clients_data, swarm: SwarmConfig, opt_cfg: Opti
     states = make_grid_state(model, cfg.opt, clients_data, sweep_keys(seed, specs), device=dev)
     grid = make_grid_config(cfg, len(clients_data), rows, dev)
     row_steps = tuple(int(r.get("local_steps", cfg.local_steps)) for r in rows)
-    schedule = row_steps if min(row_steps) < cfg.local_steps else None
+    schedule = (row_steps if min(row_steps) < cfg.local_steps and grid.churn is None
+                else None)
     states, ms = run_grid(states, data, cfg, grid, swarm.rounds, schedule)
     test_stack = _test_stack(model, clients_data, data, test_stack)
     client_eval = make_client_eval(model)

@@ -46,8 +46,26 @@ computes only its own step count. Under the same draws (the native
 run's are the first slices of the padded run's) a padded row is the
 native-k method row.
 
-Not ported yet: the churn and hierarchical axes (ROADMAP A9, A10), the
-bucketed data layout and the fleet regime.
+The **churn axis** (:class:`ChurnParams`, ROADMAP A9): clients drop
+out of a round, by a Bernoulli draw at ``dropout`` or by an explicit
+``(N,)`` or ``(rounds, N)`` mask. An absent client computes every local
+step but keeps its params and optimizer state, is left out of the
+k-means seeding, means and reseeds (but still assigned), and does not
+receive its cluster's Eq. 2 aggregate; its weight there is
+``|D_h| * stale_decay ** staleness`` (``0 ** 0 = 1``), the counter
+carried in :attr:`SwarmState.staleness`. The Bernoulli uniforms come
+from the state's own ``churn_generator``, never from ``generator``, so
+churn leaves every other draw of a round where it was, and a
+``dropout=0`` row is bitwise the churn-free row.
+
+The **ragged layout** (:class:`BucketedSwarmData`): clients grouped
+into a few size buckets, each padded only to its own largest client.
+The sampler gathers the same rows from either layout and eval drops
+only all-pad microbatches, so on the CPU a bucketed fit is bitwise the
+rectangular one.
+
+Not ported yet: the hierarchical axis (ROADMAP A10) and the fleet
+regime (A11).
 """
 from __future__ import annotations
 
@@ -60,10 +78,12 @@ import torch
 from torch.func import vmap
 
 from repro_torch.configs.base import ModelConfig, SwarmConfig
-from repro_torch.core.aggregation import cluster_fedavg, singleton_assignments
+from repro_torch.core.aggregation import (cluster_fedavg, cluster_fedavg_masked,
+                                          singleton_assignments)
 from repro_torch.core.bso import BSODraws, brain_storm, draw_bso
 from repro_torch.core.diststats import swarm_distribution_matrix
 from repro_torch.core.kmeans import kmeans
+from repro_torch.data.dr import bucket_clients
 from repro_torch.models.model import Model
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.train.steps import make_eval_step, make_train_step
@@ -80,6 +100,10 @@ class SwarmState(NamedTuple):
     generator: torch.Generator       # drives sampling, seeding and BSA
     round: int                       # rounds done
     n_samples: torch.Tensor          # (N,) float32 |D_h| (Eq. 2 weights)
+    staleness: Any = None            # (N,) int32 rounds since the client
+    #                                  last took part (the churn axis)
+    churn_generator: Any = None      # torch.Generator of the churn
+    #                                  Bernoulli draws alone
 
 
 class SwarmData(NamedTuple):
@@ -97,6 +121,56 @@ class SwarmData(NamedTuple):
     val: Any
 
 
+class BucketedSwarmData:
+    """Size-bucketed sibling of :class:`SwarmData`: clients grouped into
+    a few size buckets (:func:`repro_torch.data.dr.bucket_clients`),
+    each bucket padded only to its own largest client.
+
+    train:      tuple of per-bucket batches, bucket b (N_b, n_max_b, ...)
+                with label -1 pad rows, which the sampler never draws.
+    val:        tuple of per-bucket stacked eval splits, bucket b
+                (N_b, n_batches_b, batch, ...) (:func:`stack_eval_split`).
+    train_n:    (N,) int64 true train sizes in global client order, the
+                sampling bound of :class:`SwarmData`, so a round's draws
+                do not depend on the layout.
+    client_ids: tuple of per-bucket tuples of client ids (ascending in a
+                bucket; together a partition of range(N)).
+
+    The engine dispatches on the layout (:func:`sample_round_batch`,
+    :func:`eval_swarm`), so every entry point takes either. Index
+    tensors of the gathers and scatters are built once, on ``train_n``'s
+    device."""
+
+    def __init__(self, train, val, train_n, client_ids):
+        self.train = tuple(train)
+        self.val = tuple(val)
+        self.train_n = train_n
+        self.client_ids = tuple(tuple(int(i) for i in ids) for ids in client_ids)
+        dev = train_n.device
+        bucket_of, pos_of = _bucket_maps(self.client_ids, train_n.shape[0])
+        self.ids = tuple(torch.as_tensor(ids, dtype=torch.int64, device=dev)
+                         for ids in self.client_ids)
+        self.bucket_of = torch.as_tensor(bucket_of, dtype=torch.int64, device=dev)
+        self.pos_of = torch.as_tensor(pos_of, dtype=torch.int64, device=dev)
+        # global client order from the buckets' concatenation
+        self.inv = torch.argsort(torch.cat(self.ids))
+
+    @property
+    def n_buckets(self) -> int:
+        return len(self.client_ids)
+
+
+def _bucket_maps(client_ids, n_clients: int):
+    """(bucket, position in the bucket) of every client id, on the host."""
+    bucket_of = np.zeros(n_clients, np.int64)
+    pos_of = np.zeros(n_clients, np.int64)
+    for b, ids in enumerate(client_ids):
+        for p, c in enumerate(ids):
+            bucket_of[c] = b
+            pos_of[c] = p
+    return bucket_of, pos_of
+
+
 class RoundMetrics(NamedTuple):
     """Per-round outputs, all device tensors."""
     mean_val_acc: Any                # () paper Eq. 3 on the val split
@@ -106,6 +180,8 @@ class RoundMetrics(NamedTuple):
     centers: Any                     # (k,) int32 center client ids
     n_replaced: Any                  # () int32 BSA replacement events
     n_swapped: Any                   # () int32 BSA swap events
+    present: Any = None              # (N,) bool participation of the
+    #                                  round (all ones without churn)
 
 
 class RoundDraws(NamedTuple):
@@ -116,12 +192,16 @@ class RoundDraws(NamedTuple):
     it, and only for a pooled row. The k-means seeding takes
     ``kmeans_init_idx`` (the seed rows) if given, else the uniforms
     ``kmeans_u``. The coordinator's draws are read only when the round
-    runs the coordinator."""
+    runs the coordinator, ``churn_u`` only on a churn row without a mask
+    (a round that draws for itself takes it from the state's
+    ``churn_generator``)."""
     batch_idx: torch.Tensor          # (local_steps, N, B) own train rows
     kmeans_init_idx: Any             # (k,) k-means++ seed rows, or None
     bso: BSODraws                    # brain-storm draws
     pool_idx: Any = None             # (local_steps, N, B) pooled global rows
     kmeans_u: Any = None             # (k,) uniforms of the k-means++ seeding
+    churn_u: Any = None              # (N,) float32 uniforms of the churn
+    #                                  Bernoulli draw (present: u >= dropout)
 
 
 class MethodParams(NamedTuple):
@@ -160,6 +240,52 @@ def sweep_row(sweep: MethodParams, m: int) -> MethodParams:
     return MethodParams(*(t[m] for t in sweep))
 
 
+class ChurnParams(NamedTuple):
+    """One churn row: the scenario axis as () tensors on the swarm's
+    device (build it with :func:`churn_params`).
+
+    An absent client computes every local step but keeps its params and
+    optimizer state, is left out of the k-means seeding, means and
+    reseeds, and keeps its own params through Eq. 2, where its weight is
+    ``|D_h| * stale_decay ** staleness``: ``stale_decay = 0`` is the
+    hard mask (``0 ** 0 = 1`` keeps present clients whole), above 0
+    stale params linger at a decaying weight. ``dropout = 0`` with no
+    mask keeps every client, bitwise the churn-free round."""
+    dropout: torch.Tensor            # () float32 P(absent) a client a round
+    stale_decay: torch.Tensor        # () float32 Eq. 2 staleness decay
+    mask: Any = None                 # bool (N,) every round, or a (rounds, N)
+    #                                  schedule (run_rounds takes a row a
+    #                                  round); overrides the Bernoulli draw
+
+
+def churn_params(dropout: float = 0.0, stale_decay: float = 0.0, mask=None,
+                 device=None) -> ChurnParams:
+    """One :class:`ChurnParams` row on ``device``. ``mask`` pins the
+    participation: (N,) for every round or a (rounds, N) schedule;
+    without it each round drops each client with probability
+    ``dropout``."""
+    d = float(dropout)
+    if not 0.0 <= d <= 1.0:
+        raise ValueError(f"dropout={d} outside [0, 1]")
+    g = float(stale_decay)
+    if not 0.0 <= g <= 1.0:
+        raise ValueError(f"stale_decay={g} outside [0, 1]")
+    if mask is not None:
+        mask = (mask.to(device=device, dtype=torch.bool) if isinstance(mask, torch.Tensor)
+                else torch.as_tensor(np.asarray(mask, bool), device=device))
+        if mask.dim() not in (1, 2):
+            raise ValueError("churn mask must be (N,) or (rounds, N), "
+                             f"got shape {tuple(mask.shape)}")
+    return ChurnParams(dropout=torch.tensor(d, dtype=torch.float32, device=device),
+                       stale_decay=torch.tensor(g, dtype=torch.float32, device=device),
+                       mask=mask)
+
+
+def _churn_row(churn: ChurnParams, g: int) -> ChurnParams:
+    return ChurnParams(churn.dropout[g], churn.stale_decay[g],
+                       None if churn.mask is None else churn.mask[g])
+
+
 class GridPoint(NamedTuple):
     """One hyper-parameter grid row as data: the Table-II masks plus ()
     tensors on the swarm's device that override :class:`EngineConfig`
@@ -179,6 +305,7 @@ class GridPoint(NamedTuple):
     p2: torch.Tensor                 # () float32 center-swap threshold
     local_steps: torch.Tensor        # () int32 applied local steps, 1..cfg.local_steps
     lr: torch.Tensor                 # () float32 local-phase learning rate
+    churn: Any = None                # ChurnParams row, or None (no churn)
 
 
 def grid_point(cfg: "EngineConfig", n_clients: int, *, method: str = "bso-sl", k=None,
@@ -187,12 +314,10 @@ def grid_point(cfg: "EngineConfig", n_clients: int, *, method: str = "bso-sl", k
     """One :class:`GridPoint`; a ``None`` knob inherits ``cfg``'s value,
     so the empty spec is the paper point. ``k`` and ``local_steps`` are
     checked against the static maxima here, so the round only sees
-    in-range values. The churn knobs are not ported and raise."""
-    given = [n for n, v in (("dropout", dropout), ("stale_decay", stale_decay),
-                            ("churn_mask", churn_mask)) if v is not None]
-    if given:
-        raise NotImplementedError(f"the churn axes ({', '.join(given)}) are not ported yet "
-                                  "(ROADMAP A9)")
+    in-range values. Any of ``dropout`` / ``stale_decay`` /
+    ``churn_mask`` gives the row a :class:`ChurnParams` (``dropout=0.0``
+    is the churn-free anchor); a grid's rows are all churn rows or
+    none (:func:`make_grid_config`)."""
     k = cfg.n_clusters if k is None else int(k)
     if not 1 <= k <= cfg.n_clusters:
         raise ValueError(f"grid k={k} outside [1, {cfg.n_clusters}] — "
@@ -202,13 +327,19 @@ def grid_point(cfg: "EngineConfig", n_clients: int, *, method: str = "bso-sl", k
         raise ValueError(f"grid local_steps={steps} outside "
                          f"[1, {cfg.local_steps}] — cfg.local_steps is "
                          f"the static step budget")
+    churn = None
+    if dropout is not None or stale_decay is not None or churn_mask is not None:
+        churn = churn_params(0.0 if dropout is None else dropout,
+                             0.0 if stale_decay is None else stale_decay, churn_mask,
+                             device=device)
     return GridPoint(
         method=method_params(method, n_clients, device),
         n_clusters=torch.tensor(k, dtype=torch.int32, device=device),
         p1=torch.tensor(cfg.p1 if p1 is None else p1, dtype=torch.float32, device=device),
         p2=torch.tensor(cfg.p2 if p2 is None else p2, dtype=torch.float32, device=device),
         local_steps=torch.tensor(steps, dtype=torch.int32, device=device),
-        lr=torch.tensor(cfg.lr if lr is None else lr, dtype=torch.float32, device=device))
+        lr=torch.tensor(cfg.lr if lr is None else lr, dtype=torch.float32, device=device),
+        churn=churn)
 
 
 def grid_axes(**axes) -> list:
@@ -224,16 +355,31 @@ def grid_axes(**axes) -> list:
 
 def make_grid_config(cfg: "EngineConfig", n_clients: int, specs, device=None) -> GridPoint:
     """The :func:`grid_point` rows of ``specs`` stacked on a leading (G,)
-    axis."""
+    axis. The rows must all be churn rows or all churn-free, and churn
+    rows all with a ``churn_mask`` of one shape or all without."""
     rows = [grid_point(cfg, n_clients, device=device, **spec) for spec in specs]
+    has_churn = [r.churn is not None for r in rows]
+    if any(has_churn) and not all(has_churn):
+        raise ValueError(
+            "grid rows must be uniformly churn or churn-free (stacking "
+            "mixes pytree structures); give the always-on rows "
+            "dropout=0.0 — it is the bitwise no-churn anchor")
+    churn = None
+    if all(has_churn):
+        masks = [r.churn.mask for r in rows]
+        if any(m is None for m in masks) and not all(m is None for m in masks):
+            raise ValueError("grid churn rows must all give a churn_mask or none")
+        churn = ChurnParams(*(torch.stack(f) for f in zip(*(r.churn[:2] for r in rows))),
+                            mask=None if masks[0] is None else torch.stack(masks))
     return GridPoint(method=MethodParams(*(torch.stack(f) for f in zip(*(r.method for r in rows)))),
                      **{f: torch.stack([getattr(r, f) for r in rows])
-                        for f in GridPoint._fields[1:]})
+                        for f in GridPoint._fields[1:-1]}, churn=churn)
 
 
 def grid_row(grid: GridPoint, g: int) -> GridPoint:
     """Row ``g`` of a stacked grid config."""
-    return GridPoint(sweep_row(grid.method, g), *(t[g] for t in grid[1:]))
+    return GridPoint(sweep_row(grid.method, g), *(t[g] for t in grid[1:-1]),
+                     churn=None if grid.churn is None else _churn_row(grid.churn, g))
 
 
 @dataclass(frozen=True)
@@ -313,10 +459,74 @@ def make_swarm_data(cfg: ModelConfig, clients_data, *, eval_batch: int = 64,
                                           device=device))
 
 
+def make_bucketed_swarm_data(cfg: ModelConfig, clients_data, *, eval_batch: int = 64,
+                             max_buckets: int = 4, strategy: str = "pow2",
+                             device=None) -> BucketedSwarmData:
+    """The device-resident :class:`BucketedSwarmData` of the per-clinic
+    dicts: clients grouped by train size
+    (:func:`repro_torch.data.dr.bucket_clients`), each bucket's train
+    stack padded to the bucket's largest client and its eval stack built
+    by :func:`stack_eval_split` over the bucket's members."""
+    device = resolve_device(device)
+    sizes = [len(c["train"][1]) for c in clients_data]
+    groups = bucket_clients(sizes, max_buckets=max_buckets, strategy=strategy)
+    trains, vals = [], []
+    for ids in groups:
+        subset = [clients_data[i] for i in ids]
+        n_max = max(len(c["train"][1]) for c in subset)
+        Xs, ys = [], []
+        for c in subset:
+            X, y = pad_eval_split(*c["train"], n_max)
+            Xs.append(X)
+            ys.append(y)
+        trains.append(make_batch(cfg, np.stack(Xs), np.stack(ys), device))
+        vals.append(stack_eval_split(cfg, subset, "val", batch=eval_batch, device=device))
+    train_n = torch.as_tensor(sizes, dtype=torch.int64, device=device)
+    return BucketedSwarmData(trains, vals, train_n, groups)
+
+
+def pad_fraction(data) -> dict:
+    """The share of stored train and eval rows that are padding, for
+    either layout: ``{"train": f, "eval": f, "total": f, "stored_rows":
+    n, "real_rows": n}`` (reads the labels on the host)."""
+    if isinstance(data, BucketedSwarmData):
+        trains, vals = data.train, data.val
+    else:
+        trains, vals = (data.train,), (data.val,)
+    tr_stored = sum(int(np.prod(t["labels"].shape[:2])) for t in trains)
+    tr_real = int(data.train_n.sum())
+    ev_stored = ev_real = 0
+    for v in vals:
+        ev_stored += v["labels"].numel()
+        ev_real += int((v["labels"] >= 0).sum())
+    stored = tr_stored + ev_stored
+    real = tr_real + ev_real
+    return {"train": 1.0 - tr_real / tr_stored,
+            "eval": 1.0 - ev_real / ev_stored,
+            "total": 1.0 - real / stored,
+            "stored_rows": stored, "real_rows": real}
+
+
+#: mixed into a state's seed to seed its churn generator, so that the
+#: churn draws are a stream of their own
+_CHURN_SEED_TAG = 0x0C
+
+
+def make_churn_generator(seed: int, device) -> torch.Generator:
+    """The churn generator of a state seeded from ``seed``: seeded from
+    ``(seed, _CHURN_SEED_TAG)`` through numpy's SeedSequence, so its
+    stream shares nothing with the generator seeded from ``seed``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(np.random.SeedSequence([int(seed), _CHURN_SEED_TAG])
+                        .generate_state(1)[0]))
+    return gen
+
+
 def make_swarm_state(model: Model, opt: Optimizer, clients_data, seed: int, *,
                      device=None) -> SwarmState:
-    """Fresh per-client params and optimizer state, and the generator
-    (seeded from ``seed``) that drives every later round."""
+    """Fresh per-client params and optimizer state, zero staleness, the
+    generator (seeded from ``seed``) that drives every later round, and
+    the churn generator (:func:`make_churn_generator`)."""
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -325,7 +535,10 @@ def make_swarm_state(model: Model, opt: Optimizer, clients_data, seed: int, *,
     n_samples = torch.as_tensor([c["n_train"] for c in clients_data],
                                 dtype=torch.float32, device=device)
     return SwarmState(params=params, opt_state=opt_state, generator=gen, round=0,
-                      n_samples=n_samples)
+                      n_samples=n_samples,
+                      staleness=torch.zeros((len(clients_data),), dtype=torch.int32,
+                                            device=device),
+                      churn_generator=make_churn_generator(seed, device))
 
 
 def make_sweep_state(model: Model, opt: Optimizer, clients_data, seeds, *,
@@ -391,6 +604,12 @@ def draw_round(generator: torch.Generator, train_n, cfg: EngineConfig) -> RoundD
                       pool_idx=pool_idx, kmeans_u=kmeans_u)
 
 
+def draw_churn(generator: torch.Generator, n: int, device) -> torch.Tensor:
+    """(n,) float32 uniforms of a churn round's Bernoulli draw: client i
+    is present when ``u[i] >= dropout``."""
+    return torch.rand((n,), generator=generator, device=device, dtype=torch.float32)
+
+
 def sample_local_batch(train, idx) -> dict:
     """Per-client minibatch (N, B, ...) gathered on the device from
     row ids ``idx`` (N, B)."""
@@ -426,17 +645,57 @@ def sample_swarm_batch(train, train_n, own_row, pool_idx, pool) -> dict:
     return {k: v[client, row] for k, v in train.items()}
 
 
-def sample_round_batch(data: SwarmData, own_row, pool_idx=None, pool=None) -> dict:
-    """One local step's stacked batch: the plain per-client batch when
-    ``pool`` is None (no method row), else the method-axis batch."""
+def _sample_local_bucketed(data: BucketedSwarmData, idx) -> dict:
+    """:func:`sample_local_batch` over the buckets: each bucket gathers
+    its clients' rows of ``idx`` (N, B), and the concatenation goes back
+    to global client order, so the batch is the rectangular one."""
+    parts = [sample_local_batch(tr, idx[ids]) for ids, tr in zip(data.ids, data.train)]
+    return {k: torch.cat([p[k] for p in parts])[data.inv] for k in parts[0]}
+
+
+def _gather_bucketed_rows(data: BucketedSwarmData, client, row) -> dict:
+    """``train[client, row]`` over the buckets: each bucket gathers every
+    (client, row) pair at its (position, row) slot, a lane outside the
+    bucket gathering slot (0, 0), and the lanes are where-merged by
+    bucket, so the values are the rectangular gather's."""
+    b_of, pos = data.bucket_of[client], data.pos_of[client]
+    out = None
+    for b, tr in enumerate(data.train):
+        in_b = b_of == b
+        p = torch.where(in_b, pos, 0)
+        r = torch.where(in_b, row, 0)
+        g = {k: v[p, r] for k, v in tr.items()}
+        if out is None:
+            out = g
+        else:
+            out = {k: torch.where(in_b.reshape(in_b.shape + (1,) * (g[k].dim() - in_b.dim())),
+                                  g[k], out[k]) for k in g}
+    return out
+
+
+def sample_round_batch(data, own_row, pool_idx=None, pool=None) -> dict:
+    """One local step's stacked batch from either layout (a
+    :class:`SwarmData` or :class:`BucketedSwarmData`): the plain
+    per-client batch when ``pool`` is None (no method row), else the
+    method-axis batch. Both layouts gather the same rows."""
+    if pool is not None and pool_idx is None:
+        raise ValueError("a method row samples through pooled draws: give RoundDraws.pool_idx")
+    if isinstance(data, BucketedSwarmData):
+        if pool is None:
+            return _sample_local_bucketed(data, own_row)
+        return _gather_bucketed_rows(data, *swarm_batch_indices(data.train_n, own_row,
+                                                                pool_idx, pool))
     if pool is None:
         return sample_local_batch(data.train, own_row)
-    if pool_idx is None:
-        raise ValueError("a method row samples through pooled draws: give RoundDraws.pool_idx")
     return sample_swarm_batch(data.train, data.train_n, own_row, pool_idx, pool)
 
 
-def local_phase(step, params, opt_state, lr, batches, n_active=None):
+def _client_where(present, new, old):
+    """``new`` for the clients ``present`` (N,) marks, else ``old``."""
+    return torch.where(present.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
+
+
+def local_phase(step, params, opt_state, lr, batches, n_active=None, present=None):
     """Local training: for each of ``batches`` (each an (N, B, ...)
     stacked batch), one train step vmapped over the client axis.
     Returns the new params and optimizer state and the (steps,) mean
@@ -445,18 +704,33 @@ def local_phase(step, params, opt_state, lr, batches, n_active=None):
     ``n_active`` (a () integer tensor, or None) is the grid row's step
     count: every step computes, and steps ``>= n_active`` leave params
     and optimizer state as they were, selected on the device (so
-    applying every step is the plain path, bitwise)."""
+    applying every step is the plain path, bitwise).
+
+    ``present`` (an (N,) bool tensor, or None) is the churn axis: every
+    client computes every step, an absent client's params and optimizer
+    state are selected back, and a step's loss is the mean over present
+    clients. It is written ``mean(loss * p) * (N / max(sum(p), 1))`` so
+    that all ones round as ``torch.mean`` does on any device: the same
+    addends, then a multiply by exactly 1.0."""
     vstep = vmap(step, in_dims=(0, 0, 0, None))
+    if present is not None:
+        pf = present.float()
+        scale = pf.shape[0] / torch.clamp(torch.sum(pf), min=1.0)
     losses = []
     for i, batch in enumerate(batches):
         new_params, new_opt, m = vstep(params, opt_state, batch, lr)
-        if n_active is None:
-            params, opt_state = new_params, new_opt
-        else:
+        if n_active is not None:
             on = n_active > i
-            params = tree_map(lambda new, old: torch.where(on, new, old), new_params, params)
-            opt_state = tree_map(lambda new, old: torch.where(on, new, old), new_opt, opt_state)
-        losses.append(torch.mean(m["loss"]))
+            new_params = tree_map(lambda new, old: torch.where(on, new, old), new_params, params)
+            new_opt = tree_map(lambda new, old: torch.where(on, new, old), new_opt, opt_state)
+        if present is None:
+            params, opt_state = new_params, new_opt
+            losses.append(torch.mean(m["loss"]))
+        else:
+            params = tree_map(lambda new, old: _client_where(present, new, old), new_params, params)
+            opt_state = tree_map(lambda new, old: _client_where(present, new, old), new_opt,
+                                 opt_state)
+            losses.append(torch.mean(m["loss"] * pf) * scale)
     return params, opt_state, torch.stack(losses)
 
 
@@ -480,68 +754,137 @@ def make_client_eval(model: Model):
     return client_eval
 
 
-def eval_swarm(model: Model, params, data: SwarmData) -> torch.Tensor:
-    """(N,) per-client val accuracy."""
-    return make_client_eval(model)(params, data.val)
+def eval_swarm(model: Model, params, data) -> torch.Tensor:
+    """(N,) per-client val accuracy, from either layout. Bucketed: one
+    eval of each bucket's clients on the bucket's stack, scattered back
+    to client order. A bucket's stack is a prefix of the rectangular
+    one's microbatches, and a dropped all-pad microbatch adds exactly
+    0.0 to hits and totals, so on the CPU this is the rectangular
+    result bitwise."""
+    client_eval = make_client_eval(model)
+    if not isinstance(data, BucketedSwarmData):
+        return client_eval(params, data.val)
+    acc = torch.zeros(data.train_n.shape, dtype=torch.float32, device=data.train_n.device)
+    for ids, val in zip(data.ids, data.val):
+        acc[ids] = client_eval(tree_map(lambda t: t[ids], params), val)
+    return acc
 
 
 # ---------------------------------------------------------------- the round
 
 
-def _coordinate(params, val, cfg: EngineConfig, draws: RoundDraws, grid: GridPoint = None):
+def _coordinate(params, val, cfg: EngineConfig, draws: RoundDraws, grid: GridPoint = None,
+                present=None):
     """Distribution upload -> k-means -> brain storm over the swarm:
     (assignments, centers, n_replaced, n_swapped). A grid row runs them
     at the pad ``cfg.n_clusters`` with its ``n_clusters`` live and its
-    ``p1`` / ``p2``."""
+    ``p1`` / ``p2``; a churn round's ``present`` masks the k-means."""
     if draws.kmeans_init_idx is None and draws.kmeans_u is None:
         raise ValueError("RoundDraws needs kmeans_init_idx or kmeans_u for the coordinator")
     k_active, p1, p2 = ((None, cfg.p1, cfg.p2) if grid is None
                         else (grid.n_clusters, grid.p1, grid.p2))
     feats = swarm_distribution_matrix(params)
     _, a0 = kmeans(feats, cfg.n_clusters, cfg.kmeans_iters, init_idx=draws.kmeans_init_idx,
-                   u=draws.kmeans_u, k_active=k_active)
+                   u=draws.kmeans_u, k_active=k_active, mask=present)
     return brain_storm(a0, val, cfg.n_clusters, p1, p2, draws=draws.bso)
 
 
+def _aggregate(cfg: EngineConfig, params, opt_state, assignments, n_samples, k: int,
+               present=None, eff_w=None):
+    """Eq. 2 over ``k`` segments, then the optimizer reset if ``cfg``
+    asks for it. A churn round (``present`` and ``eff_w``, its effective
+    weights) runs the masked Eq. 2 and resets only present clients."""
+    if present is None:
+        params = cluster_fedavg(params, assignments, n_samples, k=k)
+    else:
+        params = cluster_fedavg_masked(params, assignments, eff_w, present, k=k)
+    if cfg.reset_opt_each_round:
+        new_opt = init_opt_state(cfg.opt, params)
+        opt_state = new_opt if present is None else tree_map(
+            lambda new, old: _client_where(present, new, old), new_opt, opt_state)
+    return params, opt_state
+
+
 def _coordinate_and_aggregate(params, opt_state, val, n_samples, cfg: EngineConfig,
-                              masks: MethodParams, draws: RoundDraws, grid: GridPoint = None):
+                              masks: MethodParams, draws: RoundDraws, grid: GridPoint = None,
+                              present=None, eff_w=None):
     """The method- and grid-axis tail of :func:`swarm_round`: the
     coordinator (stats, k-means, brain storm; masked to the grid row's
-    clusters) always runs, then the row's ``use_coord`` picks its
-    assignments or ``base_assign``, and Eq. 2 runs over N segments (so
-    the identity plan, the global plan and the coordinator's clusters
-    share one layout). Returns ``(params, opt_state, assignments,
-    centers, n_replaced, n_swapped)``."""
+    clusters and the churn round's present clients) always runs, then
+    the row's ``use_coord`` picks its assignments or ``base_assign``,
+    and Eq. 2 runs over N segments (so the identity plan, the global
+    plan and the coordinator's clusters share one layout). Returns
+    ``(params, opt_state, assignments, centers, n_replaced,
+    n_swapped)``."""
     N = n_samples.shape[0]
     if cfg.n_clusters > N:
         raise ValueError(f"the method axis needs n_clusters <= n_clients, got "
                          f"{cfg.n_clusters} > {N}")
-    bsa_a, bsa_c, n_rep, n_swap = _coordinate(params, val, cfg, draws, grid)
+    bsa_a, bsa_c, n_rep, n_swap = _coordinate(params, val, cfg, draws, grid, present)
     use = masks.use_coord
     zero = torch.zeros((), dtype=torch.int32, device=val.device)
     assignments = torch.where(use, bsa_a, masks.base_assign.to(bsa_a.dtype))
     centers = torch.where(use, bsa_c, -1)
     n_rep = torch.where(use, n_rep, zero)
     n_swap = torch.where(use, n_swap, zero)
-    params = cluster_fedavg(params, assignments, n_samples, k=N)
-    if cfg.reset_opt_each_round:
-        opt_state = init_opt_state(cfg.opt, params)
+    params, opt_state = _aggregate(cfg, params, opt_state, assignments, n_samples, N,
+                                   present, eff_w)
     return params, opt_state, assignments, centers, n_rep, n_swap
 
 
 def _check_grid_device(grid: GridPoint, dev) -> None:
     """A grid row's tensors must live on the swarm's device: the round
     reads them there and never on the host."""
-    for name, t in [*zip(MethodParams._fields, grid.method), *zip(GridPoint._fields[1:], grid[1:])]:
+    named = [*zip(MethodParams._fields, grid.method), *zip(GridPoint._fields[1:-1], grid[1:-1])]
+    if grid.churn is not None:
+        named += [(f"churn.{f}", t) for f, t in zip(ChurnParams._fields, grid.churn)
+                  if t is not None]
+    for name, t in named:
         if t.device != dev:
             raise ValueError(f"GridPoint.{name} is on {t.device} but the swarm is on {dev}; "
                              "build the grid with device=")
 
 
-def swarm_round(state: SwarmState, data: SwarmData, cfg: EngineConfig,
-                method=None, draws: RoundDraws = None, steps: int = None):
+def _churn_presence(state: SwarmState, churn: ChurnParams, draws, N: int, dev):
+    """A churn round's (present, staleness, effective Eq. 2 weights):
+    ``present`` from the row's mask, else ``u >= dropout`` on float32
+    uniforms (``draws.churn_u``, or drawn from the state's churn
+    generator when the round draws for itself)."""
+    if state.staleness is None:
+        raise ValueError(
+            "the churn axis needs SwarmState.staleness — rebuild "
+            "the state with make_swarm_state (or _replace a zeros "
+            "(N,) int32 field onto a pre-churn state)")
+    if churn.mask is not None:
+        present = churn.mask.to(device=dev, dtype=torch.bool)
+        if present.dim() != 1:
+            raise ValueError(
+                "swarm_round wants a per-round (N,) churn mask; "
+                "run_rounds scans (rounds, N) schedules")
+    else:
+        if draws is not None:
+            if draws.churn_u is None:
+                raise ValueError("a churn row without a mask needs RoundDraws.churn_u")
+            u = draws.churn_u.to(device=dev, dtype=torch.float32)
+        elif state.churn_generator is None:
+            raise ValueError("a churn row without a mask draws from SwarmState.churn_generator; "
+                             "build the state with make_swarm_state")
+        else:
+            u = draw_churn(state.churn_generator, N, dev)
+        present = u >= churn.dropout
+    staleness = torch.where(present, torch.zeros_like(state.staleness), state.staleness + 1)
+    # |D_h| * decay ** staleness: a present client multiplies by
+    # decay ** 0 == 1.0 (bitwise |D_h|), and the hard mask (decay 0)
+    # zeroes every absent one (0 ** s == 0 for s > 0)
+    eff_w = state.n_samples * torch.pow(churn.stale_decay, staleness.float())
+    return present, staleness, eff_w
+
+
+def swarm_round(state: SwarmState, data, cfg: EngineConfig, method=None,
+                draws: RoundDraws = None, steps: int = None, churn: ChurnParams = None):
     """One full BSO-SL round: local steps, eval, distribution upload,
-    k-means, brain storm, Eq. 2 aggregation.
+    k-means, brain storm, Eq. 2 aggregation. ``data`` is a
+    :class:`SwarmData` or a :class:`BucketedSwarmData`.
 
     ``method`` puts the round on a traced axis: a :class:`MethodParams`
     row (the Table-II axis; see :func:`_coordinate_and_aggregate`) or a
@@ -552,6 +895,13 @@ def swarm_round(state: SwarmState, data: SwarmData, cfg: EngineConfig,
     when given, else from ``state.generator`` through
     :func:`draw_round`: a round takes every draw of ``cfg.local_steps``
     steps whatever the row applies.
+
+    ``churn`` (a :class:`ChurnParams` row with an (N,) mask or none;
+    else a GridPoint's own ``churn``) puts the round on the churn axis
+    on any of those paths (see :class:`ChurnParams`): the round's
+    participation is in ``RoundMetrics.present`` and the new staleness
+    in the state. Its Bernoulli uniforms are ``draws.churn_u``, or come
+    from ``state.churn_generator``, which nothing else reads.
 
     ``steps`` (a grid row only) computes just the first ``steps`` local
     steps, so the row applies ``min(local_steps, steps)`` of them; at
@@ -567,12 +917,18 @@ def swarm_round(state: SwarmState, data: SwarmData, cfg: EngineConfig,
     masks = method if grid is None else grid.method
     if grid is not None:
         _check_grid_device(grid, dev)
+        if churn is None:
+            churn = grid.churn
     elif steps is not None:
         raise ValueError("steps= applies to a GridPoint row only")
+    present = staleness = eff_w = None
+    if churn is not None:
+        present, staleness, eff_w = _churn_presence(state, churn, draws, N, dev)
     if draws is None:
         draws = draw_round(state.generator, data.train_n, cfg)
 
-    # --- local phase (a grid row applies only its first local_steps)
+    # --- local phase (a grid row applies only its first local_steps; an
+    # absent client none)
     step = make_train_step(model, opt)
     pool = None if masks is None else masks.pool_data
     batch_idx = draws.batch_idx.to(dev).long()
@@ -583,19 +939,21 @@ def swarm_round(state: SwarmState, data: SwarmData, cfg: EngineConfig,
                for i in range(n_run))
     lr, n_active = (cfg.lr, None) if grid is None else (grid.lr, grid.local_steps)
     params, opt_state, losses = local_phase(step, state.params, state.opt_state, lr, batches,
-                                            n_active)
+                                            n_active, present)
     # the last applied step's loss, read on the device
     train_loss = (losses[-1] if grid is None else losses.index_select(
         0, (torch.clamp(n_active, max=n_run) - 1).long().reshape(1))[0])
 
-    # --- eval: per-client val accuracy (shared within clusters, §III.C)
+    # --- eval: per-client val accuracy (shared within clusters, §III.C);
+    # an absent client is scored on its stale params, the score the
+    # coordinator kept from its last round
     val = eval_swarm(model, params, data)
 
     # --- coordinator + aggregation
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     if masks is not None:
         params, opt_state, assignments, centers, n_rep, n_swap = _coordinate_and_aggregate(
-            params, opt_state, val, state.n_samples, cfg, masks, draws, grid)
+            params, opt_state, val, state.n_samples, cfg, masks, draws, grid, present, eff_w)
     elif cfg.aggregation == "none":
         assignments = torch.zeros((N,), dtype=torch.int32, device=dev)
         centers = torch.zeros((0,), dtype=torch.int32, device=dev)
@@ -608,15 +966,18 @@ def swarm_round(state: SwarmState, data: SwarmData, cfg: EngineConfig,
             n_rep = n_swap = zero
         else:
             k = cfg.n_clusters
-            assignments, centers, n_rep, n_swap = _coordinate(params, val, cfg, draws)
-        params = cluster_fedavg(params, assignments, state.n_samples, k=k)
-        if cfg.reset_opt_each_round:
-            opt_state = init_opt_state(opt, params)
+            assignments, centers, n_rep, n_swap = _coordinate(params, val, cfg, draws,
+                                                              present=present)
+        params, opt_state = _aggregate(cfg, params, opt_state, assignments, state.n_samples, k,
+                                       present, eff_w)
 
-    new_state = state._replace(params=params, opt_state=opt_state, round=state.round + 1)
+    new_state = state._replace(params=params, opt_state=opt_state, round=state.round + 1,
+                               staleness=state.staleness if churn is None else staleness)
     metrics = RoundMetrics(mean_val_acc=torch.mean(val), val_acc=val,
                            train_loss=train_loss, assignments=assignments,
-                           centers=centers, n_replaced=n_rep, n_swapped=n_swap)
+                           centers=centers, n_replaced=n_rep, n_swapped=n_swap,
+                           present=(torch.ones((N,), dtype=torch.bool, device=dev)
+                                    if present is None else present))
     return new_state, metrics
 
 
@@ -624,19 +985,31 @@ def _stack_metrics(ms) -> RoundMetrics:
     return RoundMetrics(*(torch.stack(f) for f in zip(*ms)))
 
 
-def run_rounds(state: SwarmState, data: SwarmData, cfg: EngineConfig, rounds: int,
-               method=None, steps: int = None):
+def run_rounds(state: SwarmState, data, cfg: EngineConfig, rounds: int,
+               method=None, steps: int = None, churn: ChurnParams = None):
     """``rounds`` calls of :func:`swarm_round` (on the method or grid row
     ``method``, if given; ``steps`` as there); metrics gain a leading
-    (rounds,) axis."""
+    (rounds,) axis. ``churn`` (or the grid row's own) goes to every
+    round; a (rounds, N) mask schedule gives round r its row r."""
+    if churn is None and isinstance(method, GridPoint):
+        churn = method.churn
+    schedule = None
+    if churn is not None and churn.mask is not None and churn.mask.dim() == 2:
+        if churn.mask.shape[0] != rounds:
+            raise ValueError(
+                f"churn mask schedule has {churn.mask.shape[0]} rows "
+                f"for rounds={rounds}")
+        schedule = churn.mask
     ms = []
-    for _ in range(rounds):
-        state, m = swarm_round(state, data, cfg, method, steps=steps)
+    for r in range(rounds):
+        if schedule is not None:
+            churn = churn._replace(mask=schedule[r])
+        state, m = swarm_round(state, data, cfg, method, steps=steps, churn=churn)
         ms.append(m)
     return state, _stack_metrics(ms)
 
 
-def run_sweep(states, data: SwarmData, cfg: EngineConfig, sweep: MethodParams, rounds: int):
+def run_sweep(states, data, cfg: EngineConfig, sweep: MethodParams, rounds: int):
     """The Table-II axis: row m is exactly ``run_rounds(states[m], data,
     cfg, rounds, sweep_row(sweep, m))``, the rows run one after another
     over the one shared ``data``. ``states`` is a list of per-row states
@@ -653,7 +1026,7 @@ def run_sweep(states, data: SwarmData, cfg: EngineConfig, sweep: MethodParams, r
     return finals, _stack_metrics(ms)
 
 
-def run_grid(states, data: SwarmData, cfg: EngineConfig, grid: GridPoint, rounds: int,
+def run_grid(states, data, cfg: EngineConfig, grid: GridPoint, rounds: int,
              schedule=None):
     """A hyper-parameter ablation: row g is exactly ``run_rounds(states[g],
     data, cfg, rounds, grid_row(grid, g))``, the rows run one after
@@ -668,13 +1041,19 @@ def run_grid(states, data: SwarmData, cfg: EngineConfig, grid: GridPoint, rounds
     every draw, so the row keeps its random stream and its result is the
     masked row's. Like the reference, the entries are not read back
     against the rows' tensors (that would be a host sync); an entry
-    below a row's ``local_steps`` cuts the row to that many steps.
-    Returns the list of final states and the metrics with leading (G,
-    rounds) axes."""
+    below a row's ``local_steps`` cuts the row to that many steps. Churn
+    rows refuse a schedule, as the reference's do. Returns the list of
+    final states and the metrics with leading (G, rounds) axes."""
     G = grid.lr.shape[0]
     if len(states) != G:
         raise ValueError(f"{len(states)} states for {G} grid rows")
     if schedule is not None:
+        if grid.churn is not None:
+            raise ValueError(
+                "the sorted local-steps schedule does not support churn "
+                "rows (its prefix segments assume every row trains every "
+                "client); pass schedule=None — churn grids ride the "
+                "masked path")
         schedule = tuple(int(s) for s in schedule)
         if len(schedule) != G:
             raise ValueError(f"schedule has {len(schedule)} entries for {G} grid rows")
@@ -690,11 +1069,19 @@ def run_grid(states, data: SwarmData, cfg: EngineConfig, grid: GridPoint, rounds
     return finals, _stack_metrics(ms)
 
 
+def _fork(gen):
+    if gen is None:
+        return None
+    out = torch.Generator(device=gen.device)
+    out.set_state(gen.get_state())
+    return out
+
+
 def copy_state(state: SwarmState) -> SwarmState:
-    """A deep copy of ``state``: tensors cloned, generator forked at its
-    current position."""
-    gen = torch.Generator(device=state.generator.device)
-    gen.set_state(state.generator.get_state())
+    """A deep copy of ``state``: tensors cloned, generators forked at
+    their current positions."""
     return state._replace(params=tree_map(torch.clone, state.params),
                           opt_state=tree_map(torch.clone, state.opt_state),
-                          generator=gen, n_samples=state.n_samples.clone())
+                          generator=_fork(state.generator), n_samples=state.n_samples.clone(),
+                          staleness=None if state.staleness is None else state.staleness.clone(),
+                          churn_generator=_fork(state.churn_generator))

@@ -15,9 +15,15 @@ it to the kernel as a device operand; nothing reads it on the host. The
 seeding fills all ``k`` slots, as the reference's does, so with the
 first ``j`` uniforms of a ``k``-slot draw a ``k_active=j`` run is a
 native ``k=j`` run: the same assignments, and live centroids equal up
-to the mean step's matmul tiling. The reference's ``mask`` (churn,
-ROADMAP A9) and ``weights`` (two-tier coordination, A10) operands are
-not ported.
+to the mean step's matmul tiling.
+
+**Masked points** (the churn axis): every entry point also takes an
+optional ``mask`` (an (N,) bool tensor on X's device). Absent points
+are still assigned, through the same kernel, but they are left out of
+the seeding, the centroid means and the reseed targets, and a cluster
+whose members are all absent counts as empty. An all-ones mask is
+bitwise the unmasked run. The reference's ``weights`` operand (two-tier
+coordination, ROADMAP A10) is not ported.
 """
 from __future__ import annotations
 
@@ -34,7 +40,7 @@ def _pairwise_sq_dists(X, C):
 
 
 def kmeans_pp_init(X, k: int, *, generator: torch.Generator = None, init_idx=None,
-                   u=None) -> torch.Tensor:
+                   u=None, mask=None) -> torch.Tensor:
     """k-means++ seeding -> (k, F) initial centroids.
 
     ``init_idx`` (k,) injects the seed rows (how a test hands over the
@@ -43,17 +49,32 @@ def kmeans_pp_init(X, k: int, *, generator: torch.Generator = None, init_idx=Non
     the first uniformly, each further one by inverting the cumulative
     squared distances to the nearest chosen seed, so a point is taken
     with probability proportional to that distance. The draws do not
-    depend on X, so a round can take them before it has X."""
+    depend on X, so a round can take them before it has X.
+
+    ``mask`` makes the uniform pick one over the present points (the
+    ``floor(u * n_present)``-th of them) and zeroes the absent points'
+    distances. With all ones both are identities: the same rows as the
+    unmasked seeding, bitwise."""
     if init_idx is not None:
         return X[torch.as_tensor(init_idx, device=X.device).long()]
     N = X.shape[0]
     if u is None:
         u = torch.rand((k,), generator=generator, device=X.device, dtype=torch.float64)
     u = torch.as_tensor(u, device=X.device).double()
-    uniform = torch.clamp((u * N).long(), max=N - 1)             # (k,)
+    if mask is None:
+        uniform = torch.clamp((u * N).long(), max=N - 1)         # (k,)
+    else:
+        pos = mask.bool()
+        cum_pos = torch.cumsum(pos.long(), dim=0)
+        n_pos = torch.clamp(cum_pos[-1], min=1)
+        rank = torch.minimum((u * n_pos.double()).long(), n_pos - 1)
+        uniform = torch.clamp(torch.searchsorted(cum_pos, rank + 1), max=N - 1)
+        wf = pos.to(X.dtype)
     idx = [uniform[:1]]
     for i in range(1, k):
         d = torch.min(_pairwise_sq_dists(X, X[torch.cat(idx)]), dim=1).values
+        if mask is not None:
+            d = d * wf
         cum = torch.cumsum(d.double(), dim=0)
         pick = torch.searchsorted(cum, (u[i] * cum[-1])[None], right=True)
         # all points on the seeds: fall back to the uniform pick
@@ -61,19 +82,25 @@ def kmeans_pp_init(X, k: int, *, generator: torch.Generator = None, init_idx=Non
     return X[torch.cat(idx)]
 
 
-def lloyd_step(X, C, k: int, k_active=None) -> torch.Tensor:
+def lloyd_step(X, C, k: int, k_active=None, mask=None) -> torch.Tensor:
     """One Lloyd iteration: assign, recompute means, reseed empties.
     With ``k_active`` only clusters ``< k_active`` are assigned to and
     count as re-seedable empties, so the dead pad slots never take a far
-    point that a live empty cluster would get."""
+    point that a live empty cluster would get. With ``mask`` absent
+    points weigh nothing in the means and are never reseed targets, so
+    a cluster of absent points only is empty."""
     a = ops.kmeans_assign(X, C, k_active).long()
     onehot = torch.nn.functional.one_hot(a, k).to(X.dtype)       # (N, K)
+    if mask is not None:
+        onehot = onehot * mask.to(X.dtype)[:, None]
     counts = onehot.sum(dim=0)                                   # (K,)
     newC = (onehot.T @ X) / torch.clamp(counts[:, None], min=1.0)
     # empty clusters -> distinct far points, farthest first; argsort is
     # stable so equal distances keep index order, as jnp.argsort does
     diff = X - C[a]
     d = torch.sum(diff * diff, dim=1)
+    if mask is not None:
+        d = torch.where(mask.bool(), d, -torch.inf)
     far_order = torch.argsort(-d, stable=True)
     empty = counts == 0
     if k_active is not None:
@@ -83,12 +110,13 @@ def lloyd_step(X, C, k: int, k_active=None) -> torch.Tensor:
 
 
 def kmeans(X, k: int, iters: int = 20, *, generator: torch.Generator = None,
-           init_idx=None, u=None, k_active=None):
+           init_idx=None, u=None, k_active=None, mask=None):
     """Returns (centroids (k, F), assignments (N,) int32). The seeding
     takes ``init_idx`` or ``u`` (see :func:`kmeans_pp_init`). With
     ``k_active`` the assignments lie in ``[0, k_active)`` and centroid
-    rows ``>= k_active`` are dead pad."""
-    C = kmeans_pp_init(X, k, generator=generator, init_idx=init_idx, u=u)
+    rows ``>= k_active`` are dead pad. With ``mask`` every point is
+    assigned and only present points seed, move and reseed centroids."""
+    C = kmeans_pp_init(X, k, generator=generator, init_idx=init_idx, u=u, mask=mask)
     for _ in range(iters):
-        C = lloyd_step(X, C, k, k_active)
+        C = lloyd_step(X, C, k, k_active, mask)
     return C, ops.kmeans_assign(X, C, k_active)

@@ -5,7 +5,8 @@ clinic x grade sample counts of the paper's Table I (3,657 images,
 14 clinics, 5 severity grades) rendered as class-conditional synthetic
 fundus images, split 80/10/10 per clinic (§IV.A). For the same seed
 and table it yields bitwise the arrays the reference yields, so both
-packages train on the same clinics.
+packages train on the same clinics. :func:`bucket_clients` (the size
+buckets of the ragged layout) is copied too.
 """
 from __future__ import annotations
 
@@ -61,6 +62,50 @@ def scale_table(data_scale: int, table: np.ndarray = None,
             "(rare grades over-represented vs the paper's Table I)",
             RuntimeWarning, stacklevel=2)
     return np.maximum(scaled, nonzero.astype(np.int64) * min_count)
+
+
+def bucket_clients(sizes, max_buckets: int = 4, strategy: str = "pow2"):
+    """Group client indices into at most ``max_buckets`` size buckets,
+    the host-side half of the ragged swarm layout
+    (:class:`repro_torch.core.engine.BucketedSwarmData`): each bucket's
+    clients are padded only to the bucket's own maximum instead of the
+    global maximum.
+
+    * ``strategy="pow2"``: clients grouped by the next power of two
+      above their size; when that yields more than ``max_buckets``
+      groups, adjacent (in ceiling order) groups merge greedily by
+      least added pad rows.
+    * ``strategy="quantile"``: clients sorted by size and split into
+      ``max_buckets`` equal-count groups.
+
+    Returns a list of int64 index arrays (ascending client ids within a
+    bucket; buckets ordered by ascending size ceiling) that partition
+    ``range(len(sizes))``. Deterministic in its inputs.
+    """
+    sizes = np.asarray(sizes, np.int64)
+    if sizes.ndim != 1 or len(sizes) == 0:
+        raise ValueError("sizes must be a non-empty 1-D sequence")
+    if max_buckets < 1:
+        raise ValueError(f"max_buckets must be >= 1, got {max_buckets}")
+    if strategy == "pow2":
+        ceil = 2 ** np.ceil(np.log2(np.maximum(sizes, 1))).astype(np.int64)
+        groups = [np.flatnonzero(ceil == c) for c in np.unique(ceil)]
+        # merge adjacent groups (ascending ceilings) until <= max_buckets,
+        # each time the pair whose merge adds the fewest pad rows (every
+        # client of the smaller group pads up to the larger group's max)
+        while len(groups) > max_buckets:
+            costs = [len(groups[i]) * (int(sizes[groups[i + 1]].max())
+                                       - int(sizes[groups[i]].max()))
+                     for i in range(len(groups) - 1)]
+            i = int(np.argmin(costs))
+            groups[i:i + 2] = [np.sort(np.concatenate(groups[i:i + 2]))]
+        return groups
+    if strategy == "quantile":
+        order = np.argsort(sizes, kind="stable")
+        parts = np.array_split(order, min(max_buckets, len(sizes)))
+        return [np.sort(p) for p in parts if len(p)]
+    raise ValueError(f"unknown bucket strategy {strategy!r} "
+                     "(one of 'pow2', 'quantile')")
 
 
 def _render_image(rng: np.random.Generator, grade: int, clinic: int,

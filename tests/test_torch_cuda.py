@@ -526,3 +526,81 @@ def test_flash_attention_bf16_unaligned_strided_bsh_stages_with_plain_loads(cuda
     expect = ref.attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                            causal=True, window=90).transpose(1, 2)
     torch.testing.assert_close(got.float(), expect.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_param_stats_over_bucket_stacks_of_split_rows(cuda):
+    """K1 over each bucket stack of the bucketed layout (quarter Table I
+    at 16 px, rows of 768-148,000 elements, the long ones split over
+    CTAs): one launch a bucket, K1's tolerance against the plain
+    version."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import engine
+    from repro_torch.data.dr import make_dr_swarm_data, scale_table
+
+    clients = make_dr_swarm_data(image_size=16, seed=0, table=scale_table(4))
+    data = engine.make_bucketed_swarm_data(get_config("squeezenet-dr"), clients, device=cuda)
+    split = 0
+    for tr in data.train:
+        x = tr["images"].reshape(tr["images"].shape[0], -1)
+        split += k_stats.slices(x.shape[1]) > 1
+        before = k_stats.param_stats_leaves.launches
+        m, v = k_stats.param_stats_batched(x)
+        assert k_stats.param_stats_leaves.launches == before + 1
+        rm, rv = ref.param_stats_batched(x)
+        _assert_stats_close(torch.stack([m, v], 1), torch.stack([rm, rv], 1))
+    assert split, "no bucket row split over CTAs"
+
+
+@pytest.mark.cuda
+def test_churn_round_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """One churn grid round (dropout 0.4, stale decay 0.5) on the card
+    and on the CPU from one state and one set of draws: presence,
+    staleness, assignments and centers equal, params within 1e-4 (5% of
+    one adam step at lr 2e-3; adam eps 1e-6), every absent client's
+    params and optimizer state on the card bitwise as they were; 21 K2
+    launches, all with k_active."""
+    from repro_torch.configs import OptimizerConfig, get_config
+    from repro_torch.core import engine
+    from repro_torch.data.dr import make_dr_swarm_data, scale_table
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    clients = make_dr_swarm_data(image_size=16, seed=0, table=scale_table(4))
+    model = build_model(get_config("squeezenet-dr"))
+    cfg = engine.EngineConfig(model=model,
+                              opt=make_optimizer(OptimizerConfig(name="adam", lr=2e-3, eps=1e-6)),
+                              local_steps=2, batch_size=8, lr=2e-3, n_clusters=3, kmeans_iters=20)
+    n = len(clients)
+    cpu = torch.device("cpu")
+    data = {d: engine.make_swarm_data(model.cfg, clients, device=d) for d in (cuda, cpu)}
+    gen = torch.Generator().manual_seed(3)
+    draws = engine.draw_round(gen, data[cpu].train_n, cfg)._replace(
+        churn_u=engine.draw_churn(gen, n, cpu))
+    s_card = engine.make_swarm_state(model, cfg.opt, clients, 0, device=cuda)
+    s_card = s_card._replace(staleness=torch.arange(n, device=cuda, dtype=torch.int32) % 3)
+    s_cpu = s_card._replace(params=tree_map(lambda t: t.cpu(), s_card.params),
+                            opt_state=tree_map(lambda t: t.cpu(), s_card.opt_state),
+                            generator=torch.Generator(), n_samples=s_card.n_samples.cpu(),
+                            staleness=s_card.staleness.cpu(), churn_generator=None)
+    rows = {d: engine.grid_point(cfg, n, dropout=0.4, stale_decay=0.5, device=d)
+            for d in (cuda, cpu)}
+    before = k_assign.kmeans_assign.k_active_launches
+    new_card, m_card = engine.swarm_round(s_card, data[cuda], cfg, rows[cuda], draws=draws)
+    assert k_assign.kmeans_assign.k_active_launches - before == cfg.kmeans_iters + 1
+    new_cpu, m_cpu = engine.swarm_round(s_cpu, data[cpu], cfg, rows[cpu], draws=draws)
+    present = m_cpu.present
+    assert 0 < int(present.sum()) < n
+    assert torch.equal(m_card.present.cpu(), present)
+    assert torch.equal(new_card.staleness.cpu(), new_cpu.staleness)
+    assert torch.equal(m_card.assignments.cpu(), m_cpu.assignments)
+    assert torch.equal(m_card.centers.cpu(), m_cpu.centers)
+    for a, b in zip(tree_leaves(new_card.params), tree_leaves(new_cpu.params)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4)
+    absent = ~m_card.present
+    for new, old in ((new_card.params, s_card.params), (new_card.opt_state, s_card.opt_state)):
+        for a, b in zip(tree_leaves(new), tree_leaves(old)):
+            assert torch.equal(a[absent], b[absent])

@@ -89,7 +89,8 @@ def _equal_trees(a, b):
 
 
 def _grid_leaves(point):
-    return list(point.method) + list(point[1:])
+    churn = [] if point.churn is None else [t for t in point.churn if t is not None]
+    return list(point.method) + list(point[1:-1]) + churn
 
 
 def _assert_runs_equal(a, b, what):
@@ -175,15 +176,28 @@ def test_grid_point_validates_with_the_references_messages(bad):
 @pytest.mark.parametrize("knob", [dict(dropout=0.0), dict(stale_decay=0.5),
                                   dict(churn_mask=np.ones(N, bool)),
                                   dict(dropout=0.1, stale_decay=0.9)])
-def test_churn_knobs_raise_naming_a9(clients, model, knob):
-    with pytest.raises(NotImplementedError, match="A9"):
-        teng.grid_point(_port_cfg(), N, **knob)
-    with pytest.raises(NotImplementedError, match="A9"):
+def test_churn_knobs_match_the_reference(clients, model, knob):
+    """A churn knob gives the row the reference's ChurnParams (every
+    field, dtype and value, through grid_point and through the bridge),
+    and run_grid_table refuses a grid that mixes churn and churn-free
+    rows with the reference's message."""
+    expect = jax.tree.map(np.asarray, jeng.grid_point(_jax_cfg(), N, **knob)._asdict())
+    row = teng.grid_point(_port_cfg(), N, **knob)
+    got = bridge.grid_point_to_numpy(row)["churn"]
+    for f, v in expect["churn"]._asdict().items():
+        if v is None:
+            assert got[f] is None, f
+            continue
+        np.testing.assert_array_equal(got[f], v, err_msg=f)
+        assert got[f].dtype == v.dtype and got[f].shape == v.shape, f
+    bridged = bridge.grid_point_from_numpy(expect)
+    assert all(torch.equal(a, b) for a, b in zip(_grid_leaves(bridged), _grid_leaves(row)))
+    with pytest.raises(ValueError) as jerr:
+        jeng.make_grid_config(_jax_cfg(), N, [{}, knob])
+    with pytest.raises(ValueError) as err:
         baselines.run_grid_table(model, clients, _swarm(rounds=1), OPT, 0,
                                  specs=[{}, knob], batch_size=BATCH, device="cpu")
-    jrow = jax.tree.map(np.asarray, jeng.grid_point(_jax_cfg(), N, **knob)._asdict())
-    with pytest.raises(NotImplementedError, match="A9"):
-        bridge.grid_point_from_numpy(jrow)
+    assert str(err.value) == str(jerr.value)
 
 
 def test_grid_row_on_another_device_is_refused(clients, model, port_data):

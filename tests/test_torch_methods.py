@@ -21,6 +21,8 @@ import numpy as np  # noqa: E402
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.configs.base import OptimizerConfig as JaxOptimizerConfig  # noqa: E402
 from repro.core import engine as jeng  # noqa: E402
+from repro.configs.base import SwarmConfig as JaxSwarmConfig  # noqa: E402
+from repro.core.baselines import make_method_setup as jax_make_method_setup  # noqa: E402
 from repro.core.baselines import train_centralized as jax_train_centralized  # noqa: E402
 from repro.core.diststats import swarm_distribution_matrix as jax_feats  # noqa: E402
 from repro.core.swarm import eval_client as jax_eval_client  # noqa: E402
@@ -336,11 +338,21 @@ def test_reset_opt_each_round_restarts_the_optimizer(clients, port_data, method)
         assert all(same) if reset else not any(same), (method, reset)
 
 
-def test_bucketed_layout_raises_naming_a9(clients):
+def test_bucketed_layout_setup_matches_the_reference(clients, jax_setup):
+    """make_method_setup(layout="bucketed") builds the reference's
+    bucketed layout: the same buckets, stacks and sampling bounds."""
     model = build_model(get_config(ARCH))
-    with pytest.raises(NotImplementedError, match="A9"):
-        baselines.make_method_setup(model, clients, SwarmConfig(local_steps=1),
-                                    OptimizerConfig(), layout="bucketed", device="cpu")
+    jcfg, _ = jax_setup
+    _, expect = jax_make_method_setup(jcfg.model, clients, JaxSwarmConfig(local_steps=1),
+                                      JaxOptimizerConfig(), layout="bucketed")
+    _, got = baselines.make_method_setup(model, clients, SwarmConfig(local_steps=1),
+                                         OptimizerConfig(), layout="bucketed", device="cpu")
+    assert isinstance(got, teng.BucketedSwarmData) and got.client_ids == expect.client_ids
+    np.testing.assert_array_equal(got.train_n.numpy(), np.asarray(expect.train_n))
+    for tt, jt, tv, jv in zip(got.train, expect.train, got.val, expect.val):
+        for k in ("images", "labels"):
+            np.testing.assert_array_equal(tt[k].numpy(), np.asarray(jt[k]))
+            np.testing.assert_array_equal(tv[k].numpy(), np.asarray(jv[k]))
 
 
 def test_eval_client_matches_reference(clients, jax_state0):

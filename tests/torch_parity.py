@@ -19,11 +19,13 @@ def jax_bso_draws(key, k: int, n: int):
     return tuple(np.array(t) for t in (r1, g, r2, g2))
 
 
-def jax_kmeans_init_idx(key, X, k: int) -> np.ndarray:
+def jax_kmeans_init_idx(key, X, k: int, mask=None) -> np.ndarray:
     """The rows of ``X`` that ``repro.core.kmeans.kmeans_pp_init`` picks
-    from ``key``: each seed centroid is a copy of one row."""
+    from ``key`` (under the participation ``mask``, if given): each seed
+    centroid is a copy of one row."""
     from repro.core.kmeans import kmeans_pp_init
-    C0 = np.asarray(kmeans_pp_init(key, jnp.asarray(X), k))
+    C0 = np.asarray(kmeans_pp_init(key, jnp.asarray(X), k,
+                                   mask=None if mask is None else jnp.asarray(mask, bool)))
     X = np.asarray(X)
     idx = [int(np.flatnonzero((X == c).all(axis=1))[0]) for c in C0]
     return np.asarray(idx, np.int64)
