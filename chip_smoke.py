@@ -17,6 +17,9 @@ exits non-zero and prints no result. It imports nothing of JAX. Phases:
    call over a round's leaves of mixed types with a split row, and on
    three replays of a CUDA graph; kmeans_assign also with its
    ``k_active`` operand at the grid's shape, (14,56) against (5,56);
+   kmeans_assign also at phase 14's shapes: the pods' (3,56) and (4,56)
+   rows against 2 centroids, the global tier's (8,56) summary rows
+   against 3, and the scaling axis' (64,56) pod against 2;
    param_stats also over each train stack of the bucketed layout of the
    full Table I at 32 px, rows up to 2.4 M elements, one launch a
    bucket), and time kernel, plain version and a PyTorch yardstick;
@@ -86,7 +89,22 @@ exits non-zero and prints no result. It imports nothing of JAX. Phases:
    with pad shares, stack bytes and round seconds printed, the first
    local-step batch equal, assignments and centers equal, params within
    1e-4, and K1 = 2 and K2 = 42 launches a layout asserted; then one
-   Table-II centralized round (``run_method``) on the bucketed layout.
+   Table-II centralized round (``run_method``) on the bucketed layout;
+14. drive the two-tier (pod) coordinator: (a) phase 3's data and
+   settings on ``hier_params(14, 4, k_local=2)`` (pods of 3, 4, 3 and 4
+   clinics), 3 rounds of ``run_rounds(hier=)`` with K1 = 3 and
+   K2 = 3 x (4 + 1) x 21 = 315 launches asserted, timed beside 3 flat
+   rounds; one pod against the flat rounds from one state, bitwise; one
+   two-tier churn round (dropout 0.4, stale decay 0.5) on the card and
+   on the CPU from one state and one set of draws, compared as phase
+   12's; (b) benchmarks/hier_bench.py's engine anchor (14 clinics of
+   ``TABLE_I // 16``, at least 2 a nonzero cell, 16 px, 4 local steps,
+   10 k-means iterations, 3 rounds), flat against 4 pods, final val
+   accuracies printed; (c) its pod-tier scaling axis (N 256, 1024,
+   4096 in pods of 64, k_local 2, F 56, 10 iterations, stats from a
+   seeded generator on the card): summary shapes, counts, host-facing
+   bytes and K2 launches asserted, the card's ``pod_summaries`` against
+   the CPU's on the same seed rows, first and steady wall printed.
 
 Any failure raises. The line before the last is one JSON object
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -175,6 +193,18 @@ CHURN_BAND_SIGMAS = 4.0
 # the bucketed layout (phase 13): 2 rounds of phase 3's settings
 BUCKET_ROUNDS = 2
 BUCKET_SEED = 0
+# the two-tier coordinator (phase 14): phase 3's settings on 4 pods, then
+# benchmarks/hier_bench.py's _engine_anchor and scaling axis
+HIER_PODS = 4
+HIER_K_LOCAL = 2
+HIER_SEED = 0
+HIER_CHURN = {"dropout": 0.4, "stale_decay": 0.5}
+HIER_ANCHOR_IMAGE = 16
+HIER_ANCHOR_LOCAL_STEPS = 4
+HIER_ANCHOR_ITERS = 10
+HIER_SCALING_NS = (256, 1024, 4096)
+HIER_POD_SIZE = 64
+HIER_SCALING_ITERS = 10
 # kernels that phase 1 holds to no stack frame and no spills
 NO_SPILL_KERNELS = ("param_stats", "kmeans_assign")
 # calls captured in one graph for the coordinator kernels' second device time
@@ -490,6 +520,35 @@ def time_param_stats(torch, leaves):
     return ms, plain_ms, lib_ms, b, by
 
 
+def _hier_assign_cases(torch, X, rand):
+    """K2's operands on phase 14's path, from the path's own (14, 56)
+    rows ``X``: each pod of ``hier_params(14, 4, k_local=2)`` ((3, 56)
+    and (4, 56)) against its two seed rows and against the means of its
+    two halves (a Lloyd step's centroids); the weighted global tier's
+    (8, 56) summary rows against 3 of them, also with coinciding rows;
+    the scaling axis' (64, 56) pod against 2 of its rows and 2 means."""
+    from repro_torch.core import engine
+
+    def halves(x):
+        h = (x.shape[0] + 1) // 2
+        return torch.stack([x[:h].mean(0), x[h:].mean(0)])
+
+    cases, summary = [], []
+    for p, idx in enumerate(engine.hier_params(14, HIER_PODS, HIER_K_LOCAL).pod_index(X.device)):
+        rows = X.index_select(0, idx).contiguous()
+        cases += [(f"pod {p} {tuple(rows.shape)} vs its seed rows", rows, rows[:2].contiguous()),
+                  (f"pod {p} {tuple(rows.shape)} vs its halves' means", rows, halves(rows))]
+        summary.append(halves(rows))
+    summary = torch.cat(summary)
+    coincide = torch.cat([summary[:4], summary[:4]])
+    cases += [("global tier (8, 56) vs 3 of its rows", summary, summary[[0, 3, 6]].contiguous()),
+              ("global tier, coinciding summary rows", coincide, coincide[[0, 4, 5]].contiguous())]
+    pod = rand(HIER_POD_SIZE, X.shape[1])
+    cases += [("scaling pod (64, 56) vs 2 of its rows", pod, pod[[5, 40]].contiguous()),
+              ("scaling pod (64, 56) vs its halves' means", pod, halves(pod))]
+    return cases
+
+
 def check_kmeans_assign(torch, dev, X, C):
     from repro_torch.kernels import kmeans_assign, ref
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -506,6 +565,7 @@ def check_kmeans_assign(torch, dev, X, C):
              ("rows equal to two centroids, each twice", torch.stack([a, b] * 20),
               torch.stack([a, b, a, b])),
              ("ties", torch.zeros((130, 4), device=dev), torch.zeros((5, 4), device=dev))]
+    cases += _hier_assign_cases(torch, X, rand)
     for name, x, c in cases:
         got = kmeans_assign.kmeans_assign(x, c)
         expect = ref.kmeans_assign(x, c)
@@ -1641,6 +1701,225 @@ def bucket_path(torch, dev, clients):
     return total, secs, pads, diff
 
 
+def _timed_rounds(torch, state, data, cfg, rounds: int, **kw):
+    """``rounds`` single rounds of ``run_rounds`` from ``state``, each
+    timed on the host clock to a device sync. Returns (state, per-round
+    metrics, seconds)."""
+    from repro_torch.core import engine
+
+    ms, secs = [], []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        state, m = engine.run_rounds(state, data, cfg, 1, **kw)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        ms.append(m)
+    return state, ms, secs
+
+
+def hier_fit(torch, dev, clients):
+    """Phase 14 (a): phase 3's data and settings on 4 pods, launch
+    counts read from the 4-pod fit alone, beside the flat fit from the
+    same state; then one pod against the flat fit, bitwise. Returns
+    (launch counts of the 4-pod fit, {"flat": s, "hier": s} round
+    seconds, the 4-pod fit's final state, the engine config, the
+    data)."""
+    from repro_torch.configs import OptimizerConfig, get_config
+    from repro_torch.core import engine
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizers import make_optimizer
+
+    model = build_model(get_config("squeezenet-dr"))
+    cfg = engine.EngineConfig(model=model,
+                              opt=make_optimizer(OptimizerConfig(name="adam", lr=2e-3)),
+                              local_steps=LOCAL_STEPS, batch_size=BATCH, lr=2e-3, n_clusters=K,
+                              p1=0.9, p2=0.8, kmeans_iters=KMEANS_ITERS)
+    data = engine.make_swarm_data(model.cfg, clients, device=dev)
+    n = len(clients)
+    hier = engine.hier_params(n, HIER_PODS, k_local=HIER_K_LOCAL)
+    assert [len(p) for p in hier.pods] == [3, 4, 3, 4], hier.pods
+    s0 = engine.make_swarm_state(model, cfg.opt, clients, HIER_SEED, device=dev)
+
+    _zero_coordinator_counts()
+    s_hier, m_hier, hier_s = _timed_rounds(torch, engine.copy_state(s0), data, cfg, ROUNDS,
+                                           hier=hier)
+    launches = _coordinator_counts()
+    want = {"param_stats_batched": ROUNDS * STATS_PASSES_PER_ROUND,
+            "kmeans_assign": ROUNDS * (HIER_PODS + 1) * (KMEANS_ITERS + 1),
+            "kmeans_assign with k_active": 0}
+    log(f"[hier] 4 pods {[len(p) for p in hier.pods]}, k_local {HIER_K_LOCAL}: launches "
+        f"{launches}, expected {want}")
+    assert launches == want, f"hier launch counts {launches} != {want}"
+    s_flat, m_flat, flat_s = _timed_rounds(torch, engine.copy_state(s0), data, cfg, ROUNDS)
+    for name, ms, secs in (("flat", m_flat, flat_s), ("hier", m_hier, hier_s)):
+        log(f"[hier] {name}: round seconds {[round(t, 4) for t in secs]}, val acc "
+            f"{[round(m.mean_val_acc.item(), 4) for m in ms]}, assignments "
+            f"{[m.assignments[0].tolist() for m in ms]}, centers "
+            f"{[m.centers[0].tolist() for m in ms]}")
+        assert all(torch.isfinite(m.train_loss).all() for m in ms), name
+        assert all(int(m.assignments.max()) < K for m in ms), name
+
+    # one pod is the flat coordinator: the same rounds from the same state
+    s_one, m_one, _ = _timed_rounds(torch, engine.copy_state(s0), data, cfg, ROUNDS,
+                                    hier=engine.hier_params(n, 1))
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(s_flat.params), _leaves(s_one.params))), \
+        "one pod's params differ from the flat rounds'"
+    for r, (a, b) in enumerate(zip(m_flat, m_one)):
+        assert torch.equal(a.assignments, b.assignments), f"round {r}: one pod's assignments"
+        assert torch.equal(a.centers, b.centers), f"round {r}: one pod's centers"
+    log(f"[hier] one pod vs flat over {ROUNDS} rounds: params, assignments and centers bitwise "
+        f"equal")
+    return launches, {"flat": flat_s, "hier": hier_s}, s_hier, cfg, data
+
+
+def card_vs_cpu_hier(torch, state, clients, data_card, cfg):
+    """Phase 14 (a): one two-tier churn round (4 pods, dropout 0.4,
+    stale decay 0.5, 2 local steps, adam at eps 1e-6) on the card and on
+    the CPU from ``state`` (staleness set to client id mod 3) and one
+    set of draws. Returns (max |param diff|, card metrics, cpu metrics,
+    new card state, new cpu state, whether every absent client's params
+    and optimizer state on the card are bitwise as they were)."""
+    from repro_torch.configs import OptimizerConfig
+    from repro_torch.core import engine
+    from repro_torch.optim.optimizers import make_optimizer
+
+    cpu = torch.device("cpu")
+    n = len(clients)
+    cfg = replace(cfg, local_steps=2,
+                  opt=make_optimizer(OptimizerConfig(name="adam", lr=2e-3, eps=1e-6)))
+    hier = engine.hier_params(n, HIER_PODS, k_local=HIER_K_LOCAL)
+    data_cpu = engine.make_swarm_data(cfg.model.cfg, clients, device=cpu)
+    gen = torch.Generator().manual_seed(17)
+    draws = engine.draw_round(gen, data_cpu.train_n, cfg, hier)._replace(
+        churn_u=engine.draw_churn(gen, n, cpu))
+    s_card = engine.copy_state(state)._replace(
+        staleness=torch.arange(n, dtype=torch.int32, device=data_card.train_n.device) % 3)
+    s_cpu = _state_on_cpu(torch, s_card)
+    churn = engine.churn_params(**HIER_CHURN)
+    new_card, m_card = engine.swarm_round(s_card, data_card, cfg, draws=draws, churn=churn,
+                                          hier=hier)
+    torch.cuda.synchronize()
+    new_cpu, m_cpu = engine.swarm_round(s_cpu, data_cpu, cfg, draws=draws, churn=churn, hier=hier)
+    absent = ~m_card.present
+    frozen = all(torch.equal(a[absent], b[absent])
+                 for new, old in ((new_card.params, s_card.params),
+                                  (new_card.opt_state, s_card.opt_state))
+                 for a, b in zip(_leaves(new), _leaves(old)))
+    diff = max((a.cpu() - b).abs().max().item()
+               for a, b in zip(_leaves(new_card.params), _leaves(new_cpu.params)))
+    return diff, m_card, m_cpu, new_card, new_cpu, frozen
+
+
+def hier_anchor(torch, dev):
+    """Phase 14 (b): benchmarks/hier_bench.py's ``_engine_anchor``, flat
+    against 4 pods of k_local 2 from one state. Returns the final mean
+    val accuracies {"flat": acc, "hier": acc} (not asserted: one seed
+    cannot rank them)."""
+    import numpy as np
+
+    from repro_torch.configs import OptimizerConfig, get_config
+    from repro_torch.core import engine
+    from repro_torch.data.dr import TABLE_I, make_dr_swarm_data
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizers import make_optimizer
+
+    n = 14
+    table = np.maximum(TABLE_I // 16, (TABLE_I > 0).astype(np.int64) * 2)[:, :n]
+    clients = make_dr_swarm_data(image_size=HIER_ANCHOR_IMAGE, seed=HIER_SEED, table=table)
+    model = build_model(get_config("squeezenet-dr"))
+    cfg = engine.EngineConfig(model=model,
+                              opt=make_optimizer(OptimizerConfig(name="adam", lr=2e-3)),
+                              local_steps=HIER_ANCHOR_LOCAL_STEPS, batch_size=BATCH, lr=2e-3,
+                              n_clusters=K, p1=0.9, p2=0.8, kmeans_iters=HIER_ANCHOR_ITERS)
+    data = engine.make_swarm_data(model.cfg, clients, device=dev)
+    s0 = engine.make_swarm_state(model, cfg.opt, clients, HIER_SEED, device=dev)
+    accs = {}
+    for name, hier in (("flat", None),
+                       ("hier", engine.hier_params(n, HIER_PODS, k_local=HIER_K_LOCAL))):
+        _, ms, secs = _timed_rounds(torch, engine.copy_state(s0), data, cfg, ROUNDS, hier=hier)
+        accs[name] = ms[-1].mean_val_acc.item()
+        assert 0.0 <= accs[name] <= 1.0, (name, accs[name])
+        log(f"[hier anchor] {name}: {sum(c['n_train'] for c in clients)} train images at "
+            f"{HIER_ANCHOR_IMAGE} px, {HIER_ANCHOR_LOCAL_STEPS} local steps: val acc "
+            f"{[round(m.mean_val_acc.item(), 4) for m in ms]}, round seconds "
+            f"{[round(t, 4) for t in secs]}")
+    log(f"[hier anchor] final val acc flat {accs['flat']:.4f}, 4 pods {accs['hier']:.4f} "
+        f"(delta {accs['hier'] - accs['flat']:+.4f}; not asserted)")
+    return accs
+
+
+def hier_scaling(torch, dev):
+    """Phase 14 (c): benchmarks/hier_bench.py's pod-tier scaling axis on
+    the card. For each N: ``pod_summaries`` over (N, 56) stats from a
+    seeded generator on the card, in pods of 64 with k_local 2 and
+    injected seed rows, then the weighted global tier over its summaries;
+    shapes, counts, host-facing bytes and K2 launches asserted; the card
+    against the CPU on the same inputs. Returns (K2 launches of the
+    counted calls, {N: (first s, steady s)})."""
+    from repro_torch.core import engine
+    from repro_torch.core.bso import draw_bso
+
+    F, kl, iters = 56, HIER_K_LOCAL, HIER_SCALING_ITERS
+    cpu = torch.device("cpu")
+    total, walls = 0, {}
+    for N in HIER_SCALING_NS:
+        P = N // HIER_POD_SIZE
+        S = P * kl
+        hier = engine.hier_params(N, P, k_local=kl)
+        gen = torch.Generator(device=dev).manual_seed(N)
+        feats = torch.randn((N, F), generator=gen, device=dev)
+        val = torch.rand((N,), generator=gen, device=dev)
+        weights = torch.ones((N,), device=dev)
+        host = torch.Generator().manual_seed(N)
+        init = torch.stack([torch.randperm(HIER_POD_SIZE, generator=host)[:kl]
+                            for _ in range(P)])
+
+        def pods_on(d):
+            return engine.pod_summaries(feats.to(d), val.to(d), weights.to(d), None, kl, iters,
+                                        hier.pod_index(d), init_idx=init)
+
+        _zero_coordinator_counts()
+        t0 = time.perf_counter()
+        out = pods_on(dev)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        k2_pods = _coordinator_counts()["kmeans_assign"]
+        t0 = time.perf_counter()
+        pods_on(dev)
+        torch.cuda.synchronize()
+        steady = time.perf_counter() - t0
+        C, counts, wsums, valsums, pc_of = out
+        assert C.shape == (S, F) and counts.shape == wsums.shape == valsums.shape == (S,)
+        assert pc_of.shape == (N,) and int(pc_of.max()) < S
+        assert counts.sum().item() == N, f"N={N}: counts sum to {counts.sum().item()}"
+        # the summaries the host coordinator would pull: comm.hier_host_bytes' arithmetic
+        host_bytes = sum(t.numel() * t.element_size() for t in (C, counts, wsums, valsums))
+        assert host_bytes == S * (F + 3) * 4, (N, host_bytes)
+        assert k2_pods == P * (iters + 1), f"N={N}: {k2_pods} pod-tier K2 launches"
+        _zero_coordinator_counts()
+        engine.global_tier(C, counts, valsums, k=K, kmeans_iters=iters, p1=0.9, p2=0.8,
+                           init_idx=torch.arange(K) * (S // K),
+                           bso=draw_bso(K, S, host, cpu))
+        torch.cuda.synchronize()
+        k2_global = _coordinator_counts()["kmeans_assign"]
+        assert k2_global == iters + 1, f"N={N}: {k2_global} global-tier K2 launches"
+        total += k2_pods + k2_global
+        ref = pods_on(cpu)
+        assert torch.equal(pc_of.cpu(), ref[4]), f"N={N}: pod assignments differ card vs CPU"
+        diff = max((a.cpu() - b).abs().max().item() for a, b in zip(out[:4], ref[:4]))
+        # atol 1e-5: fp32 sums of up to 64 members, which the card's
+        # index_add_ adds with atomics in another order
+        for name, a, b in zip(("centroids", "counts", "wsums", "valsums"), out[:4], ref[:4]):
+            torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5,
+                                       msg=lambda m, name=name: f"N={N} {name}: {m}")
+        walls[N] = (first, steady)
+        log(f"[hier scaling] N {N}: {P} pods of {HIER_POD_SIZE}, {S} summary rows, host-facing "
+            f"{host_bytes} B (flat (N, F) stats + val: {N * (F + 1) * 4} B); pod tier first "
+            f"{first:.4f} s, steady {steady:.4f} s; K2 launches {k2_pods} pod tier + {k2_global} "
+            f"global tier; card vs CPU pc_of equal, summaries max |diff| {diff:.3e}")
+    return total, walls
+
+
 def _kernel_line(name, source, replaces, launches, err, times) -> dict:
     """One entry of the ``{"kernels": [...]}`` line; ``times`` is a
     timing function's (ms, plain_ms, library_ms, bound_ms, bound_by)."""
@@ -1818,13 +2097,45 @@ def main() -> int:
     # --- phase 13: the bucketed layout on the main path's data
     b_launches, b_secs, b_pads, b_diff = bucket_path(torch, dev, clients)
 
+    # --- phase 14: the two-tier coordinator, launch counts from the 4-pod fit alone
+    t14 = [time.perf_counter()]
+    h_launches, h_secs, h_state, h_cfg, h_data = hier_fit(torch, dev, clients)
+    t14.append(time.perf_counter())
+    hdiff, hm_card, hm_cpu, hs_card, hs_cpu, h_frozen = card_vs_cpu_hier(
+        torch, h_state, clients, h_data, h_cfg)
+    log(f"[card-vs-cpu hier] 4 pods, dropout 0.4, stale decay 0.5, 2 local steps, adam eps 1e-6: "
+        f"present {hm_card.present.int().tolist()} / {hm_cpu.present.int().tolist()}, staleness "
+        f"{hs_card.staleness.tolist()} / {hs_cpu.staleness.tolist()}, assignments "
+        f"{hm_card.assignments.tolist()} / {hm_cpu.assignments.tolist()}, centers "
+        f"{hm_card.centers.tolist()} / {hm_cpu.centers.tolist()}, max |param diff| {hdiff:.3e}, "
+        f"absent clients unchanged on the card: {h_frozen}")
+    assert 0 < int(hm_cpu.present.sum()) < len(clients), "the hier round drops no client or all"
+    assert torch.equal(hm_card.present.cpu(), hm_cpu.present), "hier presence differs"
+    assert torch.equal(hs_card.staleness.cpu(), hs_cpu.staleness), "hier staleness differs"
+    assert torch.equal(hm_card.assignments.cpu(), hm_cpu.assignments), "hier assignments differ"
+    assert torch.equal(hm_card.centers.cpu(), hm_cpu.centers), "hier centers differ"
+    assert h_frozen, "an absent client's params or optimizer state moved on the card"
+    # atol 1e-4, as phase 4
+    assert hdiff <= 1e-4, f"card and CPU hier params differ by {hdiff}"
+    t14.append(time.perf_counter())
+    h_accs = hier_anchor(torch, dev)
+    t14.append(time.perf_counter())
+    h_scaling_k2, h_walls = hier_scaling(torch, dev)
+    t14.append(time.perf_counter())
+    log(f"[hier] phase 14 in {t14[-1] - t14[0]:.1f} s: fits {t14[1] - t14[0]:.1f} s, card vs "
+        f"CPU round {t14[2] - t14[1]:.1f} s, anchor {t14[3] - t14[2]:.1f} s, scaling axis "
+        f"{t14[4] - t14[3]:.1f} s")
+    h_launches = {**h_launches, "kmeans_assign": h_launches["kmeans_assign"] + h_scaling_k2}
+
     kernels = [
         _kernel_line("param_stats_batched", "param_stats", "src/repro/kernels/param_stats.py:92",
                      sum(n["param_stats_batched"]
-                         for n in (launches, g_launches, c_launches, b_launches)), k1_err, k1),
+                         for n in (launches, g_launches, c_launches, b_launches, h_launches)),
+                     k1_err, k1),
         _kernel_line("kmeans_assign", "kmeans_assign", "src/repro/kernels/kmeans_assign.py:44",
                      sum(n["kmeans_assign"]
-                         for n in (launches, g_launches, c_launches, b_launches)), k2_err, k2),
+                         for n in (launches, g_launches, c_launches, b_launches, h_launches)),
+                     k2_err, k2),
         _kernel_line("flash_decode", "flash_decode", "src/repro/kernels/flash_decode.py:93",
                      k3_launches, k3_err, k3),
         _kernel_line("flash_attention", "flash_attention",
@@ -1840,7 +2151,10 @@ def main() -> int:
         f"{[round(r['acc'], 4) for r in c_results]}; bucketed-layout round seconds {b_secs}, "
         f"pad shares {{'rect': {b_pads['rect']['train']:.4f}, 'bucketed': "
         f"{b_pads['bucketed']['train']:.4f}}}, layouts' max |param diff| {b_diff:.3e}, phase-13 "
-        f"launches {b_launches}; K1 and K2 launches in the kernels line: phases 3, 11, 12 and 13")
+        f"launches {b_launches}; two-tier round seconds {h_secs}, anchor final val acc {h_accs}, "
+        f"pod-tier walls (first, steady) {h_walls}, phase-14 launches {h_launches}; K1 and K2 "
+        f"launches in the kernels line: phases 3, 11, 12, 13 and 14 (its 4-pod fit and scaling "
+        f"axis)")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -64,13 +64,21 @@ The sampler gathers the same rows from either layout and eval drops
 only all-pad microbatches, so on the CPU a bucketed fit is bitwise the
 rectangular one.
 
-Not ported yet: the hierarchical axis (ROADMAP A10) and the fleet
-regime (A11).
+The **two-tier coordinator** (:class:`HierParams`, ROADMAP A10): the
+swarm is split into pods; each pod runs a local k-means over its
+members' stats (:func:`pod_summaries`), and the global tier runs a
+member-count-weighted k-means and the brain storm over the
+``n_pods * k_local`` pod-cluster summaries (:func:`global_tier`). A
+client's cluster is ``g[pod * k_local + a_local]``; Eq. 2 is unchanged.
+A one-pod ``HierParams`` is the flat coordinator, draws included.
+
+Not ported yet: the fleet regime (A11), whose host coordinator is the
+fleet half of the two-tier path.
 """
 from __future__ import annotations
 
 import itertools
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -194,7 +202,11 @@ class RoundDraws(NamedTuple):
     ``kmeans_u``. The coordinator's draws are read only when the round
     runs the coordinator, ``churn_u`` only on a churn row without a mask
     (a round that draws for itself takes it from the state's
-    ``churn_generator``)."""
+    ``churn_generator``). A two-tier round seeds pod p from
+    ``pod_kmeans_init_idx[p]`` or ``pod_kmeans_u[p]``, its global tier
+    from ``kmeans_init_idx`` or ``kmeans_u`` (k rows of the
+    ``P * k_local`` summaries), and its brain storm draws over those
+    summary rows."""
     batch_idx: torch.Tensor          # (local_steps, N, B) own train rows
     kmeans_init_idx: Any             # (k,) k-means++ seed rows, or None
     bso: BSODraws                    # brain-storm draws
@@ -202,6 +214,10 @@ class RoundDraws(NamedTuple):
     kmeans_u: Any = None             # (k,) uniforms of the k-means++ seeding
     churn_u: Any = None              # (N,) float32 uniforms of the churn
     #                                  Bernoulli draw (present: u >= dropout)
+    pod_kmeans_init_idx: Any = None  # (P, k_local) pod seed rows (local
+    #                                  to each pod), or None
+    pod_kmeans_u: Any = None         # (P, k_local) float64 uniforms of the
+    #                                  pods' k-means++ seeding
 
 
 class MethodParams(NamedTuple):
@@ -398,6 +414,58 @@ class EngineConfig:
     reset_opt_each_round: bool = False
 
 
+@dataclass(frozen=True)
+class HierParams:
+    """Static two-tier coordination topology. ``pods`` partitions
+    ``range(N)`` into member-id tuples; each pod clusters its members
+    into ``k_local`` pod-clusters, and the global tier clusters the
+    ``n_pods * k_local`` pod-cluster summaries. Unequal pods are fine. A
+    one-pod value routes every round to the flat coordinator verbatim.
+
+    The pods' member-id tensors are built once per device, on it
+    (:meth:`pod_index`), so a round gathers with them and never rebuilds
+    them from the tuples."""
+    pods: tuple                      # tuple[tuple[int, ...], ...]
+    k_local: int = 2                 # per-pod local cluster count
+    _index: dict = field(default_factory=dict, init=False, repr=False, compare=False,
+                         hash=False)
+
+    @property
+    def n_pods(self) -> int:
+        return len(self.pods)
+
+    def pod_index(self, device) -> tuple:
+        """The pods' member ids as int64 tensors on ``device``."""
+        device = torch.device(device)
+        if device not in self._index:
+            self._index[device] = tuple(torch.as_tensor(p, dtype=torch.int64, device=device)
+                                        for p in self.pods)
+        return self._index[device]
+
+
+def hier_params(n_clients: int, n_pods: int, k_local: int = 2, pods=None) -> HierParams:
+    """A validated :class:`HierParams`: ``n_pods`` contiguous near-equal
+    pods (split at ``linspace(0, n_clients, n_pods + 1)``), or the
+    explicit ``pods``; ``k_local`` must fit the smallest pod."""
+    if pods is None:
+        if not 1 <= n_pods <= n_clients:
+            raise ValueError(f"n_pods={n_pods} outside [1, {n_clients}]")
+        bounds = np.linspace(0, n_clients, n_pods + 1).astype(int)
+        pods = tuple(tuple(range(int(a), int(b))) for a, b in zip(bounds[:-1], bounds[1:]))
+    else:
+        pods = tuple(tuple(int(i) for i in p) for p in pods)
+    seen = sorted(i for p in pods for i in p)
+    if seen != list(range(n_clients)):
+        raise ValueError("pods must partition range(n_clients) — got "
+                         f"{len(seen)} member ids for N={n_clients}")
+    smallest = min(len(p) for p in pods)
+    if not 1 <= int(k_local) <= smallest:
+        raise ValueError(f"k_local={k_local} outside [1, {smallest}] "
+                         "(the smallest pod bounds the local cluster "
+                         "count)")
+    return HierParams(pods=pods, k_local=int(k_local))
+
+
 def resolve_local_steps(swarm: SwarmConfig, clients_data, batch_size: int) -> int:
     """Explicit ``swarm.local_steps``, else ``local_epochs`` over the
     mean clinic size."""
@@ -585,23 +653,33 @@ def draw_pool_idx(generator: torch.Generator, train_n, batch_size: int) -> torch
     return torch.minimum((u * total).long(), total - 1)
 
 
-def draw_round(generator: torch.Generator, train_n, cfg: EngineConfig) -> RoundDraws:
+def draw_round(generator: torch.Generator, train_n, cfg: EngineConfig,
+               hier: HierParams = None) -> RoundDraws:
     """Every random input of one round from ``generator``, in one fixed
     order: own rows and pooled rows of each local step, the k-means++
     uniforms, the brain-storm draws. A round takes them all whichever
     branch it runs, so the generator is at the same place after a plain
-    round and after the method row that equals it."""
+    round and after the method row that equals it. A multi-pod
+    ``hier`` round takes, after the local steps' rows, the (P, k_local)
+    pod seeding uniforms, the (k,) global seeding uniforms and the brain
+    storm's draws over the ``P * k_local`` summary rows; ``hier=None``
+    and a one-pod ``hier`` draw as the flat round."""
     steps = range(cfg.local_steps)
     N, dev = train_n.shape[0], train_n.device
     batch_idx = torch.stack([draw_batch_idx(generator, train_n, cfg.batch_size)
                              for _ in steps])
     pool_idx = torch.stack([draw_pool_idx(generator, train_n, cfg.batch_size)
                             for _ in steps])
+    pod_u = None
+    if hier is not None and hier.n_pods > 1:
+        pod_u = torch.rand((hier.n_pods, hier.k_local), generator=generator, device=dev,
+                           dtype=torch.float64)
+        N = hier.n_pods * hier.k_local
     kmeans_u = torch.rand((cfg.n_clusters,), generator=generator, device=dev,
                           dtype=torch.float64)
     return RoundDraws(batch_idx=batch_idx, kmeans_init_idx=None,
                       bso=draw_bso(cfg.n_clusters, N, generator, dev),
-                      pool_idx=pool_idx, kmeans_u=kmeans_u)
+                      pool_idx=pool_idx, kmeans_u=kmeans_u, pod_kmeans_u=pod_u)
 
 
 def draw_churn(generator: torch.Generator, n: int, device) -> torch.Tensor:
@@ -832,6 +910,127 @@ def _coordinate_and_aggregate(params, opt_state, val, n_samples, cfg: EngineConf
     return params, opt_state, assignments, centers, n_rep, n_swap
 
 
+def pod_summaries(feats, val, weights, present, k_local: int, kmeans_iters: int, pods, *,
+                  init_idx=None, u=None):
+    """The pod tier of the two-tier coordinator: a k-means over each
+    pod's members' ``feats`` rows (masked by their ``present`` slice
+    under churn), reduced to ``P * k_local`` summary rows.
+
+    ``pods`` holds each pod's member ids as int64 tensors on feats'
+    device, as :meth:`HierParams.pod_index` gives them; the loop over
+    pods runs on the host, a pod's k-means at its own size. Pod p is
+    seeded from ``init_idx[p]`` (k_local rows local to the pod) or the
+    uniforms ``u[p]``.
+
+    Returns ``(centroids (P*kl, F), counts (P*kl,), wsums (P*kl,),
+    valsums (P*kl,), pc_of (N,) int32)``: ``counts`` are present member
+    counts, ``wsums`` the sums of the members' Eq. 2 ``weights``,
+    ``valsums`` of their val scores, and ``pc_of`` maps each client,
+    absent ones too, to its summary row ``p * k_local + a_local``."""
+    if init_idx is None and u is None:
+        raise ValueError("pod_summaries needs the pods' seed rows (init_idx) or uniforms (u)")
+    N, dev = val.shape[0], val.device
+    kl = int(k_local)
+    cents = []
+    pc_of = torch.zeros((N,), dtype=torch.int32, device=dev)
+    for p, idx in enumerate(pods):
+        C_p, a_p = kmeans(feats.index_select(0, idx), kl, kmeans_iters,
+                          init_idx=None if init_idx is None else init_idx[p],
+                          u=None if u is None else u[p],
+                          mask=None if present is None else present.index_select(0, idx))
+        cents.append(C_p)
+        pc_of.index_copy_(0, idx, a_p + p * kl)
+    w = (torch.ones((N,), dtype=feats.dtype, device=dev) if present is None
+         else present.to(feats.dtype))
+    pc = pc_of.long()
+    S = len(cents) * kl
+
+    def seg_sum(x):
+        return torch.zeros((S,), dtype=feats.dtype, device=dev).index_add_(0, pc, x)
+
+    return torch.cat(cents), seg_sum(w), seg_sum(weights * w), seg_sum(val * w), pc_of
+
+
+def global_tier(centroids, counts, valsums, *, k: int, kmeans_iters: int, p1, p2,
+                init_idx=None, u=None, bso: BSODraws = None):
+    """The global tier of the two-tier coordinator, over the summary
+    rows: a k-means weighted by the member ``counts`` (seeded from
+    ``init_idx`` or ``u``), then the brain storm (draws ``bso``) ranking
+    the pod-clusters' mean val scores. An empty pod-cluster weighs 0 in
+    the k-means and scores -1.0, so it never wins a best-val center and
+    moves no client when it is swapped. Returns ``(g (S,) pod-cluster
+    -> global cluster, centers_s (k,) best summary rows or -1,
+    n_replaced, n_swapped)``."""
+    val_means = torch.where(counts > 0, valsums / torch.clamp(counts, min=1e-9), -1.0)
+    _, g0 = kmeans(centroids, k, kmeans_iters, init_idx=init_idx, u=u, weights=counts)
+    return brain_storm(g0, val_means, k, p1, p2, draws=bso)
+
+
+def _hier_coordinate_and_aggregate(params, opt_state, val, n_samples, cfg: EngineConfig,
+                                   hier: HierParams, draws: RoundDraws, present=None,
+                                   eff_w=None):
+    """The two-tier coordinator and Eq. 2 tail of :func:`swarm_round`:
+    pod tier, global tier, client assignments ``g[pc_of]``, then the
+    unchanged Eq. 2 over N segments. A center is its summary row's
+    best-val present member, or -1 for an empty row. Returns
+    ``(params, opt_state, assignments, centers, n_replaced,
+    n_swapped)``."""
+    if draws.pod_kmeans_init_idx is None and draws.pod_kmeans_u is None:
+        raise ValueError("a two-tier round needs RoundDraws.pod_kmeans_init_idx or "
+                         "pod_kmeans_u (draw_round(..., hier) draws them)")
+    if draws.kmeans_init_idx is None and draws.kmeans_u is None:
+        raise ValueError("RoundDraws needs kmeans_init_idx or kmeans_u for the coordinator")
+    N = n_samples.shape[0]
+    S = hier.n_pods * hier.k_local
+    dev = val.device
+    feats = swarm_distribution_matrix(params)
+    centroids, counts, _, valsums, pc_of = pod_summaries(
+        feats, val, n_samples if eff_w is None else eff_w, present, hier.k_local,
+        cfg.kmeans_iters, hier.pod_index(dev), init_idx=draws.pod_kmeans_init_idx,
+        u=draws.pod_kmeans_u)
+    g, centers_s, n_rep, n_swap = global_tier(
+        centroids, counts, valsums, k=cfg.n_clusters, kmeans_iters=cfg.kmeans_iters,
+        p1=cfg.p1, p2=cfg.p2, init_idx=draws.kmeans_init_idx, u=draws.kmeans_u,
+        bso=draws.bso)
+    pc = pc_of.long()
+    assignments = g[pc]
+    member = pc[None, :] == torch.arange(S, device=dev)[:, None]   # (S, N)
+    if present is not None:
+        member = member & present[None, :]
+    score = torch.where(member, val[None, :], -torch.inf)
+    rep = torch.where(member.any(dim=1), torch.argmax(score, dim=1).int(), -1)
+    centers = torch.where(centers_s >= 0, rep[torch.clamp(centers_s, 0, S - 1).long()], -1)
+    params, opt_state = _aggregate(cfg, params, opt_state, assignments, n_samples, N,
+                                   present, eff_w)
+    return params, opt_state, assignments, centers, n_rep, n_swap
+
+
+def _check_hier(hier: HierParams, masks, cfg: EngineConfig, N: int):
+    """The reference's refusals of a two-tier round; returns the
+    ``hier`` the round runs, None for one pod (the flat coordinator)."""
+    if masks is not None:
+        raise ValueError(
+            "hier composes with the plain path only — the "
+            "method/grid axes mask against the flat coordinator's "
+            "assignments; run hierarchical rows as separate "
+            "run_rounds fits")
+    if cfg.aggregation != "bso":
+        raise ValueError(
+            f"hier needs cfg.aggregation='bso' (got "
+            f"{cfg.aggregation!r}) — fedavg/none have no "
+            "coordinator to shard")
+    if hier.n_pods == 1:
+        # one pod is the whole swarm: the flat coordinator, verbatim
+        return None
+    covered = sum(len(p) for p in hier.pods)
+    if covered != N:
+        raise ValueError(f"hier pods cover {covered} clients but the swarm has {N}")
+    if cfg.n_clusters > hier.n_pods * hier.k_local:
+        raise ValueError(f"hier global tier needs n_clusters={cfg.n_clusters} <= "
+                         f"n_pods*k_local={hier.n_pods * hier.k_local} summary rows")
+    return hier
+
+
 def _check_grid_device(grid: GridPoint, dev) -> None:
     """A grid row's tensors must live on the swarm's device: the round
     reads them there and never on the host."""
@@ -881,7 +1080,8 @@ def _churn_presence(state: SwarmState, churn: ChurnParams, draws, N: int, dev):
 
 
 def swarm_round(state: SwarmState, data, cfg: EngineConfig, method=None,
-                draws: RoundDraws = None, steps: int = None, churn: ChurnParams = None):
+                draws: RoundDraws = None, steps: int = None, churn: ChurnParams = None,
+                hier: HierParams = None):
     """One full BSO-SL round: local steps, eval, distribution upload,
     k-means, brain storm, Eq. 2 aggregation. ``data`` is a
     :class:`SwarmData` or a :class:`BucketedSwarmData`.
@@ -906,7 +1106,13 @@ def swarm_round(state: SwarmState, data, cfg: EngineConfig, method=None,
     ``steps`` (a grid row only) computes just the first ``steps`` local
     steps, so the row applies ``min(local_steps, steps)`` of them; at
     ``steps == local_steps`` (see :func:`run_grid`) the result is the
-    masked path's."""
+    masked path's.
+
+    ``hier`` (a :class:`HierParams`) puts the plain bso round on the
+    two-tier coordinator (see :func:`_hier_coordinate_and_aggregate`);
+    it composes with ``churn`` and either data layout, and refuses a
+    method or grid row and any other aggregation. One pod is the flat
+    round, bitwise."""
     if cfg.aggregation not in ("bso", "fedavg", "none"):
         raise ValueError(f"unknown aggregation {cfg.aggregation!r} "
                          "(one of 'bso', 'fedavg', 'none')")
@@ -921,11 +1127,13 @@ def swarm_round(state: SwarmState, data, cfg: EngineConfig, method=None,
             churn = grid.churn
     elif steps is not None:
         raise ValueError("steps= applies to a GridPoint row only")
+    if hier is not None:
+        hier = _check_hier(hier, masks, cfg, N)
     present = staleness = eff_w = None
     if churn is not None:
         present, staleness, eff_w = _churn_presence(state, churn, draws, N, dev)
     if draws is None:
-        draws = draw_round(state.generator, data.train_n, cfg)
+        draws = draw_round(state.generator, data.train_n, cfg, hier)
 
     # --- local phase (a grid row applies only its first local_steps; an
     # absent client none)
@@ -954,6 +1162,9 @@ def swarm_round(state: SwarmState, data, cfg: EngineConfig, method=None,
     if masks is not None:
         params, opt_state, assignments, centers, n_rep, n_swap = _coordinate_and_aggregate(
             params, opt_state, val, state.n_samples, cfg, masks, draws, grid, present, eff_w)
+    elif hier is not None:
+        params, opt_state, assignments, centers, n_rep, n_swap = _hier_coordinate_and_aggregate(
+            params, opt_state, val, state.n_samples, cfg, hier, draws, present, eff_w)
     elif cfg.aggregation == "none":
         assignments = torch.zeros((N,), dtype=torch.int32, device=dev)
         centers = torch.zeros((0,), dtype=torch.int32, device=dev)
@@ -986,11 +1197,13 @@ def _stack_metrics(ms) -> RoundMetrics:
 
 
 def run_rounds(state: SwarmState, data, cfg: EngineConfig, rounds: int,
-               method=None, steps: int = None, churn: ChurnParams = None):
+               method=None, steps: int = None, churn: ChurnParams = None,
+               hier: HierParams = None):
     """``rounds`` calls of :func:`swarm_round` (on the method or grid row
     ``method``, if given; ``steps`` as there); metrics gain a leading
     (rounds,) axis. ``churn`` (or the grid row's own) goes to every
-    round; a (rounds, N) mask schedule gives round r its row r."""
+    round; a (rounds, N) mask schedule gives round r its row r. ``hier``
+    puts every round on the two-tier coordinator."""
     if churn is None and isinstance(method, GridPoint):
         churn = method.churn
     schedule = None
@@ -1004,7 +1217,7 @@ def run_rounds(state: SwarmState, data, cfg: EngineConfig, rounds: int,
     for r in range(rounds):
         if schedule is not None:
             churn = churn._replace(mask=schedule[r])
-        state, m = swarm_round(state, data, cfg, method, steps=steps, churn=churn)
+        state, m = swarm_round(state, data, cfg, method, steps=steps, churn=churn, hier=hier)
         ms.append(m)
     return state, _stack_metrics(ms)
 

@@ -604,3 +604,130 @@ def test_churn_round_on_the_card_matches_the_cpu(cuda, monkeypatch):
     for new, old in ((new_card.params, s_card.params), (new_card.opt_state, s_card.opt_state)):
         for a, b in zip(tree_leaves(new), tree_leaves(old)):
             assert torch.equal(a[absent], b[absent])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,K", [(1, 2), (2, 2), (3, 2), (4, 2), (31, 2), (64, 2), (8, 3),
+                                 (512, 3)])
+def test_kmeans_assign_at_the_pod_shapes_matches_plain_on_the_card(cuda, N, K):
+    """The two-tier coordinator's shapes at F = 56: pods of 1-4 and 64
+    members against k_local = 2 centroids (fewer rows than a CTA's
+    warps, and than a warp's lanes), summary rows against k = 3; rows
+    that are copies of a centroid tie to the first copy."""
+    gen = torch.Generator(device=cuda).manual_seed(100 + N)
+    X = torch.randn((N, 56), generator=gen, device=cuda)
+    C = torch.randn((K, 56), generator=gen, device=cuda)
+    assert torch.equal(k_assign.kmeans_assign(X, C), ref.kmeans_assign(X, C))
+    C = torch.cat([X[:1], X[:1], C[2:]]).contiguous()
+    got = k_assign.kmeans_assign(X, C)
+    assert torch.equal(got, ref.kmeans_assign(X, C)) and int(got[0]) == 0
+
+
+def _summary_inputs(dev, N=256, F=56, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn((N, F), generator=gen, device=dev),
+            torch.rand((N,), generator=gen, device=dev),
+            torch.rand((N,), generator=gen, device=dev) > 0.3)
+
+
+@pytest.mark.cuda
+def test_two_tier_coordinator_on_the_card_matches_the_cpu(cuda):
+    """pod_summaries (4 pods of 64, k_local 2, masked by a presence
+    vector) and the weighted global tier on the card against the CPU on
+    the same inputs and seed rows: pc_of and g equal, summaries and the
+    weighted centroids within 1e-5; K2
+    launches P*(iters+1) for the pod tier and iters+1 for the global
+    one."""
+    from repro_torch.core import engine, kmeans
+    from repro_torch.core.bso import draw_bso
+
+    iters, kl, k = 10, 2, 3
+    hier = engine.hier_params(256, 4, kl)
+    feats, val, present = _summary_inputs(cuda)
+    gen = torch.Generator().manual_seed(1)
+    init = torch.stack([torch.randperm(64, generator=gen)[:kl] for _ in range(4)])
+
+    def pods_on(dev):
+        args = [t.to(dev) for t in (feats, val, torch.ones(256), present)]
+        return engine.pod_summaries(*args, kl, iters, hier.pod_index(dev), init_idx=init)
+
+    before = k_assign.kmeans_assign.launches
+    card = pods_on(cuda)
+    assert k_assign.kmeans_assign.launches - before == 4 * (iters + 1)
+    cpu = pods_on(torch.device("cpu"))
+    assert torch.equal(card[4].cpu(), cpu[4])
+    # atol 1e-5: sums of up to 64 members, added on the card with atomics
+    # in another order
+    for a, b in zip(card[:4], cpu[:4]):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5)
+    assert float(card[1].sum()) == float(present.sum())
+    # the weighted global tier over the card's summaries, on both devices
+    C, counts, valsums = card[0], card[1], card[3]
+    g_init = torch.tensor([0, 3, 6])
+    bso = draw_bso(k, C.shape[0], gen, torch.device("cpu"))
+    before = k_assign.kmeans_assign.launches
+    g_card = engine.global_tier(C, counts, valsums, k=k, kmeans_iters=iters, p1=0.9, p2=0.8,
+                                init_idx=g_init, bso=bso)
+    assert k_assign.kmeans_assign.launches - before == iters + 1
+    g_cpu = engine.global_tier(C.cpu(), counts.cpu(), valsums.cpu(), k=k, kmeans_iters=iters,
+                               p1=0.9, p2=0.8, init_idx=g_init, bso=bso)
+    for a, b in zip(g_card, g_cpu):
+        assert torch.equal(a.cpu(), b)
+    Cw_card, _ = kmeans.kmeans(C, k, iters, init_idx=g_init, weights=counts)
+    Cw_cpu, _ = kmeans.kmeans(C.cpu(), k, iters, init_idx=g_init, weights=counts.cpu())
+    torch.testing.assert_close(Cw_card.cpu(), Cw_cpu, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_hier_churn_round_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """One two-tier churn round (14 clients in 4 pods, k_local 2,
+    dropout 0.4, stale decay 0.5) on the card and on the CPU from one
+    state and one set of draws: presence, staleness, assignments and
+    centers equal, params within 1e-4 (adam eps 1e-6, as the churn
+    round's), absent clients' params bitwise as they were; 1 K1 and
+    5 x 21 K2 launches on the card."""
+    from repro_torch.configs import OptimizerConfig, get_config
+    from repro_torch.core import engine
+    from repro_torch.data.dr import make_dr_swarm_data, scale_table
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    clients = make_dr_swarm_data(image_size=16, seed=0, table=scale_table(4))
+    model = build_model(get_config("squeezenet-dr"))
+    cfg = engine.EngineConfig(model=model,
+                              opt=make_optimizer(OptimizerConfig(name="adam", lr=2e-3, eps=1e-6)),
+                              local_steps=2, batch_size=8, lr=2e-3, n_clusters=3, kmeans_iters=20)
+    n = len(clients)
+    hier = engine.hier_params(n, 4, k_local=2)
+    cpu = torch.device("cpu")
+    data = {d: engine.make_swarm_data(model.cfg, clients, device=d) for d in (cuda, cpu)}
+    gen = torch.Generator().manual_seed(3)
+    draws = engine.draw_round(gen, data[cpu].train_n, cfg, hier)._replace(
+        churn_u=engine.draw_churn(gen, n, cpu))
+    s_card = engine.make_swarm_state(model, cfg.opt, clients, 0, device=cuda)
+    s_card = s_card._replace(staleness=torch.arange(n, device=cuda, dtype=torch.int32) % 3)
+    s_cpu = s_card._replace(params=tree_map(lambda t: t.cpu(), s_card.params),
+                            opt_state=tree_map(lambda t: t.cpu(), s_card.opt_state),
+                            generator=torch.Generator(), n_samples=s_card.n_samples.cpu(),
+                            staleness=s_card.staleness.cpu(), churn_generator=None)
+    churn = engine.churn_params(dropout=0.4, stale_decay=0.5)
+    before = (k_stats.param_stats_leaves.launches, k_assign.kmeans_assign.launches)
+    new_card, m_card = engine.swarm_round(s_card, data[cuda], cfg, draws=draws, churn=churn,
+                                          hier=hier)
+    assert (k_stats.param_stats_leaves.launches - before[0],
+            k_assign.kmeans_assign.launches - before[1]) == (1, 5 * (cfg.kmeans_iters + 1))
+    new_cpu, m_cpu = engine.swarm_round(s_cpu, data[cpu], cfg, draws=draws, churn=churn,
+                                        hier=hier)
+    assert 0 < int(m_cpu.present.sum()) < n
+    assert torch.equal(m_card.present.cpu(), m_cpu.present)
+    assert torch.equal(new_card.staleness.cpu(), new_cpu.staleness)
+    assert torch.equal(m_card.assignments.cpu(), m_cpu.assignments)
+    assert torch.equal(m_card.centers.cpu(), m_cpu.centers)
+    for a, b in zip(tree_leaves(new_card.params), tree_leaves(new_cpu.params)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4)
+    absent = ~m_card.present
+    for a, b in zip(tree_leaves(new_card.params), tree_leaves(s_card.params)):
+        assert torch.equal(a[absent], b[absent])

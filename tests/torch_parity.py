@@ -1,6 +1,8 @@
 """Shared helpers of the port's parity tests (``test_torch_*.py``): the
 reference's random draws, rebuilt from its JAX keys exactly as the
 reference derives them, handed to the port as plain arrays."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,13 +21,73 @@ def jax_bso_draws(key, k: int, n: int):
     return tuple(np.array(t) for t in (r1, g, r2, g2))
 
 
-def jax_kmeans_init_idx(key, X, k: int, mask=None) -> np.ndarray:
+def jax_kmeans_init_idx(key, X, k: int, mask=None, weights=None) -> np.ndarray:
     """The rows of ``X`` that ``repro.core.kmeans.kmeans_pp_init`` picks
-    from ``key`` (under the participation ``mask``, if given): each seed
-    centroid is a copy of one row."""
+    from ``key`` (under the participation ``mask`` and the point
+    ``weights``, if given): each seed centroid is a copy of one row.
+    Without weights a seed is the first equal row. With weights it is
+    looked up among the eligible rows only (positive weight, present),
+    and the match must be unique: summary rows can coincide, and a
+    zero-weight copy of an eligible row must not be taken for it."""
     from repro.core.kmeans import kmeans_pp_init
     C0 = np.asarray(kmeans_pp_init(key, jnp.asarray(X), k,
-                                   mask=None if mask is None else jnp.asarray(mask, bool)))
+                                   mask=None if mask is None else jnp.asarray(mask, bool),
+                                   weights=None if weights is None else jnp.asarray(weights)))
     X = np.asarray(X)
-    idx = [int(np.flatnonzero((X == c).all(axis=1))[0]) for c in C0]
+    if weights is None:
+        idx = [int(np.flatnonzero((X == c).all(axis=1))[0]) for c in C0]
+        return np.asarray(idx, np.int64)
+    eligible = np.asarray(weights) > 0
+    if mask is not None:
+        eligible &= np.asarray(mask, bool)
+    idx = []
+    for c in C0:
+        hits = np.flatnonzero((X == c).all(axis=1) & eligible)
+        assert len(hits) == 1, f"seed row matches {len(hits)} eligible rows"
+        idx.append(int(hits[0]))
     return np.asarray(idx, np.int64)
+
+
+@functools.lru_cache(maxsize=None)
+def _jit_pod_summaries():
+    from repro.core.engine import pod_summaries
+    return jax.jit(pod_summaries, static_argnums=(4, 5, 7))
+
+
+def jax_pod_summaries(feats, val, weights, present, k_local: int, kmeans_iters: int, key, pods):
+    """The reference's ``engine.pod_summaries``, jitted once per static
+    (k_local, kmeans_iters, pods), as its round runs it."""
+    return _jit_pod_summaries()(feats, val, weights, present, k_local, kmeans_iters, key, pods)
+
+
+def jax_hier_keys(k_kmeans, n_pods: int):
+    """(pod keys, global key) as the reference's two-tier coordinator
+    derives them from the round's k-means key
+    (``engine._hier_coordinate_and_aggregate``): ``k_pods, k_global =
+    split(k_kmeans)``, and pod p seeds from ``fold_in(k_pods, p)``."""
+    k_pods, k_global = jax.random.split(k_kmeans)
+    return [jax.random.fold_in(k_pods, p) for p in range(n_pods)], k_global
+
+
+def jax_hier_draws(k_kmeans, k_bso, feats, present, pods, k_local: int, k: int,
+                   kmeans_iters: int):
+    """The reference's two-tier round draws, as the port's ``RoundDraws``
+    takes them: ``(pod seed rows (P, k_local), local to each pod;
+    global seed rows (k,) among the P * k_local summary rows; brain-storm
+    draws over those rows from k_bso)``. The global seed rows are found
+    in the reference's own summaries (``pod_summaries`` from the same
+    pod key, its weights the member counts); ``feats`` are the round's
+    (N, F) stats after the local phase."""
+    feats = np.asarray(feats)
+    pod_keys, k_global = jax_hier_keys(k_kmeans, len(pods))
+    pod_idx = np.stack([
+        jax_kmeans_init_idx(pod_keys[p], feats[list(ids)], k_local,
+                            mask=None if present is None else np.asarray(present)[list(ids)])
+        for p, ids in enumerate(pods)])
+    n = feats.shape[0]
+    C, counts, _, _, _ = jax_pod_summaries(
+        jnp.asarray(feats), jnp.zeros((n,)), jnp.ones((n,)),
+        None if present is None else jnp.asarray(present, bool), k_local, kmeans_iters,
+        jax.random.split(k_kmeans)[0], pods)
+    g_idx = jax_kmeans_init_idx(k_global, C, k, weights=counts)
+    return pod_idx, g_idx, jax_bso_draws(k_bso, k, len(pods) * k_local)
