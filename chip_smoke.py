@@ -22,7 +22,11 @@ exits non-zero and prints no result. It imports nothing of JAX. Phases:
    against 3, and the scaling axis' (64,56) pod against 2;
    param_stats also over each train stack of the bucketed layout of the
    full Table I at 32 px, rows up to 2.4 M elements, one launch a
-   bucket), and time kernel, plain version and a PyTorch yardstick;
+   bucket; both over phase 15's first LM uploads, K1 also against
+   float64 ``torch.var_mean`` and K2 at (6,22)x(2,22) and (6,222)x(2,222)
+   from their features), and time kernel, plain version and a PyTorch
+   yardstick (K1 also at both LM uploads: 5.34 GB in one launch, 2.8 GB
+   in two);
 3. drive the main path: ``SwarmTrainer`` on squeezenet-dr at full width
    on the full Table I (3,657 images at 32 px, 14 clinics), adam at lr
    2e-3, batch 8, 12 local steps, k=3, p1=0.9, p2=0.8, 20 k-means
@@ -104,7 +108,27 @@ exits non-zero and prints no result. It imports nothing of JAX. Phases:
    4096 in pods of 64, k_local 2, F 56, 10 iterations, stats from a
    seeded generator on the card): summary shapes, counts, host-facing
    bytes and K2 launches asserted, the card's ``pod_summaries`` against
-   the CPU's on the same seed rows, first and steady wall printed.
+   the CPU's on the same seed rows, first and steady wall printed;
+15. drive the swarm over an LM (tests/test_system.py's
+   test_swarm_is_model_agnostic_lm settings: 6 token clients of 12
+   sequences of 32, k 2, adam lr 2e-3, batch 4, 4 local steps): (a)
+   granite-3-2b at full width cut to 2 layers (11 leaves, 222.3 M
+   params a client), 2 rounds with K1 = 2 and K2 = 42 launches
+   asserted, round seconds and peak device memory printed, then one
+   profiled round; (b) launch/train.py's 100m preset uncut (111 leaves,
+   F 222), 1 round with K1 = 2 and K2 = 21; (c) one round of granite's
+   smoke config on the card and on the CPU from one state and one set of
+   draws, compared as phase 4's. The token ids lie below 8,192 (see
+   ``LM_DATA_VOCAB``);
+16. train -> checkpoint -> serve: (a) phase 15 (a)'s client-stacked
+   params saved with the fleet export's extras, restored bitwise,
+   loaded by ``serve.load_checkpoint`` (``"mean"`` and ``"client:0"``,
+   bitwise the in-memory reductions) and served through the engine with
+   the flash_decode launches of the drain asserted, the tokens equal to
+   those served from the in-memory params; (b)
+   ``repro_torch.launch.train.main`` in single mode on the 100m preset,
+   30 steps with a checkpoint: the loss falls, the checkpoint restores
+   bitwise, tok/s end to end and the step alone printed.
 
 Any failure raises. The line before the last is one JSON object
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -205,6 +229,35 @@ HIER_ANCHOR_ITERS = 10
 HIER_SCALING_NS = (256, 1024, 4096)
 HIER_POD_SIZE = 64
 HIER_SCALING_ITERS = 10
+# the swarm over an LM (phase 15): tests/test_system.py's
+# test_swarm_is_model_agnostic_lm settings on (a) granite-3-2b at full
+# width cut to LM_LAYERS layers, (b) launch/train.py's 100m preset uncut,
+# (c) granite's smoke config, card against CPU
+LM_ARCH = "granite-3-2b"
+LM_LAYERS = 2
+LM_CLIENTS = 6
+LM_CLUSTERS = 2
+LM_ROUNDS = 2
+LM_PRESET = "100m"
+LM_PRESET_ROUNDS = 1
+LM_LOCAL_STEPS = 4
+LM_BATCH = 4
+LM_LR = 2e-3
+LM_SEQS = 12
+LM_SEQ_LEN = 32
+# the fits' token ids lie below the 100m preset's vocab: the generator
+# (data/tokens.py) builds a dense (vocab, vocab) float64 transition
+# matrix a client, 19.3 GB at granite's 49,155; granite keeps its full
+# 49,155-row embedding and read-out
+LM_DATA_VOCAB = 8192
+# train -> checkpoint -> serve (phase 16)
+LM_PROMPT_LENS = (5, 9, 14, 20)
+LM_NEW_TOKENS = 16
+LM_SERVE_SEQ = 64
+TRAIN_STEPS = 30
+TRAIN_BATCH = 8
+TRAIN_SEQ = 256
+TRAIN_TIMED_STEPS = 10
 # kernels that phase 1 holds to no stack frame and no spills
 NO_SPILL_KERNELS = ("param_stats", "kmeans_assign")
 # calls captured in one graph for the coordinator kernels' second device time
@@ -243,7 +296,7 @@ def cuda_ms(torch, fn, reps: int = 100, trials: int = 7) -> float:
     return statistics.median(times)
 
 
-def graph_ms(torch, fn, calls: int = 1) -> float:
+def graph_ms(torch, fn, calls: int = 1, reps: int = 100) -> float:
     """Device time of ``fn``'s launches alone: ``calls`` calls of ``fn``
     captured in a CUDA graph, the replay timed as :func:`cuda_ms` times a
     call, over ``calls``. The host's per-call cost (Python, allocation,
@@ -259,7 +312,7 @@ def graph_ms(torch, fn, calls: int = 1) -> float:
     with torch.cuda.graph(graph):
         for _ in range(calls):
             fn()
-    return cuda_ms(torch, graph.replay) / calls
+    return cuda_ms(torch, graph.replay, reps=reps) / calls
 
 
 def launch_floor_ms(torch, dev) -> float:
@@ -784,9 +837,11 @@ def profile_round(torch, tr) -> None:
         log(f"[profile] {line}")
 
 
-def card_vs_cpu(torch, tr, clients, local_steps: int, eps: float):
+def card_vs_cpu(torch, tr, clients, local_steps: int, eps: float, batch: int = BATCH,
+                k: int = K):
     """One round on the card and on the CPU from the trainer's state and
-    the same draws. Returns (max |param diff|, card metrics, cpu metrics)."""
+    the same draws (``batch`` rows a client a step, ``k`` seed rows).
+    Returns (max |param diff|, card metrics, cpu metrics)."""
     from dataclasses import replace
 
     from repro_torch.core import engine
@@ -799,10 +854,10 @@ def card_vs_cpu(torch, tr, clients, local_steps: int, eps: float):
     data_cpu = engine.make_swarm_data(tr.cfg, clients, device=cpu)
     n = len(clients)
     draws = engine.RoundDraws(
-        batch_idx=torch.stack([engine.draw_batch_idx(gen, data_cpu.train_n, BATCH)
+        batch_idx=torch.stack([engine.draw_batch_idx(gen, data_cpu.train_n, batch)
                                for _ in range(local_steps)]),
-        kmeans_init_idx=torch.randperm(n, generator=gen)[:K],
-        bso=draw_bso(K, n, gen, cpu))
+        kmeans_init_idx=torch.randperm(n, generator=gen)[:k],
+        bso=draw_bso(k, n, gen, cpu))
     cfg = replace(tr.engine_cfg, local_steps=local_steps,
                   opt=make_optimizer(OptimizerConfig(name="adam", lr=2e-3, eps=eps)))
     s_card = engine.copy_state(tr.state)
@@ -1920,6 +1975,312 @@ def hier_scaling(torch, dev):
     return total, walls
 
 
+# ---------------------------------------------------------- phases 15, 16
+
+
+def lm_stacks(torch, dev):
+    """The two LM fits' client stacks as their first round uploads them:
+    ``LM_CLIENTS`` models from one generator seeded 0, as
+    ``make_swarm_state`` builds them. Returns {name: (cfg, stacked)}."""
+    from repro_torch.models import build_model
+    from repro_torch.utils.tree import tree_stack
+    out = {}
+    for name, cfg in (("granite", _lm_config()), ("100m", _preset_config())):
+        model = build_model(cfg)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        out[name] = (cfg, tree_stack([model.init(gen) for _ in range(LM_CLIENTS)]))
+    return out
+
+
+def _lm_config():
+    """granite-3-2b as registered, cut to ``LM_LAYERS`` layers."""
+    from repro_torch.configs import get_config
+    return replace(get_config(LM_ARCH), n_layers=LM_LAYERS)
+
+
+def _preset_config():
+    from repro_torch.launch.train import preset_config
+    return preset_config(LM_PRESET)
+
+
+def check_lm_coordinator(torch, dev, stacks):
+    """K1 and K2 at the LM path's shapes (phase 2). K1 over each fit's
+    leaves as one call against the plain version at K1's tolerance and
+    against float64 ``torch.var_mean`` (the largest gaps printed: the
+    mean's over the row's std, the var's relative); K2 at (6, F) against
+    (2, F) from the fit's features (two of its rows, then the means of
+    its halves), ids equal. Returns the max abs error of K1 and the
+    features of each fit."""
+    from repro_torch.core.diststats import swarm_distribution_matrix
+    from repro_torch.kernels import kmeans_assign, param_stats, ref
+    err, feats = 0.0, {}
+    for name, (cfg, stacked) in stacks.items():
+        leaves = [x.contiguous() for x in _leaves(stacked)]
+        rows = max(x[0].numel() for x in leaves)
+        before = param_stats.param_stats_leaves.launches
+        got = param_stats.param_stats_leaves(leaves)
+        expect = ref.param_stats_leaves(leaves)
+        torch.cuda.synchronize()
+        n_launch = param_stats.param_stats_leaves.launches - before
+        assert n_launch == math.ceil(len(leaves) / param_stats.MAX_LEAVES), \
+            f"{name}: {n_launch} K1 launches for {len(leaves)} leaves"
+        _assert_stats_close(torch, got, expect, f"LM {name}")
+        err = max(err, (got - expect).abs().max().item())
+        mean_gap = var_gap = 0.0
+        for t, x in enumerate(leaves):
+            v64, m64 = torch.var_mean(x.view(x.shape[0], -1).double(), 1, correction=0)
+            g = got[:, t].double()
+            mean_gap = max(mean_gap, ((g[:, 0] - m64).abs() / v64.sqrt().clamp_min(1e-30))
+                           .max().item())
+            live = v64 > 0
+            if live.any():
+                var_gap = max(var_gap, ((g[live, 1] - v64[live]).abs() / v64[live]).max().item())
+        log(f"[kernels] param_stats_leaves over the {name} fit's {len(leaves)} leaves x "
+            f"{LM_CLIENTS} clients ({sum(x.numel() for x in leaves):,} elements, the longest row "
+            f"{rows:,} = {param_stats.slices(rows)} CTAs): {n_launch} launch(es), max abs err "
+            f"against the plain version {(got - expect).abs().max().item():.3e}; against float64 "
+            f"var_mean: mean gap {mean_gap:.3e} of the row's std, var gap {var_gap:.3e} relative")
+        X = swarm_distribution_matrix(stacked)
+        feats[name] = X
+        F = X.shape[1]
+        cents = [X[[0, 3]].contiguous(), torch.stack([X[:3].mean(0), X[3:].mean(0)])]
+        for C in cents:
+            ids, expect_ids = kmeans_assign.kmeans_assign(X, C), ref.kmeans_assign(X, C)
+            torch.cuda.synchronize()
+            assert torch.equal(ids, expect_ids), f"kmeans_assign ({LM_CLIENTS},{F}): {ids} vs " \
+                f"{expect_ids}"
+        log(f"[kernels] kmeans_assign ({LM_CLIENTS},{F})x(2,{F}) from the {name} fit's features "
+            f"({'rows streamed through the lanes' if F > 128 else 'rows in registers'}): ids "
+            f"equal to the plain version against two seed rows and two half means")
+    return err, feats
+
+
+def time_lm_param_stats(torch, name, leaves):
+    """K1 at an LM fit's upload: the wrapper, the device alone (a graph
+    of one call), a call of a graph of ``GRAPH_CALLS``, the plain
+    version and one ``torch.var_mean`` a leaf, beside the bound."""
+    from repro_torch.kernels import param_stats, ref
+
+    def kernel():
+        param_stats.param_stats_leaves(leaves)
+
+    def library():
+        for x in leaves:
+            torch.var_mean(x.view(x.shape[0], -1), 1, correction=0)
+
+    ms = cuda_ms(torch, kernel, reps=10, trials=5)
+    plain_ms = cuda_ms(torch, lambda: ref.param_stats_leaves(leaves), reps=5, trials=3)
+    lib_ms = cuda_ms(torch, library, reps=10, trials=5)
+    one = graph_ms(torch, kernel, reps=10)
+    many = graph_ms(torch, kernel, GRAPH_CALLS, reps=3)
+    n_el = sum(x.numel() for x in leaves)
+    n_bytes = sum(x.numel() * x.element_size() + 2 * x.shape[0] * 4 for x in leaves)
+    b, by = bound_ms(n_bytes, 4 * n_el)
+    launches = math.ceil(len(leaves) / param_stats.MAX_LEAVES)
+    log(f"[kernels] param_stats_leaves at the {name} upload ({len(leaves)} leaves, {launches} "
+        f"launch(es), {n_bytes / 1e9:.3f} GB): wrapper {ms:.4f} ms, device alone {one:.4f} ms, "
+        f"a call of a graph of {GRAPH_CALLS} {many:.4f} ms, bound {b:.4f} ms ({by}; "
+        f"{n_bytes / (many * 1e-3) / 1e12:.2f} TB/s achieved); plain {plain_ms:.4f} ms; "
+        f"var_mean x {len(leaves)} {lib_ms:.4f} ms")
+    return ms, one, many, plain_ms, lib_ms, b, by
+
+
+def lm_clients(vocab: int):
+    from repro_torch.data.tokens import make_token_swarm_data
+    t0 = time.perf_counter()
+    clients = make_token_swarm_data(LM_CLIENTS, vocab, n_seqs=LM_SEQS, seq_len=LM_SEQ_LEN)
+    log(f"[lm] token data: {LM_CLIENTS} clients x {LM_SEQS} train seqs of {LM_SEQ_LEN}, vocab "
+        f"{vocab}, made in {time.perf_counter() - t0:.2f} s")
+    return clients
+
+
+def lm_trainer(dev, cfg, clients, rounds: int):
+    """A ``SwarmTrainer`` over the LM ``cfg`` at
+    test_swarm_is_model_agnostic_lm's settings, seed 0."""
+    from repro_torch.configs import OptimizerConfig, SwarmConfig
+    from repro_torch.core.swarm import SwarmTrainer
+    from repro_torch.models import build_model
+
+    swarm = SwarmConfig(n_clients=LM_CLIENTS, n_clusters=LM_CLUSTERS, rounds=rounds,
+                        local_steps=LM_LOCAL_STEPS, kmeans_iters=KMEANS_ITERS)
+    return SwarmTrainer(build_model(cfg), clients, swarm, OptimizerConfig(name="adam", lr=LM_LR),
+                        seed=0, batch_size=LM_BATCH, device=dev)
+
+
+def lm_fit(torch, dev, cfg, clients, rounds: int, label: str):
+    """Phase 15 (a) / (b): ``SwarmTrainer`` over the LM ``cfg`` at
+    test_swarm_is_model_agnostic_lm's settings for ``rounds`` rounds,
+    with the coordinator's launch counts read from these rounds alone
+    (1 K1 pass a round, a launch for every ``MAX_LEAVES`` leaves, and
+    ``KMEANS_ITERS + 1`` K2 assigns). Returns (trainer, launches, round
+    seconds, peak device bytes)."""
+    torch.cuda.reset_peak_memory_stats()
+    tr = lm_trainer(dev, cfg, clients, rounds)
+    model = tr.model
+    n_leaves = len(_leaves(tr.params))
+    log(f"[lm {label}] {cfg.arch_id}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{model.param_count(tr.params) // LM_CLIENTS:,} params and {n_leaves} leaves a client "
+        f"(F = {2 * n_leaves}), {LM_CLIENTS} clients, activations {cfg.dtype}")
+    _zero_coordinator_counts()
+    round_s = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        lg = tr.round()
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - t0)
+        log(f"[lm {label}] round {lg.round}: {round_s[-1]:.3f} s  val_acc={lg.mean_val_acc:.4f} "
+            f"loss={lg.train_loss:.4f} assignments={lg.assignments.tolist()} "
+            f"centers={lg.centers.tolist()} events={lg.events}")
+        assert math.isfinite(lg.train_loss), "LM train loss is not finite"
+        assert set(lg.assignments.tolist()) <= set(range(LM_CLUSTERS)), "assignment out of range"
+        assert 0.0 <= lg.mean_val_acc <= 1.0, "LM val accuracy outside [0, 1]"
+    launches = _coordinator_counts()
+    want = {**_grid_want(1, rounds, n_leaves), "kmeans_assign with k_active": 0}
+    log(f"[lm {label}] launches {launches}, expected {want}")
+    assert launches == want, f"LM launch counts {launches} != {want}"
+    test_acc = tr.mean_accuracy("test")
+    assert 0.0 <= test_acc <= 1.0, f"LM test accuracy {test_acc}"
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[lm {label}] Eq. 3 test token accuracy {test_acc:.4f}; round seconds "
+        f"{[round(s, 4) for s in round_s]}; peak device memory {peak / 1e9:.2f} GB")
+    return tr, launches, round_s, peak
+
+
+def lm_checkpoint_serve(torch, dev, tr, clients):
+    """Phase 16 (a): phase 15 (a)'s client-stacked params saved with the
+    extras the reference's fleet export writes, restored bitwise, loaded
+    with ``client="mean"`` and ``"client:0"`` (bitwise the in-memory
+    reductions), and served through the engine; the tokens equal those
+    served from ``reduce_clients`` of the in-memory params. Returns
+    (flash_decode launches of the drain, {size, save_s, load_s})."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch import serve
+    from repro_torch.checkpoint import restore_into, save_checkpoint
+    from repro_torch.kernels import flash_decode
+    from repro_torch.serve import BucketSpec
+    from repro_torch.serve.api import stacked_example
+    from repro_torch.utils.tree import tree_map, tree_paths_and_leaves
+
+    params, model = tr.params, tr.model
+    weights = tr.state.n_samples.cpu().tolist()
+    extra = {"model_config": dataclasses.asdict(model.cfg), "n_clients": len(weights),
+             "client_weights": weights}
+    info = {}
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "lm_swarm"
+        t0 = time.perf_counter()
+        save_checkpoint(path, params, step=tr.state.round, extra=extra)
+        info["save_s"] = time.perf_counter() - t0
+        info["size"] = path.with_suffix(".npz").stat().st_size
+        t0 = time.perf_counter()
+        restored, step = restore_into(stacked_example(model, len(weights)), path, device=dev)
+        torch.cuda.synchronize()
+        info["load_s"] = time.perf_counter() - t0
+        assert step == tr.state.round, f"checkpoint step {step}"
+        for (p, a), (_, b) in zip(tree_paths_and_leaves(restored), tree_paths_and_leaves(params)):
+            assert a.dtype == b.dtype and torch.equal(a, b), f"restored leaf {p} differs"
+        del restored
+        m_mean, p_mean = serve.load_checkpoint(path, device=dev)
+        m_0, p_0 = serve.load_checkpoint(path, client="client:0", device=dev)
+    log(f"[ckpt] {len(_leaves(params))} leaves x {len(weights)} clients: {info['size'] / 1e9:.3f} "
+        f"GB of npz, saved in {info['save_s']:.2f} s, restored to the card in "
+        f"{info['load_s']:.2f} s, every leaf bitwise the saved one")
+    assert m_mean is model and m_0 is model, "load_checkpoint rebuilt another model"
+    expect_mean = serve.reduce_clients(params, weights, "mean")
+    for (p, a), (_, b) in zip(tree_paths_and_leaves(p_mean), tree_paths_and_leaves(expect_mean)):
+        assert torch.equal(a, b), f"load_checkpoint mean leaf {p} differs"
+    for (p, a), (_, b) in zip(tree_paths_and_leaves(p_0),
+                              tree_paths_and_leaves(tree_map(lambda t: t[0], params))):
+        assert torch.equal(a, b), f"load_checkpoint client:0 leaf {p} differs"
+
+    test_toks = clients[0]["test"][0]
+    prompts = [test_toks[i % len(test_toks), :n] for i, n in enumerate(LM_PROMPT_LENS)]
+    kw = dict(max_new_tokens=LM_NEW_TOKENS, buckets=(BucketSpec(len(prompts), LM_SERVE_SEQ),),
+              device=dev)
+    flash_decode.flash_decode.launches = 0
+    res, eng = serve.generate(m_mean, p_mean, prompts, return_engine=True, **kw)
+    torch.cuda.synchronize()
+    k3 = flash_decode.flash_decode.launches
+    want = model.cfg.n_layers * eng.n_decode_calls * DECODE_LAUNCHES_PER_CALL
+    log(f"[ckpt] served {len(prompts)} prompts of {list(LM_PROMPT_LENS)} tokens from the "
+        f"restored mean model: {eng.n_decode_calls} decode calls, flash_decode launches {k3}, "
+        f"expected {want}; tokens of request 0: {res[0].tokens}")
+    assert k3 == want > 0, f"flash_decode launches {k3} != {want}"
+    mem = serve.generate(model, expect_mean, prompts, **kw)
+    assert [r.tokens for r in res] == [r.tokens for r in mem], \
+        "the restored model serves other tokens than the in-memory one"
+    res0 = serve.generate(m_0, p_0, prompts, **kw)
+    mem0 = serve.generate(model, tree_map(lambda t: t[0], params), prompts, **kw)
+    assert [r.tokens for r in res0] == [r.tokens for r in mem0], "client:0 serves other tokens"
+    log("[ckpt] tokens equal to those served from the in-memory params (mean and client:0)")
+    return k3, info
+
+
+def train_single_path(torch):
+    """Phase 16 (b): ``repro_torch.launch.train``'s ``main`` in single
+    mode on the ``LM_PRESET`` preset for ``TRAIN_STEPS`` steps with a
+    checkpoint, on the card; the loss falls and the checkpoint restores
+    bitwise; then the train step alone, timed on one batch. Returns (ce
+    of each step, wall seconds, tok/s end to end, seconds a step
+    alone)."""
+    import tempfile
+
+    from repro_torch.checkpoint import restore_into
+    from repro_torch.configs import OptimizerConfig
+    from repro_torch.data.tokens import make_lm_batches
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train.steps import make_train_step
+    from repro_torch.utils.tree import tree_map, tree_paths_and_leaves
+
+    with tempfile.TemporaryDirectory() as d:
+        ckpt = str(Path(d) / "single")
+        argv = ["--mode", "single", "--preset", LM_PRESET, "--steps", str(TRAIN_STEPS),
+                "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--ckpt", ckpt]
+        log(f"[train] python -m repro_torch.launch.train {' '.join(argv[:-1])} <tmp>")
+        t0 = time.perf_counter()
+        params, ces = train.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        restored, step = restore_into(tree_map(torch.empty_like, params), ckpt)
+    assert step == TRAIN_STEPS, f"checkpoint step {step}"
+    for (p, a), (_, b) in zip(tree_paths_and_leaves(restored), tree_paths_and_leaves(params)):
+        assert torch.equal(a, b), f"single-model checkpoint leaf {p} differs"
+    assert all(math.isfinite(c) for c in ces), f"non-finite ce {ces}"
+    assert ces[-1] < ces[0], f"the loss did not fall: {ces[0]} -> {ces[-1]}"
+    tok_s = TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ / wall
+    log(f"[train] {LM_PRESET}: ce {ces[0]:.4f} at step 0 -> {ces[-1]:.4f} at step "
+        f"{TRAIN_STEPS - 1}; {wall:.2f} s for {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens with the checkpoint, {tok_s:,.0f} tok/s end to end; checkpoint restored bitwise")
+    # the train step alone: make_lm_batches rebuilds its (vocab, vocab)
+    # float64 transition matrix for every batch, as the reference's does
+    model = build_model(train.preset_config(LM_PRESET))
+    opt = make_optimizer(OptimizerConfig(name="adamw", lr=1e-3))
+    step = make_train_step(model, opt)
+    t0 = time.perf_counter()
+    batch = {k: torch.as_tensor(v, device=params["final_norm"]["scale"].device)
+             for k, v in next(make_lm_batches(model.cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, 1))
+             .items()}
+    batch_s = time.perf_counter() - t0
+    state = opt.init(params)
+    for _ in range(2):
+        params, state, _m = step(params, state, batch, 1e-4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_TIMED_STEPS):
+        params, state, _m = step(params, state, batch, 1e-4)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / TRAIN_TIMED_STEPS
+    log(f"[train] the step alone: {step_s * 1e3:.1f} ms a step "
+        f"({TRAIN_BATCH * TRAIN_SEQ / step_s:,.0f} tok/s, mean of {TRAIN_TIMED_STEPS} steps on "
+        f"one batch); one make_lm_batches batch takes {batch_s:.2f} s on the host")
+    return ces, wall, tok_s, step_s
+
+
 def _kernel_line(name, source, replaces, launches, err, times) -> dict:
     """One entry of the ``{"kernels": [...]}`` line; ``times`` is a
     timing function's (ms, plain_ms, library_ms, bound_ms, bound_by)."""
@@ -1992,6 +2353,19 @@ def main() -> int:
         f"wrapper): {cuda_ms(torch, lambda: swarm_distribution_matrix(stacked)):.4f} ms a call")
     log(f"[kernels] kmeans_assign (14,56)x(3,56): kernel {k2[0]:.4f} ms, plain {k2[1]:.4f} ms, "
         f"cdist+argmin {k2[2]:.4f} ms, bound {k2[3]:.7f} ms ({k2[4]})")
+    # the LM path's shapes (phase 15): both fits' first uploads
+    lm = lm_stacks(torch, dev)
+    k1_lm_err, lm_feats = check_lm_coordinator(torch, dev, lm)
+    k1_err = max(k1_err, k1_lm_err)
+    X = lm_feats["100m"]
+    k2_lm = time_kmeans_assign(torch, X, X[[0, 3]].contiguous())
+    log(f"[kernels] kmeans_assign ({LM_CLIENTS},{X.shape[1]})x(2,{X.shape[1]}), the 100m fit's "
+        f"shape: kernel {k2_lm[0]:.4f} ms, plain {k2_lm[1]:.4f} ms, cdist+argmin "
+        f"{k2_lm[2]:.4f} ms, bound {k2_lm[3]:.7f} ms ({k2_lm[4]})")
+    for lm_name, (_, lm_stack) in lm.items():
+        time_lm_param_stats(torch, lm_name, [x.contiguous() for x in _leaves(lm_stack)])
+    del lm, lm_stack
+    torch.cuda.empty_cache()
 
     # --- phase 3: the main path, with launch counts from this run alone
     tr, launches, round_s = main_path(torch, clients, dev)
@@ -2126,18 +2500,59 @@ def main() -> int:
         f"CPU round {t14[2] - t14[1]:.1f} s, anchor {t14[3] - t14[2]:.1f} s, scaling axis "
         f"{t14[4] - t14[3]:.1f} s")
     h_launches = {**h_launches, "kmeans_assign": h_launches["kmeans_assign"] + h_scaling_k2}
+    torch.cuda.empty_cache()
+
+    # --- phase 15: the swarm over an LM, launch counts from each fit alone
+    from repro_torch.data.tokens import make_token_swarm_data
+    t15 = time.perf_counter()
+    lm_cfg = _lm_config()
+    assert LM_DATA_VOCAB <= min(lm_cfg.vocab_size, _preset_config().vocab_size)
+    log(f"reduced: n_layers {get_config(LM_ARCH).n_layers} → {LM_LAYERS}")
+    log(f"reduced: token data vocab {lm_cfg.vocab_size} → {LM_DATA_VOCAB} (the model keeps its "
+        f"{lm_cfg.vocab_size}-row embedding and read-out)")
+    lm_data = lm_clients(LM_DATA_VOCAB)
+    tr_a, la, la_secs, la_peak = lm_fit(torch, dev, lm_cfg, lm_data, LM_ROUNDS, "a")
+    profile_round(torch, tr_a)
+    tr_b, lb, lb_secs, lb_peak = lm_fit(torch, dev, _preset_config(), lm_data, LM_PRESET_ROUNDS,
+                                        "b")
+    del tr_b
+    torch.cuda.empty_cache()
+    smoke_cfg = get_config(LM_ARCH).smoke()
+    smoke_data = make_token_swarm_data(LM_CLIENTS, smoke_cfg.vocab_size, n_seqs=LM_SEQS,
+                                       seq_len=LM_SEQ_LEN)
+    ldiff, lm_card, lm_cpu = card_vs_cpu(torch, lm_trainer(dev, smoke_cfg, smoke_data, 1),
+                                         smoke_data, local_steps=2, eps=1e-6, batch=LM_BATCH,
+                                         k=LM_CLUSTERS)
+    log(f"[card-vs-cpu lm] {smoke_cfg.arch_id}, 2 local steps, adam eps 1e-6: assignments "
+        f"{lm_card.assignments.tolist()} / {lm_cpu.assignments.tolist()}, centers "
+        f"{lm_card.centers.tolist()} / {lm_cpu.centers.tolist()}, max |param diff| {ldiff:.3e}, "
+        f"max |val acc diff| {(lm_card.val_acc.cpu() - lm_cpu.val_acc).abs().max().item():.3e}")
+    assert torch.equal(lm_card.assignments.cpu(), lm_cpu.assignments), "LM assignments differ"
+    assert torch.equal(lm_card.centers.cpu(), lm_cpu.centers), "LM centers differ"
+    # atol 1e-4, as phase 4
+    assert ldiff <= 1e-4, f"card and CPU LM params differ by {ldiff}"
+    t16 = time.perf_counter()
+
+    # --- phase 16: train -> checkpoint -> serve, K3 launches from the drain alone
+    k3_lm, ck = lm_checkpoint_serve(torch, dev, tr_a, lm_data)
+    del tr_a
+    torch.cuda.empty_cache()
+    ces, train_wall, train_tok_s, train_step_s = train_single_path(torch)
+    log(f"[lm] phase 15 in {t16 - t15:.1f} s, phase 16 in {time.perf_counter() - t16:.1f} s")
 
     kernels = [
         _kernel_line("param_stats_batched", "param_stats", "src/repro/kernels/param_stats.py:92",
                      sum(n["param_stats_batched"]
-                         for n in (launches, g_launches, c_launches, b_launches, h_launches)),
+                         for n in (launches, g_launches, c_launches, b_launches, h_launches,
+                                   la, lb)),
                      k1_err, k1),
         _kernel_line("kmeans_assign", "kmeans_assign", "src/repro/kernels/kmeans_assign.py:44",
                      sum(n["kmeans_assign"]
-                         for n in (launches, g_launches, c_launches, b_launches, h_launches)),
+                         for n in (launches, g_launches, c_launches, b_launches, h_launches,
+                                   la, lb)),
                      k2_err, k2),
         _kernel_line("flash_decode", "flash_decode", "src/repro/kernels/flash_decode.py:93",
-                     k3_launches, k3_err, k3),
+                     k3_launches + k3_lm, k3_err, k3),
         _kernel_line("flash_attention", "flash_attention",
                      "src/repro/kernels/flash_attention.py:89", k4_launches, k4_err, k4),
     ]
@@ -2152,9 +2567,14 @@ def main() -> int:
         f"pad shares {{'rect': {b_pads['rect']['train']:.4f}, 'bucketed': "
         f"{b_pads['bucketed']['train']:.4f}}}, layouts' max |param diff| {b_diff:.3e}, phase-13 "
         f"launches {b_launches}; two-tier round seconds {h_secs}, anchor final val acc {h_accs}, "
-        f"pod-tier walls (first, steady) {h_walls}, phase-14 launches {h_launches}; K1 and K2 "
-        f"launches in the kernels line: phases 3, 11, 12, 13 and 14 (its 4-pod fit and scaling "
-        f"axis)")
+        f"pod-tier walls (first, steady) {h_walls}, phase-14 launches {h_launches}; LM swarm "
+        f"round seconds (a) {la_secs}, (b) {lb_secs}, peak device memory (a) "
+        f"{la_peak / 1e9:.2f} GB, (b) {lb_peak / 1e9:.2f} GB, phase-15 launches (a) {la}, (b) "
+        f"{lb}; checkpoint {ck['size'] / 1e9:.3f} GB, saved in {ck['save_s']:.2f} s, restored in "
+        f"{ck['load_s']:.2f} s; single-model train ce {ces[0]:.4f} -> {ces[-1]:.4f}, "
+        f"{train_tok_s:,.0f} tok/s end to end, {train_step_s * 1e3:.1f} ms a step alone; K1 "
+        f"and K2 launches in the kernels line: phases 3, 11, 12, "
+        f"13, 14 (its 4-pod fit and scaling axis) and 15; K3: phases 6 and 16")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -6,7 +6,9 @@ reference's key names and layouts (HWIO conv weights, the LM's stacked
 ``(L, ...)`` layers and its ``(B, S, KV, hd)`` KV cache included), so a
 round trip is the identity and the per-tensor statistics columns line
 up. The Table-II method rows, the grid rows (with their churn rows) and
-method-stacked states cross the same way.
+method-stacked states cross the same way, and so does an LM swarm's
+state (client-stacked LM trees in either layout, through
+:func:`state_from_numpy`; its ``RoundDraws`` are the CNN round's).
 """
 from __future__ import annotations
 

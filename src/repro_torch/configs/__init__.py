@@ -1,5 +1,6 @@
 """Arch registry. Importing this package registers the paper's DR CNNs
-and the dense LM that the serve path runs (granite-3-2b)."""
+and the reference's four dense LMs (granite-3-2b, command-r-35b,
+deepseek-7b, deepseek-67b); the other families are not ported yet."""
 from repro_torch.configs.base import (  # noqa: F401
     REGISTRY,
     ModelConfig,
@@ -8,4 +9,5 @@ from repro_torch.configs.base import (  # noqa: F401
     get_config,
     register,
 )
-from repro_torch.configs import granite_3_2b, paper_cnns  # noqa: F401
+from repro_torch.configs import (command_r_35b, deepseek_7b, deepseek_67b,  # noqa: F401
+                                 granite_3_2b, paper_cnns)

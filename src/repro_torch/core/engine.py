@@ -117,7 +117,8 @@ class SwarmState(NamedTuple):
 class SwarmData(NamedTuple):
     """Device-resident, fixed-shape swarm dataset.
 
-    train:   {"images": (N, n_max, H, W, 3), "labels": (N, n_max)};
+    train:   {"images": (N, n_max, H, W, 3), "labels": (N, n_max)}, or an
+             LM's {"tokens", "labels": (N, n_max, seq)};
              clients shorter than n_max are padded with label -1 rows,
              which the sampler never draws.
     train_n: (N,) int64 true train-set sizes, the sampling bound.
@@ -479,9 +480,10 @@ def resolve_local_steps(swarm: SwarmConfig, clients_data, batch_size: int) -> in
 
 
 def make_batch(cfg: ModelConfig, X, y, device) -> dict:
-    if cfg.family != "cnn":
-        raise NotImplementedError(f"only the cnn family is ported (got {cfg.family!r})")
-    return {"images": torch.as_tensor(X, device=device),
+    """``{"images", "labels"}`` for the cnn family, else ``{"tokens",
+    "labels"}`` (an LM's (n, seq) token ids and next-token labels)."""
+    key = "images" if cfg.family == "cnn" else "tokens"
+    return {key: torch.as_tensor(X, device=device),
             "labels": torch.as_tensor(y, device=device)}
 
 
@@ -815,7 +817,8 @@ def local_phase(step, params, opt_state, lr, batches, n_active=None, present=Non
 def make_client_eval(model: Model):
     """Per-client masked accuracy over stacked (N, n_batches, batch, ...)
     eval data: one vmapped eval per microbatch, adding acc * valid so a
-    padded microbatch counts only its real rows."""
+    padded microbatch counts only its real labels (rows of a CNN batch,
+    tokens of an LM's (batch, seq) labels)."""
     veval = vmap(make_eval_step(model))
 
     def client_eval(params, batches):
@@ -824,7 +827,7 @@ def make_client_eval(model: Model):
         for j in range(n_batches):
             bt = {k: v[:, j] for k, v in batches.items()}
             m = veval(params, bt)
-            valid = torch.sum(bt["labels"] >= 0, dim=1).float()
+            valid = torch.sum((bt["labels"] >= 0).flatten(1), dim=1).float()
             hits = hits + m["acc"] * valid
             tot = tot + valid
         return hits / torch.clamp(tot, min=1.0)

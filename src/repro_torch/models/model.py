@@ -4,7 +4,9 @@
 functions over parameter trees, so the swarm layer can vmap them over
 a client-stacked tree with ``torch.func``. The CNN family and the
 dense decoder-only LM (with its KV cache, decode step and chunked
-prefill) are ported; the other families raise.
+prefill) are ported, and the swarm trains either through these
+functions (an LM's batches are ``{"tokens", "labels"}`` and its
+accuracy counts unmasked tokens); the other families raise.
 """
 from __future__ import annotations
 

@@ -1,19 +1,30 @@
-"""One-call servers over the engine (counterpart of ``repro.serve.api``).
+"""One-call servers over the engine, and the train-to-serve bridge
+(counterpart of ``repro.serve.api``).
 
-``reduce_clients`` collapses a swarm's client-stacked parameters to the
-single served model. The reference's ``load_checkpoint`` needs the
-checkpoint format, which is not ported yet (ROADMAP A13).
+:func:`load_checkpoint` restores a client-stacked swarm checkpoint (the
+reference's file format, :mod:`repro_torch.checkpoint`) whose manifest
+``extra`` carries ``model_config``, ``n_clients`` and ``client_weights``,
+as the reference's fleet export writes them, and :func:`reduce_clients`
+collapses its client axis to the single served model.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import dataclasses
+import json
+from pathlib import Path
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
+from repro_torch.checkpoint import restore_into
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import build_model
 from repro_torch.models.model import Model
 from repro_torch.serve.engine import ClassifyResult, ImageClassifier, ServeEngine, ServeResult
 from repro_torch.serve.scheduler import BucketSpec, Request, default_bucket_layout
+from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import tree_map
 
 
@@ -32,6 +43,41 @@ def reduce_clients(sparams, weights, client: str = "mean"):
         i = int(client.split(":", 1)[1])
         return tree_map(lambda x: x[i], sparams)
     raise ValueError(f"unknown reduction '{client}' (want 'mean' or 'client:<i>')")
+
+
+def stacked_example(model: Model, n: int):
+    """The tree of ``n`` client-stacked models on the ``meta`` device:
+    one init traced under ``FakeTensorMode`` (shapes and dtypes only, no
+    storage, no random draws), each leaf given a leading ``(n,)`` axis.
+    ``restore_into`` reads only its structure, shapes and dtypes."""
+    with FakeTensorMode():
+        one = model.init(torch.Generator().manual_seed(0))
+    return tree_map(lambda t: torch.empty((n, *t.shape), dtype=t.dtype, device="meta"), one)
+
+
+def load_checkpoint(path, *, client: str = "mean", use_pallas: Optional[bool] = None,
+                    device=None) -> Tuple[Model, object]:
+    """Restore a swarm checkpoint into ``(model, params)`` ready to serve,
+    on ``cuda`` unless ``device`` is given: rebuild the config from the
+    manifest (``build_model`` is a cache hit for an equal config), restore
+    the client stack into :func:`stacked_example`'s tree and reduce it
+    with :func:`reduce_clients` and the manifest's ``client_weights``.
+    ``use_pallas`` replaces the config's flag, which the port carries
+    and ignores."""
+    dev = resolve_device(device)
+    path = Path(path)
+    extra = json.loads(path.with_suffix(".json").read_text()).get("extra", {})
+    if "model_config" not in extra:
+        raise ValueError(f"{path}: manifest has no 'model_config' (a swarm checkpoint "
+                         "carries its ModelConfig in extra)")
+    cfg = ModelConfig(**extra["model_config"])
+    if use_pallas is not None and use_pallas != cfg.use_pallas:
+        cfg = dataclasses.replace(cfg, use_pallas=use_pallas)
+    model = build_model(cfg)
+    n = int(extra.get("n_clients", 1))
+    sparams, _step = restore_into(stacked_example(model, n), path, device=dev)
+    weights = np.asarray(extra.get("client_weights", [1.0] * n), np.float32)
+    return model, reduce_clients(sparams, weights, client)
 
 
 def make_engine(model: Model, params, *, max_seq: int = 0,

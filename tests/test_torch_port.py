@@ -56,7 +56,10 @@ def test_cnn_configs_match_reference(arch):
 
 
 def test_registry_holds_the_four_cnns_and_refuses_others():
-    assert sorted(REGISTRY) == sorted(ARCHS + ["granite-3-2b"])
+    """The four CNNs and the reference's four dense LMs; the unported
+    families' archs stay unknown."""
+    assert sorted(REGISTRY) == sorted(ARCHS + ["granite-3-2b", "command-r-35b", "deepseek-7b",
+                                               "deepseek-67b"])
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("mamba2-370m")
 
