@@ -38,15 +38,19 @@ exits non-zero and prints no result. It imports nothing of JAX. Phases:
    the card and on the CPU (the plain versions there) and compare;
 5. hold the flash_decode kernel against its plain version at the serve
    path's shapes (q (4,32,1,64) against a bf16 cache stored
-   (4,S,8,64), S 1024 and 2048, per-row positions), harder ones, and
-   one call replayed three times in a CUDA graph on new inputs, and
-   time kernel, plain version and ``scaled_dot_product_attention``;
+   (4,S,8,64), S 1024 and 2048, per-row positions), at kimi-k2's
+   (4,64,1,112), on fp8 caches under a bf16 q (granite's and kimi's
+   shapes, with and without a window), harder ones, and one call
+   replayed three times in a CUDA graph on new inputs, and time kernel,
+   plain version and ``scaled_dot_product_attention`` (on an fp8 cache:
+   the cache upcast to bf16, then SDPA) at both shapes and both caches;
 6. drive the serve path: granite-3-2b as registered (40 layers, full
    width, random weights from a seeded generator on the card) through
    ``make_engine`` with the ``ladder_2`` buckets (4x1024, 4x2048) and
    512-position prefill chunks, draining 24 requests of 32 new tokens,
-   with the flash_decode launch count read from that run alone; then
-   profile one decode tick;
+   each bucket's decode one CUDA graph (``compile_counts()`` 1/1 a
+   bucket asserted), with the flash_decode launch count read from that
+   run alone; then profile one decode tick and time the next;
 7. serve the same prompts on the card and on the CPU from the same
    weights (granite's widths cut to 2 layers so that the CPU finishes in
    time) and compare tokens and logits;
@@ -128,7 +132,18 @@ exits non-zero and prints no result. It imports nothing of JAX. Phases:
    those served from the in-memory params; (b)
    ``repro_torch.launch.train.main`` in single mode on the 100m preset,
    30 steps with a checkpoint: the loss falls, the checkpoint restores
-   bitwise, tok/s end to end and the step alone printed.
+   bitwise, tok/s end to end and the step alone printed;
+17. serve the moe family: (a) kimi-k2-1t-a32b at full width (d_model
+   7168, 64/8 heads of 112, 384 experts top-8 and a shared expert,
+   vocab 163,840, bf16) cut to 2 layers (a dense and a moe one), phase
+   6's buckets and workload through the graphed engine: 8 graph replays
+   of one bucket against an eager ``decode_step`` loop on the card from
+   the same prefilled cache (tokens equal), the drain with K3 launches
+   and 1/1 ``compile_counts()`` asserted, tok/s, TTFT, ms a decode call
+   beside the bytes it reads, peak memory, a profiled tick; (b) the same
+   model's decode logits on an fp8 cache against a bf16 one (within 0.2
+   of max |logit|, the reference's bound); (c) llama4-maverick's
+   ``smoke()`` config through the same engine, drained, 1/1.
 
 Any failure raises. The line before the last is one JSON object
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -163,6 +178,17 @@ SERVE_REQUESTS = 24
 SERVE_NEW_TOKENS = 32
 PREFILL_CHUNK = 512
 DECODE_LAUNCHES_PER_CALL = 1      # one wrapper call per layer per decode call
+
+# the moe family served (phase 17): kimi-k2 at full width cut to the
+# reference's _probe_layers minimum (src/repro/launch/dryrun.py:218), 1
+# dense and 1 moe layer, through phase 6's buckets and workload
+MOE_ARCH = "kimi-k2-1t-a32b"
+MOE_LAYERS = 2
+MOE_EAGER_TICKS = 8               # graph replays held against an eager decode loop
+MOE_FP8_STEPS = 4                 # decode steps of the fp8 cache against the bf16 one
+MOE_FP8_RTOL = 0.2                # max |logit diff| / max |logit|, tests/test_perf_variants.py:51
+MOE_SMOKE_ARCH = "llama4-maverick-400b-a17b"
+EAGER_TICK = "234.7 ms, busy 6.6-8.7% (eager decode, PERF.md §5)"
 
 # flash_attention's path (phases 8 and 9): granite-3-2b's prefill shape
 ATTN_SHAPE = (4, 32, 8, 2048, 64)  # B, H, KV, S, D
@@ -874,20 +900,24 @@ def card_vs_cpu(torch, tr, clients, local_steps: int, eps: float, batch: int = B
 
 def _decode_case(torch, dev, gen, B, H, KV, S, D, dtype, stored=True):
     """q (B,H,1,D) and k, v (B,KV,S,D); ``stored`` gives k, v as the
-    serve cache keeps them, (B,S,KV,D), seen through a transposed view."""
-    q = torch.randn((B, H, 1, D), generator=gen, device=dev).to(dtype)
+    serve cache keeps them, (B,S,KV,D), seen through a transposed view.
+    ``dtype`` is one type, or (q's, the cache's)."""
+    qdt, kvdt = dtype if isinstance(dtype, tuple) else (dtype, dtype)
+    q = torch.randn((B, H, 1, D), generator=gen, device=dev).to(qdt)
     shape = (B, S, KV, D) if stored else (B, KV, S, D)
-    k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(2))
+    k, v = (torch.randn(shape, generator=gen, device=dev).to(kvdt) for _ in range(2))
     return (q, k.transpose(1, 2), v.transpose(1, 2)) if stored else (q, k, v)
 
 
 def check_flash_decode(torch, dev):
     """K3 against its plain version. Tolerances are the reference's own
-    for its kernel against its oracle: 2e-5 in fp32, 2e-2 in bf16/fp16.
-    Returns the max abs error over the path's cases (bf16, per-row pos)."""
+    for its kernel against its oracle: 2e-5 in fp32, 2e-2 in bf16/fp16
+    (and for a bf16 q on an fp8 cache, which the plain version reads
+    upcast as the kernel does). Returns the max abs error over the path's
+    cases (bf16, per-row pos; granite's and kimi-k2's shapes)."""
     from repro_torch.kernels import flash_decode, ref
     gen = torch.Generator(device=dev).manual_seed(3)
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16, f32, fp8 = torch.bfloat16, torch.float32, torch.float8_e4m3fn
     rows = torch.randint(1, 1023, (2,), generator=gen, device=dev).tolist()
 
     def vec(*p):
@@ -909,6 +939,19 @@ def check_flash_decode(torch, dev):
         ("G=1 bf16", (2, 8, 8, 512, 64), bf16, vec(0, 300), 0, False),
         ("fp16 D=128", (1, 8, 2, 1024, 128), torch.float16, 1023, 0, False),
         ("D=32 G=2", (2, 4, 2, 96, 32), f32, vec(0, 37), 0, False),
+        # kimi-k2's decode shape (phase 17): head_dim 112, G 8
+        ("path kimi S=1024", (4, 64, 8, 1024, 112), bf16, vec(0, 1023, *rows), 0, True),
+        ("path kimi S=2048", (4, 64, 8, 2048, 112), bf16, vec(2047, 0, *[2 * r for r in rows]),
+         0, True),
+        ("kimi fp32 window 300", (4, 64, 8, 2048, 112), f32, vec(2047, 5, 900, 299), 300, True),
+        # an fp8 cache under a bf16 q, at granite's and kimi's shapes
+        ("fp8 granite S=2048", (4, 32, 8, 2048, 64), (bf16, fp8), vec(2047, 0, *rows), 0, True),
+        ("fp8 granite window 256", (4, 32, 8, 2048, 64), (bf16, fp8), vec(2047, 3, 700, 255),
+         256, True),
+        ("fp8 kimi S=2048", (4, 64, 8, 2048, 112), (bf16, fp8), vec(2047, 1535, 1023, 511), 0,
+         True),
+        ("fp8 kimi window 256", (4, 64, 8, 2048, 112), (bf16, fp8), vec(2047, 3, 700, 255), 256,
+         True),
     ]
     path_err = 0.0
     for name, (B, H, KV, S, D), dtype, pos, window, stored in cases:
@@ -959,15 +1002,19 @@ def check_flash_decode_graph(torch, dev, gen):
             f"{(out.float() - expect.float()).abs().max().item():.3e} (tol 0.02)")
 
 
-def time_flash_decode(torch, dev):
-    """K3 at the larger serve bucket: q (4,32,1,64) against a bf16 cache
-    stored (4,2048,8,64), rows at 2047, 1535, 1023 and 511."""
+def time_flash_decode(torch, dev, H: int = 32, D: int = 64, cache=None, label: str = "granite"):
+    """K3 at the larger serve bucket: q (4,H,1,D) bf16 against a cache
+    stored (4,2048,8,D) in ``cache``'s dtype (bf16 unless given), rows at
+    2047, 1535, 1023 and 511. The library call is SDPA on the bf16 cache;
+    on an fp8 cache, the cache upcast to bf16 and then SDPA (twice the
+    cache's bytes read, and a bf16 copy written)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_decode, ref
     gen = torch.Generator(device=dev).manual_seed(4)
-    B, H, KV, S, D = 4, 32, 8, 2048, 64
-    q, k, v = _decode_case(torch, dev, gen, B, H, KV, S, D, torch.bfloat16)
+    B, KV, S = 4, 8, 2048
+    cache = cache or torch.bfloat16
+    q, k, v = _decode_case(torch, dev, gen, B, H, KV, S, D, (torch.bfloat16, cache))
     pos = torch.tensor([2047, 1535, 1023, 511], dtype=torch.int32, device=dev)
     mask = torch.arange(S, device=dev)[None, None, None, :] <= pos[:, None, None, None]
 
@@ -978,26 +1025,29 @@ def time_flash_decode(torch, dev):
         ref.decode_attention(q, k, v, pos)
 
     def library():
-        F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+        return F.scaled_dot_product_attention(q, k.to(q.dtype), v.to(q.dtype), attn_mask=mask,
+                                              enable_gqa=True)
 
-    lib_err = (F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True).float()
-               - ref.decode_attention(q, k, v, pos).float()).abs().max().item()
+    lib_err = (library().float() - ref.decode_attention(q, k, v, pos).float()).abs().max().item()
     ms, plain_ms, lib_ms = (cuda_ms(torch, f, reps=200) for f in (kernel, plain, library))
-    log(f"[kernels] flash_decode device time alone (CUDA graph of one call): "
+    name = f"flash_decode {label} (4,{H},1,{D}) vs a (4,{S},{KV},{D}) {str(cache)[6:]} cache"
+    log(f"[kernels] {name} device time alone (CUDA graph of one call): "
         f"kernel {graph_ms(torch, kernel):.4f} ms, plain {graph_ms(torch, plain):.4f} ms, "
-        f"sdpa {graph_ms(torch, library):.4f} ms (sdpa vs plain max abs err {lib_err:.3e})")
-    es = q.element_size()
+        f"library {graph_ms(torch, library):.4f} ms (library vs plain max abs err {lib_err:.3e})")
+    es = k.element_size()
     valid_cols = int((pos + 1).sum())
     kv_bytes = valid_cols * KV * D * 2 * es           # the K and V columns the output reads
     full_bytes = B * S * KV * D * 2 * es
-    n_bytes = kv_bytes + 2 * q.numel() * es + B * 4   # + q, the output and pos
+    n_bytes = kv_bytes + 2 * q.numel() * q.element_size() + B * 4   # + q, the output and pos
     # per valid column and query head: D multiply-adds for the score, D
     # for the output, and the softmax's few operations
     n_ops = valid_cols * H * (4 * D + 5)
     b, by = bound_ms(n_bytes, n_ops)
-    log(f"[kernels] flash_decode bound: {n_bytes} bytes of valid K/V columns, q and output "
+    log(f"[kernels] {name} bound: {n_bytes} bytes of valid K/V columns, q and output "
         f"-> {b:.5f} ms ({by}); the whole cache is {full_bytes} bytes "
         f"-> {full_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms")
+    log(f"[kernels] {name} through the wrapper: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"library {lib_ms:.4f} ms, bound {b:.5f} ms ({by})")
     return ms, plain_ms, lib_ms, b, by
 
 
@@ -1088,6 +1138,10 @@ def serve_path(torch, dev):
         f"launches {launches}, expected {cfg.n_layers} x {eng.n_decode_calls} x "
         f"{DECODE_LAUNCHES_PER_CALL} = {want}")
     assert launches == want and launches > 0, f"flash_decode launches {launches} != {want}"
+    counts = eng.compile_counts()
+    log(f"[serve] compile_counts() {counts}: one prefill chunk shape and one decode graph a "
+        f"bucket")
+    assert all(c == {"prefill": 1, "decode": 1} for c in counts.values()), counts
     n_tok = sum(len(r.tokens) for r in res)
     ttft = [r.ttft for r in res]
     lat = [r.latency for r in res]
@@ -1102,10 +1156,12 @@ def serve_path(torch, dev):
     return launches, eng
 
 
-def profile_decode_tick(torch, eng) -> None:
+def profile_decode_tick(torch, eng) -> float:
     """One engine tick in which both buckets decode and none prefills,
     under ``torch.profiler``: device busy share, top device ops, K3's
-    share of the device time."""
+    share of the device time; then one more such tick unprofiled, its
+    device span between CUDA events beside its wall time. Returns the
+    profiled tick's busy share."""
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1131,7 +1187,19 @@ def profile_decode_tick(torch, eng) -> None:
         f"{len(spans)} device events, device busy {busy_us / 1e3:.3f} ms "
         f"({busy_us / 1e3 / wall_ms:.1%}), idle {1 - busy_us / 1e3 / wall_ms:.1%}; flash_decode "
         f"{k3_us / 1e3:.3f} ms ({k3_us / max(busy_us, 1e-9):.1%} of the busy time); "
-        f"{n_ops} top-level PyTorch ops called from Python")
+        f"{n_ops} top-level PyTorch ops called from Python (each bucket's decode a CUDA graph; "
+        f"before the graphs: {EAGER_TICK})")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    eng.step()
+    end.record()
+    end.synchronize()
+    wall2_ms = (time.perf_counter() - t0) * 1e3
+    log(f"[profile] the next decode tick unprofiled: {wall2_ms:.2f} ms wall, device span "
+        f"{start.elapsed_time(end):.2f} ms between CUDA events "
+        f"({start.elapsed_time(end) / wall2_ms:.1%} of the wall)")
     # the host's cost of one eager op on this machine, unprofiled: 2,000
     # in-place adds on a one-element tensor between synchronisations
     x = torch.zeros(1, device=eng.device)
@@ -1146,6 +1214,7 @@ def profile_decode_tick(torch, eng) -> None:
     for line in table.splitlines():
         log(f"[profile] {line}")
     eng.run_until_drained()
+    return busy_us / 1e3 / wall_ms
 
 
 def card_vs_cpu_serve(torch, dev, dtype: str):
@@ -1193,6 +1262,216 @@ def card_vs_cpu_serve(torch, dev, dtype: str):
         f"{toks_card} / cpu {toks_cpu}; max |logit diff| {diff:.3e} over a prefill and 8 decode "
         f"steps (max |logit| {scale:.3f})")
     return toks_card == toks_cpu, diff, scale
+
+
+# ---------------------------------------------------------------- phase 17
+
+
+def _drain(torch, eng, prompts, new_tokens: int):
+    """Submit ``prompts`` and drain with K3's count from 0; returns (wall
+    s, K3 launches, the results in order)."""
+    import numpy as np
+
+    from repro_torch.kernels import flash_decode
+    from repro_torch.serve import Request
+    eng.n_prefill_calls = eng.n_decode_calls = 0
+    flash_decode.flash_decode.launches = 0
+    t0 = time.perf_counter()
+    for rid, p in enumerate(prompts):
+        eng.submit(Request(rid=rid, prompt=np.asarray(p, np.int32), max_new_tokens=new_tokens))
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return wall, flash_decode.flash_decode.launches, [eng.results[i] for i in range(len(prompts))]
+
+
+def _check_drain(eng, res, launches: int, new_tokens: int, label: str) -> None:
+    """Every request drained with its tokens, 1/1 compile counts a bucket,
+    K3 once a layer a decode call."""
+    cfg = eng.cfg
+    for r in res:
+        assert len(r.tokens) == new_tokens, f"{label} request {r.rid}: {len(r.tokens)} tokens"
+        assert all(0 <= t < cfg.padded_vocab for t in r.tokens), f"{label} {r.rid}: bad token"
+    counts = eng.compile_counts()
+    want = cfg.n_layers * eng.n_decode_calls
+    log(f"[moe] {label}: {len(res)} requests drained, {eng.n_prefill_calls} prefill calls, "
+        f"{eng.n_decode_calls} decode calls, flash_decode launches {launches} (expected "
+        f"{cfg.n_layers} x {eng.n_decode_calls} = {want}); compile_counts() {counts}")
+    assert launches == want and launches > 0, f"{label}: flash_decode launches {launches}"
+    assert all(c == {"prefill": 1, "decode": 1} for c in counts.values()), counts
+
+
+def _graph_vs_eager(torch, eng, model, dev):
+    """The first MOE_EAGER_TICKS ticks of bucket 0 (4 requests), replayed
+    from its graph, against an eager ``decode_step`` loop on the card
+    from the same prefilled cache. Returns (equal, the ticks' tokens)."""
+    import numpy as np
+
+    from repro_torch.serve import Request
+    from repro_torch.utils.tree import tree_map
+    bs0 = eng.state[0]
+    snap = {"ticks": []}
+    decode = eng._decode
+
+    def spy(bs):
+        if bs is bs0 and "cache" not in snap:
+            snap.update(cache=tree_map(torch.clone, bs.cache), tok=bs.last_tok.copy(),
+                        pos=bs.pos.copy())
+        out = decode(bs)
+        if bs is bs0:
+            snap["ticks"].append(out.copy())
+        return out
+
+    eng._decode = spy
+    rng = np.random.default_rng(1)
+    for rid, n in enumerate((5, 300, 700, 990)):
+        eng.submit(Request(rid=-1 - rid, prompt=rng.integers(0, model.cfg.vocab_size, n)
+                           .astype(np.int32), max_new_tokens=MOE_EAGER_TICKS + 1))
+    eng.run_until_drained()
+    eng._decode = decode
+    cache = snap["cache"]
+    tok = torch.as_tensor(snap["tok"], device=dev)[:, None]
+    pos = torch.as_tensor(snap["pos"], device=dev)
+    eager = []
+    with torch.no_grad():
+        for _ in range(MOE_EAGER_TICKS):
+            logits, cache = model.decode_step(eng.params, tok, cache, pos)
+            nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+            eager.append(nxt.cpu().numpy())
+            tok, pos = nxt[:, None], pos + 1
+    graphed = snap["ticks"][:MOE_EAGER_TICKS]
+    return all(np.array_equal(a, b) for a, b in zip(eager, graphed)), graphed
+
+
+def _fp8_vs_bf16(torch, model, params, dev):
+    """Phase 17 (b): one prefill of 4 prompts of 64 tokens into a bf16
+    and an fp8 cache, then MOE_FP8_STEPS decode steps on the same
+    (greedy bf16) tokens. Returns max |logit diff| / max |logit| over the
+    decode steps."""
+    from repro_torch.models import build_model
+
+    m8 = build_model(replace(model.cfg, cache_dtype="float8_e4m3fn"))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    toks = torch.randint(0, model.cfg.vocab_size, (4, 64), generator=gen, device=dev)
+    c16, c8 = model.init_cache(4, 128, dev), m8.init_cache(4, 128, dev)
+    diff = scale = 0.0
+    with torch.no_grad():
+        l16, c16 = model.prefill(params, toks, c16, 0)
+        l8, c8 = m8.prefill(params, toks, c8, 0)
+        for step in range(MOE_FP8_STEPS):
+            tok = torch.argmax(l16[:, -1, :], dim=-1)[:, None]
+            l16, c16 = model.decode_step(params, tok, c16, 64 + step)
+            l8, c8 = m8.decode_step(params, tok, c8, 64 + step)
+            diff = max(diff, (l16.float() - l8.float()).abs().max().item())
+            scale = max(scale, l16.float().abs().max().item())
+    assert c8["prefix"][0]["k"].dtype == torch.float8_e4m3fn
+    return diff / scale
+
+
+def moe_serve_path(torch, dev):
+    """Phase 17 (a) and (b): kimi-k2 at full width, 2 layers, served
+    through the graphed engine. Returns (K3 launches of the drain, a
+    dict of what the [done] line reports)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import layer_kinds
+    from repro_torch.serve import BucketSpec, Request, make_engine
+    from repro_torch.utils.tree import tree_leaves
+
+    full = get_config(MOE_ARCH)
+    cfg = replace(full, n_layers=MOE_LAYERS)
+    log(f"reduced: {MOE_ARCH} n_layers {full.n_layers} → {MOE_LAYERS} (layer kinds "
+        f"{layer_kinds(cfg)})")
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    init_peak = torch.cuda.max_memory_allocated()
+    log(f"[moe] {cfg.arch_id}: d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}, {cfg.n_experts} experts top-{cfg.top_k} + {cfg.n_shared_experts} "
+        f"shared, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: {model.param_count(params):,} params, "
+        f"{param_bytes / 1e9:.2f} GB, drawn in {init_s:.2f} s; peak device memory at init "
+        f"{init_peak / 1e9:.2f} GB (the experts drawn 8 at a time)")
+    eng = make_engine(model, params, buckets=tuple(BucketSpec(b, s) for b, s in SERVE_BUCKETS),
+                      prefill_chunk=PREFILL_CHUNK, device=dev)
+    assert eng.params["layers"]["period0"]["moe"]["router"]["w"].dtype == torch.float32
+
+    same, ticks = _graph_vs_eager(torch, eng, model, dev)
+    log(f"[moe] bucket {eng.state[0].spec.name}: {MOE_EAGER_TICKS} ticks replayed from its "
+        f"graph equal an eager decode_step loop on the card: {same} (tokens of the first rows: "
+        f"{[int(t[0]) for t in ticks]})")
+    assert same, "the graphed decode and the eager loop give different tokens"
+    eng.submit(Request(rid=-9, prompt=np.arange(1100, dtype=np.int32) % cfg.vocab_size,
+                       max_new_tokens=2))
+    eng.run_until_drained()
+
+    prompts = _serve_workload(cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    decode_s = []
+    decode_fn = eng._decode
+
+    def timed_decode(*a):
+        t = time.perf_counter()
+        out = decode_fn(*a)
+        decode_s.append(time.perf_counter() - t)
+        return out
+
+    eng._decode = timed_decode
+    wall, launches, res = _drain(torch, eng, prompts, SERVE_NEW_TOKENS)
+    eng._decode = decode_fn
+    _check_drain(eng, res, launches, SERVE_NEW_TOKENS, "kimi-k2 full width")
+    n_tok = sum(len(r.tokens) for r in res)
+    ttft = [r.ttft for r in res]
+    emb = params["embedding"]["table"]
+    # every weight but the embedding table is read once a decode call: the
+    # expert products read all 384 experts at capacity 8
+    tick_bytes = param_bytes - emb.numel() * emb.element_size()
+    tick_ms = statistics.mean(decode_s) * 1e3
+    info = {"tok_s": n_tok / wall, "ttft_p50_ms": _pct(ttft, 50) * 1e3,
+            "tick_ms": tick_ms, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "init_peak_gb": init_peak / 1e9, "tick_gb": tick_bytes / 1e9}
+    log(f"[moe] kimi-k2 full width, 2 layers: {n_tok} tokens in {wall:.3f} s, "
+        f"{info['tok_s']:.2f} tok/s; TTFT p50 {info['ttft_p50_ms']:.1f} ms, p95 "
+        f"{_pct(ttft, 95) * 1e3:.1f} ms; {tick_ms:.2f} ms a decode call (mean of "
+        f"{len(decode_s)}); a decode call reads >= {tick_bytes / 1e9:.2f} GB of weights -> "
+        f"{tick_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; "
+        f"peak device memory {info['peak_gb']:.2f} GB")
+    info["busy"] = profile_decode_tick(torch, eng)
+
+    rel = _fp8_vs_bf16(torch, model, eng.params, dev)
+    log(f"[moe] (b) fp8 cache against the bf16 cache, {MOE_FP8_STEPS} decode steps after a "
+        f"64-token prefill: max |logit diff| / max |logit| {rel:.4f} (bound {MOE_FP8_RTOL})")
+    assert rel < MOE_FP8_RTOL, f"fp8 cache logits {rel} off the bf16 cache's"
+    info["fp8_rel"] = rel
+    del eng, params, leaves, emb
+    return launches, info
+
+
+def moe_smoke_serve(torch, dev):
+    """Phase 17 (c): llama4-maverick at its smoke() widths (top-1, a dense
+    and a moe layer) through the same engine, buckets and workload.
+    Returns the K3 launches of its drain."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import BucketSpec, make_engine
+
+    cfg = get_config(MOE_SMOKE_ARCH).smoke()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    eng = make_engine(model, params, buckets=tuple(BucketSpec(b, s) for b, s in SERVE_BUCKETS),
+                      prefill_chunk=PREFILL_CHUNK, device=dev)
+    wall, launches, res = _drain(torch, eng, _serve_workload(cfg.vocab_size), SERVE_NEW_TOKENS)
+    _check_drain(eng, res, launches, SERVE_NEW_TOKENS, f"{cfg.arch_id} (top-{cfg.top_k}, "
+                                                      f"moe_every {cfg.moe_every})")
+    log(f"[moe] (c) {cfg.arch_id}: {sum(len(r.tokens) for r in res)} tokens in {wall:.3f} s")
+    return launches
 
 
 # ------------------------------------------------------------ phases 8-11
@@ -2391,9 +2670,10 @@ def main() -> int:
     # --- phase 5: flash_decode against its plain version, at the serve shapes
     k3_err = check_flash_decode(torch, dev)
     k3 = time_flash_decode(torch, dev)
-    log(f"[kernels] flash_decode (4,32,1,64) vs a (4,2048,8,64) bf16 cache: kernel "
-        f"{k3[0]:.4f} ms, plain {k3[1]:.4f} ms, sdpa {k3[2]:.4f} ms, bound {k3[3]:.5f} ms "
-        f"({k3[4]})")
+    for H, D, cache, label in ((32, 64, torch.float8_e4m3fn, "granite"),
+                               (64, 112, torch.bfloat16, "kimi-k2"),
+                               (64, 112, torch.float8_e4m3fn, "kimi-k2")):
+        time_flash_decode(torch, dev, H, D, cache, label)
 
     # --- phase 6: the serve path at full width, launch counts from the drain alone
     k3_launches, _ = serve_path(torch, dev)
@@ -2539,6 +2819,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     ces, train_wall, train_tok_s, train_step_s = train_single_path(torch)
     log(f"[lm] phase 15 in {t16 - t15:.1f} s, phase 16 in {time.perf_counter() - t16:.1f} s")
+    torch.cuda.empty_cache()
+
+    # --- phase 17: the moe family served, K3 launches from each drain alone
+    t17 = time.perf_counter()
+    k3_moe, moe_info = moe_serve_path(torch, dev)
+    torch.cuda.empty_cache()
+    k3_moe += moe_smoke_serve(torch, dev)
+    log(f"[moe] phase 17 in {time.perf_counter() - t17:.1f} s")
 
     kernels = [
         _kernel_line("param_stats_batched", "param_stats", "src/repro/kernels/param_stats.py:92",
@@ -2552,7 +2840,7 @@ def main() -> int:
                                    la, lb)),
                      k2_err, k2),
         _kernel_line("flash_decode", "flash_decode", "src/repro/kernels/flash_decode.py:93",
-                     k3_launches + k3_lm, k3_err, k3),
+                     k3_launches + k3_lm + k3_moe, k3_err, k3),
         _kernel_line("flash_attention", "flash_attention",
                      "src/repro/kernels/flash_attention.py:89", k4_launches, k4_err, k4),
     ]
@@ -2572,9 +2860,13 @@ def main() -> int:
         f"{la_peak / 1e9:.2f} GB, (b) {lb_peak / 1e9:.2f} GB, phase-15 launches (a) {la}, (b) "
         f"{lb}; checkpoint {ck['size'] / 1e9:.3f} GB, saved in {ck['save_s']:.2f} s, restored in "
         f"{ck['load_s']:.2f} s; single-model train ce {ces[0]:.4f} -> {ces[-1]:.4f}, "
-        f"{train_tok_s:,.0f} tok/s end to end, {train_step_s * 1e3:.1f} ms a step alone; K1 "
-        f"and K2 launches in the kernels line: phases 3, 11, 12, "
-        f"13, 14 (its 4-pod fit and scaling axis) and 15; K3: phases 6 and 16")
+        f"{train_tok_s:,.0f} tok/s end to end, {train_step_s * 1e3:.1f} ms a step alone; "
+        f"kimi-k2 served (phase 17): {moe_info['tok_s']:.2f} tok/s, TTFT p50 "
+        f"{moe_info['ttft_p50_ms']:.1f} ms, {moe_info['tick_ms']:.2f} ms a decode call reading "
+        f"{moe_info['tick_gb']:.2f} GB, busy {moe_info['busy']:.1%} of a profiled tick, peak "
+        f"{moe_info['peak_gb']:.2f} GB (init {moe_info['init_peak_gb']:.2f} GB), fp8 vs bf16 "
+        f"cache {moe_info['fp8_rel']:.4f}; K1 and K2 launches in the kernels line: phases 3, "
+        f"11, 12, 13, 14 (its 4-pod fit and scaling axis) and 15; K3: phases 6, 16 and 17")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

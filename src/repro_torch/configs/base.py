@@ -12,9 +12,10 @@ the rest is carried for that round trip:
 - ``scan_layers`` picks the parameter layout (stacked ``"layers"`` or a
   ``"blocks"`` list), as in the reference; the port loops over the
   stacked layer index in Python.
-- ``remat``, ``microbatch_override``, ``fsdp_over_pod``,
-  ``moe_grouped_dispatch`` and ``moe_groups`` steer the reference's
-  compiler, sharding and MoE paths, none of which is ported.
+- ``remat``, ``microbatch_override`` and ``fsdp_over_pod`` steer the
+  reference's compiler and sharding, neither of which is ported.
+  ``moe_grouped_dispatch`` and ``moe_groups`` pick the MoE's grouped
+  dispatch, which is ported (``models/moe.py``).
 """
 from __future__ import annotations
 

@@ -6,6 +6,10 @@
 // h reads kv head h / G (G = H / KV). Keys 0..pos[b] are valid in row b,
 // and window > 0 keeps only cols > pos - window. The softmax is online in
 // fp32, scaled by 1/sqrt(D); the output is acc / max(l, 1e-30) in q's type.
+// k and v are q's type (fp32, bf16, fp16) or an fp8 (e4m3) cache, which
+// the Pallas kernel upcasts as it does any dtype (.astype(f32)): here the
+// fp8 bytes come through the same cp.async ring, half a bf16 tile's, and
+// are converted to fp32 in registers when read (cuda_fp8.h).
 //
 // Bound: bytes. Each valid K/V column is D elements read once per kv head;
 // the work on it is 2*G*D multiply-adds for the scores and as many for the
@@ -52,11 +56,16 @@
 // - The cache is read in its stored layout through strides: the serve
 //   path's cache is (B,S,KV,D), seen here as a (B,KV,S,D) strided view, so
 //   no copy of it is made. D must be the unit-stride axis.
+// - D = 112 (kimi-k2's head_dim) runs the D = 128 kernel on rows padded
+//   to 128 dims (DP): the copies fetch the 112 stored dims, the pad
+//   columns of every stage are zeroed once at the start (no copy writes
+//   them), q is 0 there, and the merge writes only the 112 dims.
 // What is left (PERF.md): every one of the G warps converts and multiplies
 // the whole tile, ~300 instructions a lane a tile; the G rows of a kv
-// head as one tensor-core product, TMA and fp8 caches are later work.
+// head as one tensor-core product and TMA are later work.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -78,6 +87,10 @@ __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
 }
 template <>
 __device__ __forceinline__ float to_f<__half>(__half x) { return __half2float(x); }
+template <>
+__device__ __forceinline__ float to_f<__nv_fp8_e4m3>(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
+}
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
@@ -119,12 +132,16 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// The dims a row holds in shared memory: D, or D = 112 padded to 128.
+template <int D>
+__host__ __device__ constexpr int padded_dims() { return D == 112 ? 128 : D; }
+
 // A stage holds TILE keys' K rows, then their V rows, in the storage
-// type. A key is read by LPK lanes, each taking every LPK-th 16-byte
-// chunk of the row (at most 64 dims a lane, so a lane's accumulators fit
-// its registers). Rows are padded by 16*LPK bytes, so that the 8 lanes
-// of a 16-byte shared-memory phase (8/LPK keys x LPK parts) hit 8
-// distinct 16-byte bank groups.
+// type, D (the padded dims) to a row. A key is read by LPK lanes, each
+// taking every LPK-th 16-byte chunk of the row (at most 64 dims a lane,
+// so a lane's accumulators fit its registers). Rows are padded by 16*LPK
+// bytes, so that the 8 lanes of a 16-byte shared-memory phase (8/LPK
+// keys x LPK parts) hit 8 distinct 16-byte bank groups.
 template <typename T, int D>
 struct Ring {
   static constexpr int TILE = kTileElems / D;                  // keys a tile
@@ -136,16 +153,18 @@ struct Ring {
 };
 
 // Keys [t0, t0 + n) of one (S, D) head pair into a stage: K rows, then V
-// rows, each ROW bytes apart, in the storage type.
+// rows, each ROW bytes apart, in the storage type; the stored D dims of
+// each row (DP - D pad dims stay as they are).
 template <typename T, int D>
 __device__ __forceinline__ void issue_tile(const T* __restrict__ kb, const T* __restrict__ vb,
                                            long long k_s, long long v_s, int t0, int n,
                                            unsigned char* stage, int vec) {
-  using R = Ring<T, D>;
+  using R = Ring<T, padded_dims<D>()>;
   unsigned char* ks = stage;
   unsigned char* vs = stage + R::TILE * R::ROW;
   if (vec) {
     constexpr int VEC = 16 / sizeof(T);
+    static_assert(D % VEC == 0, "a row is whole 16-byte chunks");
     constexpr int CPR = D / VEC;  // 16-byte chunks a row
     for (int c = threadIdx.x; c < n * CPR; c += blockDim.x) {
       const int r = c / CPR, e = (c % CPR) * VEC;
@@ -171,30 +190,33 @@ __device__ __forceinline__ float dot16(const unsigned char* kr, const float* qv,
   return acc;
 }
 
-template <typename T, int D>
-__global__ void flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+// TQ: q's and the output's type; T: the cache's; D: the stored head dim,
+// DP the dims a row holds in shared memory and a partial (D padded).
+template <typename TQ, typename T, int D>
+__global__ void flash_decode_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
                                     const T* __restrict__ v, const int* __restrict__ pos,
-                                    T* __restrict__ out, float* __restrict__ part_m,
+                                    TQ* __restrict__ out, float* __restrict__ part_m,
                                     float* __restrict__ part_l, float* __restrict__ part_acc,
                                     int* __restrict__ counter, int H, int S, int window,
                                     int chunk, int n_split, float scale_log2, Strides st,
                                     int vec) {
-  using R = Ring<T, D>;
+  constexpr int DP = padded_dims<D>();
+  using R = Ring<T, DP>;
   constexpr int TILE = R::TILE;
   constexpr int LPK = R::LPK;             // lanes a key
-  constexpr int DL = D / LPK;             // dims a lane accumulates
+  constexpr int DL = DP / LPK;            // dims a lane accumulates
   constexpr int SLOTS = 32 / LPK;         // keys a warp takes at once
   constexpr int KPL = TILE / SLOTS;       // keys a lane, a tile
   constexpr int VEC = 16 / sizeof(T);     // elements a 16-byte chunk
   constexpr int CPL = DL / VEC;           // chunks of a row a lane reads
-  constexpr int DPL = D / 32;             // output dims a lane in the merge
+  constexpr int DPL = DP / 32;            // output dims a lane in the merge
   constexpr int NSTEP = LPK == 1 ? 5 : LPK == 2 ? 4 : 3;  // log2(SLOTS)
   static_assert(DL >> NSTEP == DPL, "the halving leaves DPL values a lane");
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int is_last;
   const int G = blockDim.x / 32;
-  float* q_s = reinterpret_cast<float*>(smem);  // (G, D)
-  unsigned char* ring = smem + G * D * sizeof(float);
+  float* q_s = reinterpret_cast<float*>(smem);  // (G, DP)
+  unsigned char* ring = smem + G * DP * sizeof(float);
 
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z, KV = gridDim.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -206,6 +228,14 @@ __global__ void flash_decode_kernel(const T* __restrict__ q, const T* __restrict
 
   const T* kb = k + b * st.k_b + kvh * st.k_h;
   const T* vb = v + b * st.v_b + kvh * st.v_h;
+  if constexpr (DP != D) {
+    // the pad dims of every stage's rows: zero, and no copy writes them
+    constexpr int PAD = (DP - D) * (int)sizeof(T);
+    for (int i = threadIdx.x; i < kStages * 2 * TILE * PAD; i += blockDim.x) {
+      const int r = i / PAD;
+      ring[r * R::ROW + D * (int)sizeof(T) + i % PAD] = 0;
+    }
+  }
   // the ring's first stages go out before anything else
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) {
@@ -214,9 +244,9 @@ __global__ void flash_decode_kernel(const T* __restrict__ q, const T* __restrict
                        ring + i * R::STAGE, vec);
     cp_commit();
   }
-  for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
-    const int g = i / D, d = i % D;
-    q_s[i] = to_f(q[b * st.q_b + (long long)(kvh * G + g) * st.q_h + d]);
+  for (int i = threadIdx.x; i < G * DP; i += blockDim.x) {
+    const int g = i / DP, d = i % DP;
+    q_s[i] = d < D ? to_f(q[b * st.q_b + (long long)(kvh * G + g) * st.q_h + d]) : 0.f;
   }
   const int part = lane % LPK, slot = lane / LPK;
   __syncthreads();  // q_s is written (the ring's copies stay in flight)
@@ -224,7 +254,7 @@ __global__ void flash_decode_kernel(const T* __restrict__ q, const T* __restrict
 #pragma unroll
   for (int c = 0; c < CPL; ++c)
 #pragma unroll
-    for (int u = 0; u < VEC; ++u) qv[c * VEC + u] = q_s[warp * D + (c * LPK + part) * VEC + u];
+    for (int u = 0; u < VEC; ++u) qv[c * VEC + u] = q_s[warp * DP + (c * LPK + part) * VEC + u];
 
   float m = -INFINITY, l = 0.f;
   float acc[DL];  // this lane's keys' p * V over its DL dims
@@ -336,7 +366,7 @@ __global__ void flash_decode_kernel(const T* __restrict__ q, const T* __restrict
 #pragma unroll
     for (int i = 0; i < DPL; ++i) {
       const int x = idx0 + i;  // list index -> dim: chunk x / VEC of this part
-      part_acc[prow * D + ((x / VEC) * LPK + part) * VEC + x % VEC] = acc[i];
+      part_acc[prow * DP + ((x / VEC) * LPK + part) * VEC + x % VEC] = acc[i];
     }
   }
 
@@ -384,7 +414,7 @@ __global__ void flash_decode_kernel(const T* __restrict__ q, const T* __restrict
 #pragma unroll 8
   for (int s2 = 0; s2 < n_split; ++s2) {
     const float w = w_s[s2];
-    const float* pa = part_acc + (base + s2) * D + lane * DPL;
+    const float* pa = part_acc + (base + s2) * DP + lane * DPL;
 #pragma unroll
     for (int dd = 0; dd < DPL; ++dd) {
       // a split with l = 0 wrote no acc: it is skipped, not read
@@ -394,84 +424,96 @@ __global__ void flash_decode_kernel(const T* __restrict__ q, const T* __restrict
   }
   const float inv = 1.f / fmaxf(L, 1e-30f);
 #pragma unroll
-  for (int dd = 0; dd < DPL; ++dd) out[row * D + lane * DPL + dd] = from_f<T>(A[dd] * inv);
+  for (int dd = 0; dd < DPL; ++dd)
+    if (DP == D || lane * DPL + dd < D) out[row * D + lane * DPL + dd] = from_f<TQ>(A[dd] * inv);
   if (threadIdx.x == 0) counter[b * KV + kvh] = 0;
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const int* pos, void* out,
-           float* part, int* counter, int B, int H, int KV, int S, int window, int chunk,
-           int n_split, const Strides& st, int vec, cudaStream_t stream) {
-  const int G = H / KV;
-  if (n_split > kMaxSplits) return (int)cudaErrorInvalidValue;
-  const long long rows = (long long)B * H * n_split;
-  const size_t smem = (size_t)G * D * sizeof(float) + Ring<T, D>::BYTES;
+struct Args {
+  const void *q, *k, *v;
+  const int* pos;
+  void* out;
+  float* part;
+  int* counter;
+  int B, H, KV, S, window, chunk, n_split, vec;
+  Strides st;
+  cudaStream_t stream;
+};
+
+template <typename TQ, typename T, int D>
+int launch(const Args& a) {
+  constexpr int DP = padded_dims<D>();
+  const int G = a.H / a.KV;
+  if (a.n_split > kMaxSplits) return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)a.B * a.H * a.n_split;
+  const size_t smem = (size_t)G * DP * sizeof(float) + Ring<T, DP>::BYTES;
   // the opt-in above 48 KB of shared memory; it is per device, so it is
   // set at every launch (a host-side call of about a microsecond)
-  cudaError_t err = cudaFuncSetAttribute(flash_decode_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_decode_kernel<TQ, T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(n_split, KV, B);
-  flash_decode_kernel<T, D><<<grid, G * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), pos,
-      static_cast<T*>(out), part, part + rows, part + 2 * rows, counter, H, S, window, chunk,
-      n_split, 1.4426950408889634f / sqrtf((float)D), st, vec);
+  const dim3 grid(a.n_split, a.KV, a.B);
+  flash_decode_kernel<TQ, T, D><<<grid, G * 32, smem, a.stream>>>(
+      static_cast<const TQ*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v), a.pos,
+      static_cast<TQ*>(a.out), a.part, a.part + rows, a.part + 2 * rows, a.counter, a.H, a.S,
+      a.window, a.chunk, a.n_split, 1.4426950408889634f / sqrtf((float)D), a.st, a.vec);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_d(int D, const void* q, const void* k, const void* v, const int* pos, void* out,
-             float* part, int* counter, int B, int H, int KV, int S, int window, int chunk,
-             int n_split, const Strides& st, int vec, cudaStream_t stream) {
+template <typename TQ, typename T>
+int launch_d(int D, const Args& a) {
   switch (D) {
     case 32:
-      return launch<T, 32>(q, k, v, pos, out, part, counter, B, H, KV, S, window, chunk, n_split,
-                           st, vec, stream);
+      return launch<TQ, T, 32>(a);
     case 64:
-      return launch<T, 64>(q, k, v, pos, out, part, counter, B, H, KV, S, window, chunk, n_split,
-                           st, vec, stream);
+      return launch<TQ, T, 64>(a);
+    case 112:
+      return launch<TQ, T, 112>(a);
     case 128:
-      return launch<T, 128>(q, k, v, pos, out, part, counter, B, H, KV, S, window, chunk,
-                            n_split, st, vec, stream);
+      return launch<TQ, T, 128>(a);
     case 256:
-      return launch<T, 256>(q, k, v, pos, out, part, counter, B, H, KV, S, window, chunk,
-                            n_split, st, vec, stream);
+      return launch<TQ, T, 256>(a);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
+// the cache in q's type (kv_dtype == dtype) or in fp8 e4m3 (kv_dtype 3)
+template <typename TQ>
+int launch_kv(int kv_same, int D, const Args& a) {
+  return kv_same ? launch_d<TQ, TQ>(D, a) : launch_d<TQ, __nv_fp8_e4m3>(D, a);
+}
+
 }  // namespace
 
 // q (B,H,1,D), k and v (B,KV,S,D) given by element strides (D unit-stride),
-// pos (B,) int32, out (B,H,1,D) contiguous, part B*H*n_split*(D+2) fp32
-// scratch, counter B*KV int32 that is 0 at the launch (and is 0 again when
-// the kernel ends). dtype 0 = fp32, 1 = bf16, 2 = fp16, the same for q, k,
-// v, out. The wrapper checks the shapes: H % KV == 0, G = H/KV <= 32
-// warps, G*D <= 2048 (q in shared memory), D in {32, 64, 128, 256}, and
-// chunk a multiple of the tile (2048/D keys), n_split <= 64. Returns cudaGetLastError()
-// after the launch on `stream`.
+// pos (B,) int32, out (B,H,1,D) contiguous, part B*H*n_split*(DP+2) fp32
+// scratch (DP = 128 for D = 112, else D), counter B*KV int32 that is 0 at
+// the launch (and is 0 again when the kernel ends). dtype (q and out):
+// 0 = fp32, 1 = bf16, 2 = fp16; kv_dtype (k and v): dtype, or 3 = fp8
+// e4m3. The wrapper checks the shapes: H % KV == 0, G = H/KV <= 32 warps,
+// G*DP <= 2048 (q in shared memory), D in {32, 64, 112, 128, 256}, and
+// chunk a multiple of the tile (2048/DP keys), n_split <= 64. Returns
+// cudaGetLastError() after the launch on `stream`.
 extern "C" int flash_decode_launch(const void* q, const void* k, const void* v, const void* pos,
-                                   void* out, void* part, void* counter, int dtype, int B, int H,
-                                   int KV, int S, int D, int window, int chunk, int n_split,
-                                   long long q_sb, long long q_sh, long long k_sb,
+                                   void* out, void* part, void* counter, int dtype, int kv_dtype,
+                                   int B, int H, int KV, int S, int D, int window, int chunk,
+                                   int n_split, long long q_sb, long long q_sh, long long k_sb,
                                    long long k_sh, long long k_ss, long long v_sb,
                                    long long v_sh, long long v_ss, int vec, void* stream) {
-  const Strides st{q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss};
-  const int* p = static_cast<const int*>(pos);
-  float* pt = static_cast<float*>(part);
-  int* ct = static_cast<int*>(counter);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Args a{q, k, v, static_cast<const int*>(pos), out, static_cast<float*>(part),
+               static_cast<int*>(counter), B, H, KV, S, window, chunk, n_split, vec,
+               Strides{q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss},
+               static_cast<cudaStream_t>(stream)};
+  if (kv_dtype != dtype && kv_dtype != 3) return (int)cudaErrorInvalidValue;
+  const int same = kv_dtype == dtype;
   switch (dtype) {
     case 0:
-      return launch_d<float>(D, q, k, v, p, out, pt, ct, B, H, KV, S, window, chunk, n_split, st,
-                             vec, s);
+      return launch_kv<float>(same, D, a);
     case 1:
-      return launch_d<__nv_bfloat16>(D, q, k, v, p, out, pt, ct, B, H, KV, S, window, chunk,
-                                     n_split, st, vec, s);
+      return launch_kv<__nv_bfloat16>(same, D, a);
     case 2:
-      return launch_d<__half>(D, q, k, v, p, out, pt, ct, B, H, KV, S, window, chunk, n_split,
-                              st, vec, s);
+      return launch_kv<__half>(same, D, a);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -49,7 +49,8 @@ def kmeans_assign(X: torch.Tensor, C: torch.Tensor, k_active=None) -> torch.Tens
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos,
                      window: int = 0) -> torch.Tensor:
     """One-query GQA attention against a KV cache: q (B,H,1,D), k,v
-    (B,KV,S,D) with H % KV == 0, query head h reading kv head h // G.
+    (B,KV,S,D) of any float dtype (an fp8 cache included; read in fp32)
+    with H % KV == 0, query head h reading kv head h // G.
     ``pos`` is a scalar or a (B,) vector: keys 0..pos are valid in each
     row, and ``window > 0`` keeps only ``cols > pos - window``. fp32
     softmax scaled by 1/sqrt(D), masked scores at -1e30, the output in

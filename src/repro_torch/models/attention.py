@@ -13,6 +13,12 @@ single-token decode against a KV cache (counterpart of
 - XLA's ``dynamic_update_slice`` clamps its start index so that the
   update fits; the port clamps the same way where torch indexing would
   raise.
+- An fp8 cache (``cfg.cache_dtype="float8_e4m3fn"``) stores what the
+  reference's ``astype`` stores (:func:`to_cache_dtype`), and is written
+  through a ``uint8`` view (:func:`raw_view`): indexed writes and
+  copies of float8 tensors are not implemented on every device. Decode
+  hands the fp8 cache to the kernel as it is; prefill upcasts it to the
+  activation dtype, as the reference does.
 - Score products run in the activation dtype and only then go to fp32;
   masks use -1e30; probabilities return to the activation dtype before
   the product with v. Prefill scores in fp32 would be another function.
@@ -143,6 +149,22 @@ def cache_dtype(cfg: ModelConfig) -> torch.dtype:
     return dtype_of(cfg.dtype)
 
 
+def to_cache_dtype(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` cast to the cache's ``dtype`` as the reference's ``astype``
+    casts it: round to nearest even and, for float8_e4m3fn (max 448, no
+    inf), NaN where ``|x|`` rounds past the max (above 464, the midpoint
+    to the next step), where torch's cast saturates to 448."""
+    if dtype == torch.float8_e4m3fn:
+        x = torch.where(x.abs() > 464.0, torch.nan, x)
+    return x.to(dtype)
+
+
+def raw_view(t: torch.Tensor) -> torch.Tensor:
+    """A one-byte float tensor seen as ``uint8`` (same shape and
+    strides), any other tensor as it is."""
+    return t.view(torch.uint8) if t.is_floating_point() and t.element_size() == 1 else t
+
+
 def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, device, lead=()):
     """Zeros of (*lead, batch, max_seq, KV, hd) for k and v. A ring cache
     (``cache_ring`` with a sliding window) keeps only the window."""
@@ -160,7 +182,8 @@ def _write_cache_rows(cache, new, write_pos):
     write_pos (B,) — row b at its own position, clamped into range as
     ``dynamic_update_slice`` clamps it."""
     rows = torch.arange(cache.shape[0], device=cache.device)
-    cache[rows, write_pos.clamp(0, cache.shape[1] - 1)] = new[:, 0].to(cache.dtype)
+    raw_view(cache)[rows, write_pos.clamp(0, cache.shape[1] - 1)] = raw_view(
+        to_cache_dtype(new[:, 0], cache.dtype))
     return cache
 
 
@@ -213,8 +236,8 @@ def attend_prefill(p, x, cache, pos0: int, cfg: ModelConfig, *, sliding_window: 
     k_new = apply_rope(k_new, positions, cfg.rope_theta)
     k, v = cache["k"], cache["v"]
     start = min(max(int(pos0), 0), Smax - C)
-    k[:, start:start + C] = k_new.to(k.dtype)
-    v[:, start:start + C] = v_new.to(v.dtype)
+    raw_view(k)[:, start:start + C] = raw_view(to_cache_dtype(k_new, k.dtype))
+    raw_view(v)[:, start:start + C] = raw_view(to_cache_dtype(v_new, v.dtype))
     kv_positions = torch.arange(Smax, device=x.device)[None, :]
     out = _attention_math(q, k.to(x.dtype), v.to(x.dtype), positions, kv_positions, True,
                           sliding_window, B, C, H, hd)

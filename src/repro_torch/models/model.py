@@ -3,10 +3,11 @@
 ``build_model(cfg)`` returns a :class:`Model` whose members are plain
 functions over parameter trees, so the swarm layer can vmap them over
 a client-stacked tree with ``torch.func``. The CNN family and the
-dense decoder-only LM (with its KV cache, decode step and chunked
-prefill) are ported, and the swarm trains either through these
-functions (an LM's batches are ``{"tokens", "labels"}`` and its
-accuracy counts unmasked tokens); the other families raise.
+dense and moe decoder-only LMs (with their KV cache, decode step and
+chunked prefill) are ported, and the swarm trains the CNNs and the dense
+LMs through these functions (an LM's batches are ``{"tokens",
+"labels"}`` and its accuracy counts unmasked tokens); the other
+families raise.
 """
 from __future__ import annotations
 

@@ -1,17 +1,21 @@
-"""Decoder-only LM assembly, dense family (counterpart of
+"""Decoder-only LM assembly, dense and moe families (counterpart of
 ``repro.models.transformer``).
 
-``dense`` is ``[attn + MLP] x L`` (granite). Parameters come in the
+``dense`` is ``[attn + MLP] x L`` (granite); ``moe`` is ``[attn + MoE]``
+with leading dense layers (kimi-k2's first) or a dense layer every
+``moe_every``-th (llama4-maverick). Parameters come in the
 reference's two layouts: ``"blocks"``, a list of per-layer dicts, or,
 under ``cfg.scan_layers``, ``"layers": {"prefix": [...], "period0":
 <leaves stacked on a leading L axis>}`` with the cache as
-``{"prefix": [...], "body": {"period0": {"k", "v": (L,B,S,KV,hd)}}}``.
+``{"prefix": [...], "body": {"period0": {"k", "v": (L,B,S,KV,hd)}}}``
+(a moe model's period may hold several kinds, ``period0``,
+``period1``, ...).
 The port keeps the stacked tensors and loops over the layer index in
 Python (per-layer views, so in-place cache writes land in the stacked
 cache), so the bridge stays the identity.
 
-The other families (moe, ssm, hybrid, vlm, encdec) are not ported yet
-and raise ``NotImplementedError``.
+The other families (ssm, hybrid, vlm, encdec) are not ported yet and
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -32,9 +36,10 @@ from repro_torch.models.layers import (
     init_norm,
     logits_from_embedding,
 )
+from repro_torch.models.moe import apply_moe, init_moe
 from repro_torch.utils.tree import tree_map
 
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "moe")
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -65,16 +70,27 @@ def layer_kinds(cfg: ModelConfig):
 
 
 def _check_kind(kind: str) -> None:
-    if kind != "dense":
+    if kind not in ("dense", "moe"):
         raise NotImplementedError(f"{kind!r} blocks are not ported yet (ROADMAP A12)")
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, lead=()):
     _check_kind(kind)
-    return {"attn_norm": init_norm(gen, cfg, cfg.d_model, lead),
-            "attn": attn_lib.init_attention(gen, cfg, lead=lead),
-            "mlp_norm": init_norm(gen, cfg, cfg.d_model, lead),
-            "mlp": init_mlp(gen, cfg, lead)}
+    p = {"attn_norm": init_norm(gen, cfg, cfg.d_model, lead),
+         "attn": attn_lib.init_attention(gen, cfg, lead=lead),
+         "mlp_norm": init_norm(gen, cfg, cfg.d_model, lead)}
+    if kind == "moe":
+        p["moe"] = init_moe(gen, cfg, lead)
+    else:
+        p["mlp"] = init_mlp(gen, cfg, lead)
+    return p
+
+
+def _ffn(p, h, cfg: ModelConfig, kind: str):
+    """The block's feed-forward half: (out, aux loss)."""
+    if kind == "moe":
+        return apply_moe(p["moe"], h, cfg)
+    return apply_mlp(p["mlp"], h, cfg), torch.zeros((), device=h.device)
 
 
 def block_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int, device, lead=()):
@@ -94,8 +110,8 @@ def apply_block(p, x, cfg: ModelConfig, kind: str, *, positions=None, cache=None
         a, cache = attn_lib.attend_decode(p["attn"], h, cache, pos, cfg,
                                           sliding_window=sliding_window)
     x = x + a
-    h = apply_norm(p["mlp_norm"], x, cfg)
-    return x + apply_mlp(p["mlp"], h, cfg), cache, torch.zeros((), device=x.device)
+    m, aux = _ffn(p, apply_norm(p["mlp_norm"], x, cfg), cfg, kind)
+    return x + m, cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -218,8 +234,8 @@ def _prefill_block(p, x, cache, pos0: int, cfg: ModelConfig, kind: str):
     a, cache = attn_lib.attend_prefill(p["attn"], h, cache, pos0, cfg,
                                        sliding_window=cfg.sliding_window)
     x = x + a
-    h = apply_norm(p["mlp_norm"], x, cfg)
-    return x + apply_mlp(p["mlp"], h, cfg), cache
+    m, _ = _ffn(p, apply_norm(p["mlp_norm"], x, cfg), cfg, kind)
+    return x + m, cache
 
 
 def lm_prefill(params, tokens, caches, pos0: int, cfg: ModelConfig):

@@ -6,26 +6,43 @@
 * a fixed pool of KV-cache slots, partitioned into size buckets
   (``scheduler.BucketSpec``); per bucket a chunked **prefill** (forward
   + cache writeback) and a **decode** step with per-slot positions, whose
-  cache read is the ``flash_decode`` kernel on the card;
+  cache read is the ``flash_decode`` kernel on the card. On the card
+  each bucket's decode step, greedy ``argmax`` included, is **one CUDA
+  graph**, the counterpart of the reference's one compiled decode
+  program a bucket;
 * requests are admitted into free slots mid-flight; the decode step
   always runs the full bucket batch (inactive rows compute ignored
   garbage, as in the reference);
 * every per-step device-to-host pull is one ``(batch,)`` token vector.
 
-The reference prefills the whole bucket batch and then keeps the new
-cache only for the admitted slots. The port writes caches in place, so
-it prefills a gathered copy of the admitted slots' cache rows and
-scatters them back: the running slots' k, v are never touched. Rows of
-a batch do not interact in the forward, so the admitted rows' tokens
-are the same function. Matmul weights are cast to the activation dtype
-once, at construction (the reference casts them in every step; the
-numbers are the same).
+Prefill runs the whole bucket batch, as the reference's does (the rows
+of a moe batch share the experts' capacity, so the batch is part of
+the function), and keeps the new cache only for the admitted slots.
+The port writes caches in place, so it prefills a copy of the bucket's
+cache and copies the admitted slots' rows back: the running slots' k, v
+are never touched. Weights are cast to the activation dtype once, at
+construction (the reference casts them in every step; the numbers are
+the same), except the norms' and the moe router's, which the model
+reads in fp32.
+
+The decode graph (:meth:`ServeEngine._decode`) is captured on the
+bucket's first decode: that tick runs eagerly on a side stream (the
+warm-up PyTorch's graph docs ask for; a decode step written twice at
+the same positions writes the same values, so the warm-up is the
+tick), then the step is captured on that stream, so the ``flash_decode``
+merge counters it uses are the ones its replays use. Every later tick
+copies the bucket's tokens and positions into the graph's static
+buffers and replays it. A capture or a replay that fails raises; the
+engine never falls back to eager decode on the card. On the CPU decode
+stays eager.
 
 ``ImageClassifier`` is the stateless analogue for the paper's CNN
 classifiers: per-batch-bucket scoring over padded image batches.
 
-Eager PyTorch has no compiled-program census, so the reference's
-``compile_counts`` is not ported (ROADMAP A13, a CUDA graph per bucket).
+:meth:`ServeEngine.compile_counts` is the reference's census: per
+bucket the distinct prefill chunk shapes run, and the decode graphs
+captured (on the CPU, the distinct decode shapes run); 1 and 1 in
+steady state.
 """
 from __future__ import annotations
 
@@ -36,13 +53,15 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.kernels import flash_decode as k_decode
+from repro_torch.models.attention import raw_view
 from repro_torch.models.layers import dtype_of
 from repro_torch.models.model import Model
 from repro_torch.serve.scheduler import BucketSpec, Request, SlotScheduler
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import tree_map
 
-SERVE_FAMILIES = ("dense",)
+SERVE_FAMILIES = ("dense", "moe")
 
 
 # ------------------------------------------------------------------ results
@@ -78,23 +97,24 @@ def _batch_axis(t: torch.Tensor) -> int:
     return 0 if t.dim() <= 4 else 1
 
 
-def _take_slots(cache, idx: torch.Tensor):
-    """A copy of the cache rows of slots ``idx``."""
-    return tree_map(lambda t: t.index_select(_batch_axis(t), idx), cache)
-
-
 def _merge_slots(cache, rows, idx: torch.Tensor) -> None:
-    """Write the prefilled rows back into slots ``idx``; the other slots
-    keep their cache."""
-    tree_map(lambda t, r: t.index_copy_(_batch_axis(t), idx, r), cache, rows)
+    """Copy the slots ``idx`` of ``rows`` (a prefilled copy of the
+    cache) back into the cache; the other slots keep theirs. Through
+    ``uint8`` views for an fp8 cache."""
+    def merge(t, r):
+        ax = _batch_axis(t)
+        raw_view(t).index_copy_(ax, idx, raw_view(r).index_select(ax, idx))
+    tree_map(merge, cache, rows)
 
 
 def serving_params(params, dtype: torch.dtype):
     """The parameter tree as the model reads it at ``dtype``: every
-    floating leaf cast once, except the norms' (read in fp32)."""
+    floating leaf cast once, except the norms' and the moe router's
+    (read in fp32; a bf16 router would change top-k choices)."""
     def cast(tree):
         if isinstance(tree, dict):
-            return {k: tree[k] if k.endswith("_norm") else cast(tree[k]) for k in tree}
+            return {k: tree[k] if k.endswith("_norm") or k == "router" else cast(tree[k])
+                    for k in tree}
         if isinstance(tree, list):
             return [cast(t) for t in tree]
         return tree.to(dtype) if tree.is_floating_point() else tree
@@ -115,6 +135,11 @@ class _BucketState:
         self.active = np.zeros(spec.batch, bool)
         self.gen: List[List[int]] = [[] for _ in range(spec.batch)]
         self.req: List[Optional[Request]] = [None] * spec.batch
+        self.prefill_shapes: set = set()     # chunk shapes prefill ran
+        self.decode_shapes: set = set()      # input shapes eager decode ran (CPU)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.tok_in = self.pos_in = self.tok_out = None   # the graph's static tensors
+        self.graph_k3 = 0                    # flash_decode calls the graph holds
 
 
 class ServeEngine:
@@ -122,8 +147,9 @@ class ServeEngine:
 
     Parameters
     ----------
-    model, params : the served model (the ``dense`` family, which has a
-        chunked-prefill path) and its parameter tree.
+    model, params : the served model (the ``dense`` and ``moe``
+        families, which have a chunked-prefill path) and its parameter
+        tree.
     buckets : the ``BucketSpec`` pool layout.
     prefill_chunk : split each bucket's prefill into chunks of this many
         positions (0, or a width that does not divide the prompt
@@ -157,6 +183,7 @@ class ServeEngine:
         self.results: Dict[int, ServeResult] = {}
         self.n_prefill_calls = 0
         self.n_decode_calls = 0
+        self._graph_stream = None             # where decode graphs are captured
 
     # -- device work ----------------------------------------------------
 
@@ -167,19 +194,22 @@ class ServeEngine:
     @torch.no_grad()
     def _prefill(self, bs: _BucketState, slots: List[int], toks: np.ndarray,
                  last_idx: np.ndarray) -> np.ndarray:
-        """Chunked prefill of the admitted ``slots`` (their padded prompts
-        ``toks`` (n, P)); returns each one's first generated token, the
-        argmax at its last real prompt position."""
+        """Chunked prefill of the bucket batch (the padded prompts ``toks``
+        (batch, P), the admitted ``slots``' rows filled) into a copy of the
+        cache, of which the admitted slots' rows are kept; returns each
+        row's argmax at its ``last_idx``, the admitted slots' first
+        generated tokens."""
         P = toks.shape[1]
         C = self._chunk(P)
         idx = torch.as_tensor(slots, dtype=torch.long, device=self.device)
         toks_t = torch.as_tensor(toks, device=self.device)
         last_t = torch.as_tensor(last_idx, dtype=torch.long, device=self.device)
-        rows = _take_slots(bs.cache, idx)
-        tok = torch.zeros(len(slots), dtype=torch.int32, device=self.device)
+        rows = tree_map(torch.clone, bs.cache)
+        tok = torch.zeros(toks.shape[0], dtype=torch.int32, device=self.device)
         for ci in range(P // C):
-            logits, rows = self.model.prefill(self.params, toks_t[:, ci * C:(ci + 1) * C],
-                                              rows, ci * C)
+            chunk = toks_t[:, ci * C:(ci + 1) * C]
+            bs.prefill_shapes.add(tuple(chunk.shape))
+            logits, rows = self.model.prefill(self.params, chunk, rows, ci * C)
             rel = last_t - ci * C
             in_chunk = (rel >= 0) & (rel < C)
             safe = rel.clamp(0, C - 1)
@@ -188,12 +218,49 @@ class ServeEngine:
         _merge_slots(bs.cache, rows, idx)
         return tok.cpu().numpy()
 
+    def _decode_step(self, bs: _BucketState, tok: torch.Tensor, pos: torch.Tensor):
+        """One decode step of the bucket on its cache (written in place):
+        the greedy next token of every row, (batch,) int32."""
+        logits, bs.cache = self.model.decode_step(self.params, tok, bs.cache, pos)
+        return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+
     @torch.no_grad()
     def _decode(self, bs: _BucketState) -> np.ndarray:
-        tok = torch.as_tensor(bs.last_tok, device=self.device)[:, None]
-        pos = torch.as_tensor(bs.pos, device=self.device)
-        logits, bs.cache = self.model.decode_step(self.params, tok, bs.cache, pos)
-        return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32).cpu().numpy()
+        """One decode tick of the bucket: eager on the CPU; on the card the
+        bucket's graph replayed, captured on the bucket's first tick."""
+        tok = torch.from_numpy(bs.last_tok)[:, None]
+        pos = torch.from_numpy(bs.pos)
+        if self.device.type != "cuda":
+            bs.decode_shapes.add((tuple(tok.shape), tuple(pos.shape)))
+            return self._decode_step(bs, tok, pos).numpy()
+        if bs.graph is None:
+            return self._capture_decode(bs, tok, pos)
+        bs.tok_in.copy_(tok)
+        bs.pos_in.copy_(pos)
+        bs.graph.replay()
+        k_decode.count_replay(bs.graph_k3)
+        return bs.tok_out.cpu().numpy()
+
+    def _capture_decode(self, bs: _BucketState, tok: torch.Tensor, pos: torch.Tensor):
+        """The bucket's first decode tick: run it eagerly on the capture
+        stream (the warm-up), then capture the same step into the
+        bucket's graph. Returns the tick's tokens."""
+        if self._graph_stream is None:
+            self._graph_stream = torch.cuda.Stream(self.device)
+        stream = self._graph_stream
+        bs.tok_in = tok.to(self.device)
+        bs.pos_in = pos.to(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            out = self._decode_step(bs, bs.tok_in, bs.pos_in).cpu().numpy()
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        captured = k_decode.flash_decode.captured
+        with torch.cuda.graph(graph, stream=stream):
+            bs.tok_out = self._decode_step(bs, bs.tok_in, bs.pos_in)
+        bs.graph = graph
+        bs.graph_k3 = k_decode.flash_decode.captured - captured
+        return out
 
     # -- request flow ----------------------------------------------------
 
@@ -230,22 +297,22 @@ class ServeEngine:
         active slots."""
         for bi, lst in self.scheduler.admit().items():
             bs = self.state[bi]
-            toks = np.zeros((len(lst), bs.spec.prompt_ceiling), np.int32)
-            last_idx = np.zeros(len(lst), np.int32)
-            for i, (slot, req) in enumerate(lst):
-                toks[i, :req.prompt_len] = req.prompt
-                last_idx[i] = req.prompt_len - 1
+            toks = np.zeros((bs.spec.batch, bs.spec.prompt_ceiling), np.int32)
+            last_idx = np.zeros(bs.spec.batch, np.int32)
+            for slot, req in lst:
+                toks[slot, :req.prompt_len] = req.prompt
+                last_idx[slot] = req.prompt_len - 1
                 bs.req[slot] = req
                 bs.gen[slot] = []
             tok = self._prefill(bs, [slot for slot, _ in lst], toks, last_idx)
             self.n_prefill_calls += 1
             now = self.clock()
-            for i, (slot, req) in enumerate(lst):
+            for slot, req in lst:
                 req.t_admit = now
                 req.t_first = now
                 bs.active[slot] = True
                 bs.pos[slot] = req.prompt_len
-                self._append_token(bi, slot, tok[i])
+                self._append_token(bi, slot, tok[slot])
 
         for bi, bs in enumerate(self.state):
             if not bs.active.any():
@@ -262,6 +329,16 @@ class ServeEngine:
                 return
             self.step()
         raise RuntimeError(f"not drained after {max_ticks} ticks")
+
+    def compile_counts(self) -> Dict[str, Dict[str, int]]:
+        """Per bucket: the distinct prefill chunk shapes run, and the
+        decode graphs captured (on the CPU the distinct decode shapes
+        run); exactly 1 and 1 in steady state, as the reference's
+        compiled-program census."""
+        return {bs.spec.name: {"prefill": len(bs.prefill_shapes),
+                               "decode": int(bs.graph is not None) if self.device.type == "cuda"
+                               else len(bs.decode_shapes)}
+                for bs in self.state}
 
 
 # -------------------------------------------------------- CNN scoring path

@@ -383,6 +383,136 @@ def test_smoke_generate_on_the_card_matches_the_cpu(cuda):
     assert [r.tokens for r in res] == [r.tokens for r in cpu]
 
 
+# K3's fp8 cache and kimi-k2's head_dim 112: B, H, KV, S, D, q dtype, cache
+# dtype, pos, window (the cache stored (B,S,KV,D), read through a view)
+DECODE_FP8_D112_CASES = [
+    (4, 64, 8, 1024, 112, "bfloat16", "bfloat16", [0, 1023, 517, 33], 0),
+    (4, 64, 8, 2048, 112, "bfloat16", "bfloat16", [2047, 0, 1500, 7], 0),
+    (4, 64, 8, 2048, 112, "float32", "float32", [2047, 3, 700, 1024], 256),
+    (2, 16, 2, 333, 112, "float16", "float16", [332, 100], 0),
+    (4, 32, 8, 2048, 64, "bfloat16", "float8_e4m3fn", [2047, 1535, 1023, 511], 0),
+    (4, 32, 8, 2048, 64, "bfloat16", "float8_e4m3fn", [2047, 3, 700, 255], 256),
+    (4, 64, 8, 2048, 112, "bfloat16", "float8_e4m3fn", [2047, 1535, 1023, 511], 0),
+    (4, 64, 8, 2048, 112, "bfloat16", "float8_e4m3fn", [2047, 3, 700, 255], 256),
+    (2, 8, 2, 500, 128, "float32", "float8_e4m3fn", [499, 0], 0),
+    (2, 8, 2, 500, 32, "float16", "float8_e4m3fn", [250, 499], 100),
+    (1, 8, 1, 300, 256, "bfloat16", "float8_e4m3fn", 299, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DECODE_FP8_D112_CASES)
+def test_flash_decode_fp8_cache_and_d112_match_plain_on_the_card(cuda, case):
+    """fp32 q on an fp32 cache 2e-5, else 2e-2 (the reference's
+    tolerances); the plain version reads the fp8 cache upcast, as the
+    kernel does, so the comparison holds the kernel's arithmetic."""
+    B, H, KV, S, D, qdt, kvdt, pos, window = case
+    gen = torch.Generator(device=cuda).manual_seed(S + D)
+    q = torch.randn((B, H, 1, D), generator=gen, device=cuda).to(getattr(torch, qdt))
+    k, v = (torch.randn((B, S, KV, D), generator=gen, device=cuda).to(getattr(torch, kvdt))
+            .transpose(1, 2) for _ in range(2))
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=cuda) if isinstance(pos, list) else pos
+    got = k_decode.flash_decode(q, k, v, pos_t, window)
+    expect = ref.decode_attention(q, k, v, pos_t, window)
+    tol = 2e-5 if kvdt == "float32" else 2e-2
+    assert got.dtype == q.dtype and got.shape == (B, H, 1, D)
+    torch.testing.assert_close(got.float(), expect.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_decode_refuses_mixed_caches(cuda):
+    q = torch.zeros((1, 4, 1, 112), device=cuda, dtype=torch.bfloat16)
+    k8 = torch.zeros((1, 2, 16, 112), device=cuda).to(torch.float8_e4m3fn)
+    with pytest.raises(TypeError, match="one type"):
+        k_decode.flash_decode(q, k8, k8.to(torch.bfloat16), 3)
+    with pytest.raises(TypeError, match="one type"):
+        k_decode.flash_decode(q, k8.to(torch.float8_e5m2), k8.to(torch.float8_e5m2), 3)
+    with pytest.raises(ValueError, match="D in"):
+        k_decode.flash_decode(torch.zeros((1, 4, 1, 96), device=cuda),
+                              torch.zeros((1, 2, 16, 96), device=cuda),
+                              torch.zeros((1, 2, 16, 96), device=cuda), 3)
+
+
+def _moe_smoke(dtype="float32", **kw):
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = replace(get_config("kimi-k2-1t-a32b").smoke(), dtype=dtype, **kw)
+    model = build_model(cfg)
+    return model, model.init(torch.Generator().manual_seed(0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-3-2b", "kimi-k2-1t-a32b"])
+def test_graphed_engine_matches_the_cpu_and_counts_one_graph_a_bucket(cuda, arch):
+    """The smoke config (fp32) through the engine on the card, each
+    bucket's decode a CUDA graph, against the eager engine on the CPU:
+    the same tokens; compile_counts() is 1 prefill shape and 1 decode
+    graph a bucket, and K3 launched once a layer a decode call: the
+    first tick's warm-up eagerly, the capture not at all, every replay
+    counted by the engine."""
+    from repro_torch import serve
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    model = build_model(get_config(arch).smoke())
+    params = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, model.cfg.vocab_size, size=n) for n in (3, 7, 12, 25, 5, 18)]
+    buckets = (serve.BucketSpec(2, 16), serve.BucketSpec(2, 48))
+    before = k_decode.flash_decode.launches
+    res, eng = serve.generate(model, params, prompts, max_new_tokens=6, buckets=buckets,
+                              device=cuda, return_engine=True)
+    assert k_decode.flash_decode.launches - before == model.cfg.n_layers * eng.n_decode_calls
+    assert [bs.graph_k3 for bs in eng.state] == [model.cfg.n_layers] * len(buckets)
+    assert all(bs.graph is not None for bs in eng.state)
+    assert eng.compile_counts() == {"b2xs16": {"prefill": 1, "decode": 1},
+                                    "b2xs48": {"prefill": 1, "decode": 1}}
+    cpu = serve.generate(model, params, prompts, max_new_tokens=6, buckets=buckets, device="cpu")
+    assert [r.tokens for r in res] == [r.tokens for r in cpu]
+
+
+@pytest.mark.cuda
+def test_graph_replays_equal_an_eager_decode_loop(cuda):
+    """kimi's smoke config in bf16 with an fp8 cache: one bucket's first 8
+    ticks through the graph against an eager ``decode_step`` loop on the
+    card from the same prefilled cache: the same tokens, bitwise (the
+    same kernels on the same inputs)."""
+    from repro_torch import serve
+    from repro_torch.utils.tree import tree_map
+
+    model, params = _moe_smoke("bfloat16", cache_dtype="float8_e4m3fn")
+    eng = serve.make_engine(model, params, buckets=(serve.BucketSpec(4, 64),), device=cuda)
+    snap = {}
+    decode = eng._decode
+
+    def spy(bs):
+        if not snap:
+            snap.update(cache=tree_map(torch.clone, bs.cache), tok=bs.last_tok.copy(),
+                        pos=bs.pos.copy())
+        out = decode(bs)
+        snap.setdefault("ticks", []).append(out.copy())
+        return out
+
+    eng._decode = spy
+    rng = np.random.default_rng(1)
+    for rid, n in enumerate((5, 17, 30, 9)):
+        eng.submit(serve.Request(rid=rid, prompt=rng.integers(0, model.cfg.vocab_size, n)
+                                 .astype(np.int32), max_new_tokens=9))
+    for _ in range(8):
+        eng.step()
+    cache = snap["cache"]
+    tok = torch.as_tensor(snap["tok"], device=cuda)[:, None]
+    pos = torch.as_tensor(snap["pos"], device=cuda)
+    with torch.no_grad():
+        for t in range(8):
+            logits, cache = model.decode_step(eng.params, tok, cache, pos)
+            nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+            assert np.array_equal(nxt.cpu().numpy(), snap["ticks"][t]), t
+            tok, pos = nxt[:, None], pos + 1
+
+
 # tests/test_kernels.py's FLASH_CASES (B, H, KV, S, D, causal, window, bq,
 # bk) with q_offset 0, then q_offset / no-valid-key / ragged cases:
 # (B, H, KV, Sq, Sk, D, causal, window, q_offset)
@@ -731,3 +861,25 @@ def test_hier_churn_round_on_the_card_matches_the_cpu(cuda, monkeypatch):
     absent = ~m_card.present
     for a, b in zip(tree_leaves(new_card.params), tree_leaves(s_card.params)):
         assert torch.equal(a[absent], b[absent])
+
+
+@pytest.mark.cuda
+def test_a_capture_that_fails_raises(cuda, monkeypatch):
+    """A decode step that syncs with the host cannot be captured: the
+    engine raises and does not fall back to eager decode. Last in the
+    file: a failed capture may leave the process's CUDA state unusable."""
+    from repro_torch import serve
+
+    model, params = _moe_smoke()
+    eng = serve.make_engine(model, params, buckets=(serve.BucketSpec(2, 16),), device=cuda)
+    real = eng._decode_step
+
+    def syncing(bs, tok, pos):
+        out = real(bs, tok, pos)
+        out.cpu()
+        return out
+
+    monkeypatch.setattr(eng, "_decode_step", syncing)
+    eng.submit(serve.Request(rid=0, prompt=np.arange(4, dtype=np.int32), max_new_tokens=3))
+    with pytest.raises(RuntimeError, match="captur"):
+        eng.run_until_drained()

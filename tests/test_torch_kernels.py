@@ -207,11 +207,13 @@ def test_plain_decode_attention_reads_a_strided_cache():
     (64, 8, 2048, 64, (1024, 2)),       # many (row, kv head) pairs: few splits
     (1, 8, 300, 256, (8, 38)),
     (1, 1, 32768, 64, (512, 64)),       # a long cache: capped at MAX_SPLITS ranges
+    (4, 8, 2048, 112, (128, 16)),       # kimi-k2's D: tiles of 16 keys at 128 padded dims
+    (4, 8, 1000, 112, (64, 16)),
 ])
 def test_decode_split_plan(B, KV, S, D, expect):
     chunk, n_split = k_decode.split_plan(B, KV, S, D, 132)
     assert (chunk, n_split) == expect
-    tile = k_decode.TILE_ELEMS // D
+    tile = k_decode.TILE_ELEMS // k_decode.padded_dims(D)
     assert chunk % tile == 0 and (n_split - 1) * chunk < S <= n_split * chunk
     assert n_split <= k_decode.MAX_SPLITS
 
