@@ -22,11 +22,11 @@ exits non-zero and prints no result. It imports nothing of JAX. Phases:
    against 3, and the scaling axis' (64,56) pod against 2;
    param_stats also over each train stack of the bucketed layout of the
    full Table I at 32 px, rows up to 2.4 M elements, one launch a
-   bucket; both over phase 15's first LM uploads, K1 also against
-   float64 ``torch.var_mean`` and K2 at (6,22)x(2,22) and (6,222)x(2,222)
-   from their features), and time kernel, plain version and a PyTorch
-   yardstick (K1 also at both LM uploads: 5.34 GB in one launch, 2.8 GB
-   in two);
+   bucket; both over phase 15's first LM uploads and phase 18 (e)'s
+   (mamba2 at 37 layers: 335 leaves in 6 launches), K1 also against
+   float64 ``torch.var_mean`` and K2 at (6,22)x(2,22), (6,222)x(2,222)
+   and (6,670)x(2,670) from their features), and time kernel, plain
+   version and a PyTorch yardstick (K1 also at the three LM uploads);
 3. drive the main path: ``SwarmTrainer`` on squeezenet-dr at full width
    on the full Table I (3,657 images at 32 px, 14 clinics), adam at lr
    2e-3, batch 8, 12 local steps, k=3, p1=0.9, p2=0.8, 20 k-means
@@ -130,7 +130,8 @@ exits non-zero and prints no result. It imports nothing of JAX. Phases:
    bitwise the in-memory reductions) and served through the engine with
    the flash_decode launches of the drain asserted, the tokens equal to
    those served from the in-memory params; (b)
-   ``repro_torch.launch.train.main`` in single mode on the 100m preset,
+   ``repro_torch.launch.train.train_single`` (single mode's trainer,
+   on ``main``'s parsed arguments) on the 100m preset,
    30 steps with a checkpoint: the loss falls, the checkpoint restores
    bitwise, tok/s end to end and the step alone printed;
 17. serve the moe family: (a) kimi-k2-1t-a32b at full width (d_model
@@ -143,13 +144,39 @@ exits non-zero and prints no result. It imports nothing of JAX. Phases:
    beside the bytes it reads, peak memory, a profiled tick; (b) the same
    model's decode logits on an fp8 cache against a bf16 one (within 0.2
    of max |logit|, the reference's bound); (c) llama4-maverick's
-   ``smoke()`` config through the same engine, drained, 1/1.
+   ``smoke()`` config through the same engine, drained, 1/1;
+18. the ssm and hybrid families: (a) mamba2-370m as registered (48
+   layers, d_model 1024, 32 SSD heads of 64, state 128, vocab 50,280,
+   bf16 activations, uncut) through ``run_serve(smoke=False,
+   engine="auto")``, which takes the per-token loop: 4 prompts of 64
+   tokens and 64 new tokens, tok/s, ms a decode step and peak memory, a
+   profiled step; (b) zamba2-1.2b as registered (38 layers, d_model
+   2048, the shared attention block of 32/32 heads of 64 after every 6th
+   layer, window 8,192, uncut) the same way, K3 = 6 launches a decode
+   step asserted, its share of a profiled step, positions below the
+   window; (c) K3 at zamba2's shape, bf16 and fp32 (4,32,1,64) against
+   (4,S,32,64) at S 129 (the loop's cache) and 4,096, per-row and scalar
+   positions, held against its plain version (bf16 within 2e-2 of the
+   output's largest magnitude) and timed beside SDPA and its bound;
+   (d) mamba2's and zamba2's ``smoke()`` configs in fp32 through the
+   loop on the card and on the CPU: tokens equal, decode logits within
+   1e-3; (e) phase 15's swarm settings on mamba2-370m at full width with
+   its depth cut to 37 layers, the deepest one card holds after the
+   earlier phases (each cut printed), 2 rounds with K1 and K2 launches
+   asserted, round seconds, peak memory, a profiled round; then one
+   zamba2 ``smoke()`` round on the card and on the CPU, compared as
+   phase 15 (c).
+
+``python3 chip_smoke.py --ssm-depth-probe 36 37 38 39`` runs only phase
+18 (e)'s mamba2 round at each depth, alone, and prints each peak up to
+the first depth that runs out of memory.
 
 Any failure raises. The line before the last is one JSON object
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import re
@@ -188,6 +215,22 @@ MOE_EAGER_TICKS = 8               # graph replays held against an eager decode l
 MOE_FP8_STEPS = 4                 # decode steps of the fp8 cache against the bf16 one
 MOE_FP8_RTOL = 0.2                # max |logit diff| / max |logit|, tests/test_perf_variants.py:51
 MOE_SMOKE_ARCH = "llama4-maverick-400b-a17b"
+# the ssm and hybrid families (phase 18): served as registered through
+# run_serve's per-token loop, then the swarm over mamba2 with its depth cut
+SSM_ARCH = "mamba2-370m"
+HYBRID_ARCH = "zamba2-1.2b"
+SSM_SERVE_BATCH = 4
+SSM_PROMPT_LEN = 64
+SSM_NEW_TOKENS = 64
+SSM_WINDOW = 8192                 # zamba2's sliding window, which K3 receives
+# zamba2's K3 shape held and timed at these cache lengths: the loop's
+# (prompt + new tokens + 1 positions, loop_generate) and a long one
+SSM_K3_SEQS = (SSM_PROMPT_LEN + SSM_NEW_TOKENS + 1, 4096)
+# the deepest mamba2 one card holds for 6 clients with adam after the
+# earlier phases: 38 runs out of memory there (alone, 38 fits and 39 does
+# not: ``--ssm-depth-probe``; PERF.md §4)
+SSM_SWARM_LAYERS = 37
+SSM_SWARM_ROUNDS = 2
 EAGER_TICK = "234.7 ms, busy 6.6-8.7% (eager decode, PERF.md §5)"
 
 # flash_attention's path (phases 8 and 9): granite-3-2b's prefill shape
@@ -1002,33 +1045,38 @@ def check_flash_decode_graph(torch, dev, gen):
             f"{(out.float() - expect.float()).abs().max().item():.3e} (tol 0.02)")
 
 
-def time_flash_decode(torch, dev, H: int = 32, D: int = 64, cache=None, label: str = "granite"):
+def time_flash_decode(torch, dev, H: int = 32, D: int = 64, cache=None, label: str = "granite",
+                      KV: int = 8, S: int = 2048, window: int = 0):
     """K3 at the larger serve bucket: q (4,H,1,D) bf16 against a cache
-    stored (4,2048,8,D) in ``cache``'s dtype (bf16 unless given), rows at
-    2047, 1535, 1023 and 511. The library call is SDPA on the bf16 cache;
-    on an fp8 cache, the cache upcast to bf16 and then SDPA (twice the
-    cache's bytes read, and a bf16 copy written)."""
+    stored (4,S,KV,D) in ``cache``'s dtype (bf16 unless given), rows at
+    S, 3S/4, S/2 and S/4 less one, under ``window`` (0: none; the rows
+    here lie inside any window given). The library call is SDPA on the
+    bf16 cache; on an fp8 cache, the cache upcast to bf16 and then SDPA
+    (twice the cache's bytes read, and a bf16 copy written)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_decode, ref
     gen = torch.Generator(device=dev).manual_seed(4)
-    B, KV, S = 4, 8, 2048
+    B = 4
+    assert window == 0 or window >= S
     cache = cache or torch.bfloat16
     q, k, v = _decode_case(torch, dev, gen, B, H, KV, S, D, (torch.bfloat16, cache))
-    pos = torch.tensor([2047, 1535, 1023, 511], dtype=torch.int32, device=dev)
+    pos = torch.tensor([S - 1, 3 * S // 4 - 1, S // 2 - 1, S // 4 - 1], dtype=torch.int32,
+                       device=dev)
     mask = torch.arange(S, device=dev)[None, None, None, :] <= pos[:, None, None, None]
 
     def kernel():
-        flash_decode.flash_decode(q, k, v, pos)
+        flash_decode.flash_decode(q, k, v, pos, window)
 
     def plain():
-        ref.decode_attention(q, k, v, pos)
+        ref.decode_attention(q, k, v, pos, window)
 
     def library():
         return F.scaled_dot_product_attention(q, k.to(q.dtype), v.to(q.dtype), attn_mask=mask,
                                               enable_gqa=True)
 
-    lib_err = (library().float() - ref.decode_attention(q, k, v, pos).float()).abs().max().item()
+    lib_err = (library().float()
+               - ref.decode_attention(q, k, v, pos, window).float()).abs().max().item()
     ms, plain_ms, lib_ms = (cuda_ms(torch, f, reps=200) for f in (kernel, plain, library))
     name = f"flash_decode {label} (4,{H},1,{D}) vs a (4,{S},{KV},{D}) {str(cache)[6:]} cache"
     log(f"[kernels] {name} device time alone (CUDA graph of one call): "
@@ -1472,6 +1520,278 @@ def moe_smoke_serve(torch, dev):
                                                       f"moe_every {cfg.moe_every})")
     log(f"[moe] (c) {cfg.arch_id}: {sum(len(r.tokens) for r in res)} tokens in {wall:.3f} s")
     return launches
+
+
+# ---------------------------------------------------------------- phase 18
+
+
+def _profiled_decode_step(torch, model, params, dev, arch: str, pos: int) -> dict:
+    """One decode step of ``model`` (``SSM_SERVE_BATCH`` rows, a fresh
+    cache of the loop's length) at position ``pos`` under
+    ``torch.profiler``, after one unprofiled step there. The step's device
+    work does not depend on what the cache holds (K3 reads the ``pos + 1``
+    columns of each row). Returns {step_wall_ms, busy_ms, k3_ms}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train.steps import make_serve_step
+
+    cache = model.init_cache(SSM_SERVE_BATCH, SSM_PROMPT_LEN + SSM_NEW_TOKENS + 1, dev)
+    step = make_serve_step(model)
+    tok = torch.zeros((SSM_SERVE_BATCH, 1), dtype=torch.int32, device=dev)
+    step(params, tok, cache, pos)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, tok, cache, pos)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_us, spans = device_busy_us(prof)
+    k3_us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                if e.device_type == DeviceType.CUDA and "flash_decode_" in e.name)
+    out = {"step_wall_ms": wall_ms, "busy_ms": busy_us / 1e3, "k3_ms": k3_us / 1e3}
+    log(f"[ssm] {arch}: a profiled decode step at position {pos}, {wall_ms:.2f} ms wall: "
+        f"{len(spans)} device events, device busy {out['busy_ms']:.3f} ms "
+        f"({out['busy_ms'] / wall_ms:.1%}), idle {1 - out['busy_ms'] / wall_ms:.1%}; "
+        f"flash_decode {out['k3_ms']:.4f} ms ({out['k3_ms'] / max(out['busy_ms'], 1e-9):.2%} of "
+        f"the busy time)")
+    table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=8)
+    for line in table.splitlines():
+        log(f"[profile] {line}")
+    return out
+
+
+def ssm_serve_path(torch, dev, arch: str, card: str) -> tuple:
+    """Phase 18 (a) / (b): ``arch`` as registered, uncut, through
+    ``run_serve(..., smoke=False, engine="auto")``, which must take the
+    per-token loop: ``SSM_SERVE_BATCH`` prompts of ``SSM_PROMPT_LEN``
+    tokens and ``SSM_NEW_TOKENS`` new ones, every prompt token and every
+    new token but the last one decode step. K3 launches from this run
+    alone: once a shared attention block a step. Before it, on the same
+    model and weights as run_serve builds them: a warm-up (cuBLAS set-up,
+    first launches) and a profiled decode step at the run's last
+    position. Returns (K3 launches, {tok_s, step_ms, wall_s, peak_gb, and
+    the profiled step's})."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode
+    from repro_torch.launch.serve import loop_generate, run_serve
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch)
+    n_shared = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else 0
+    steps = SSM_PROMPT_LEN + SSM_NEW_TOKENS - 1
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    loop_generate(model, params, torch.zeros((SSM_SERVE_BATCH, 2), dtype=torch.int32,
+                                             device=dev), 2)
+    profiled = _profiled_decode_step(torch, model, params, dev, arch, steps - 1)
+    del model, params
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_decode.flash_decode.launches = 0
+    gen, info = run_serve(arch, batch=SSM_SERVE_BATCH, prompt_len=SSM_PROMPT_LEN,
+                          tokens=SSM_NEW_TOKENS, smoke=False, engine="auto", device=dev)
+    launches = flash_decode.flash_decode.launches
+    want = n_shared * steps
+    out = {"tok_s": info["tok_per_s"], "step_ms": info["wall_s"] / steps * 1e3,
+           "wall_s": info["wall_s"], "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"[ssm] {arch} as registered: {cfg.family}, {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_ssm_heads} SSD heads of {cfg.ssm_head_dim}, state "
+        f"{cfg.ssm_state}, vocab {cfg.vocab_size}, activations {cfg.dtype}"
+        + (f"; the shared block ({cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+           f"{cfg.d_ff}) after every {cfg.attn_every}th layer, window {cfg.sliding_window}"
+           if n_shared else ""))
+    log(f"[ssm] {arch}: run_serve path {info['path']!r}, {SSM_SERVE_BATCH} prompts of "
+        f"{SSM_PROMPT_LEN} tokens, {SSM_NEW_TOKENS} new tokens: {steps} decode steps in "
+        f"{info['wall_s']:.3f} s, {out['tok_s']:.2f} tok/s (new tokens), {out['step_ms']:.2f} ms "
+        f"a decode step; peak device memory {out['peak_gb']:.2f} GB; flash_decode launches "
+        f"{launches}, expected {n_shared} x {steps} = {want} ({card})")
+    log(f"[ssm] {arch}: tokens of prompt 0: {gen[0, :12].tolist()}")
+    assert info["path"] == "loop", f"{arch} served through {info['path']}"
+    assert gen.shape == (SSM_SERVE_BATCH, SSM_NEW_TOKENS), gen.shape
+    assert ((gen >= 0) & (gen < cfg.padded_vocab)).all(), f"{arch}: a token out of range"
+    assert launches == want, f"{arch}: flash_decode launches {launches} != {want}"
+    if n_shared:
+        last = steps - 1
+        log(f"[ssm] {arch}: positions 0..{last} stay below the {cfg.sliding_window}-position "
+            f"window: K3 receives window={cfg.sliding_window} and masks no key here")
+        assert last < cfg.sliding_window
+    out.update(profiled)
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def check_flash_decode_zamba(torch, dev):
+    """Phase 18 (c): K3 at zamba2's decode shape, q (4,32,1,64) against a
+    cache stored (4,S,32,64) (G = 1), at each of ``SSM_K3_SEQS`` (the
+    loop's 129-position cache, whose last column is a ragged tile, and
+    4,096) under zamba2's window, with per-row positions and with one
+    scalar position, S - 3 (at 129 the loop's last decode step, 126, as
+    the loop passes it), against its plain version: fp32 within 2e-5,
+    bf16 within 2e-2 of the plain output's largest magnitude (two bf16
+    steps at it; the outputs are means of O(1) values over up to S keys,
+    so a flat 2e-2 would pass a kernel that dropped keys). Returns the max
+    abs error of the bf16 cases."""
+    from repro_torch.kernels import flash_decode, ref
+    gen = torch.Generator(device=dev).manual_seed(18)
+    err_bf16 = 0.0
+    for S in SSM_K3_SEQS:
+        rows = torch.tensor([S - 1, 0, S // 2, 3 * S // 4 - 1], dtype=torch.int32, device=dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            for pos in (rows, S - 3):
+                q, k, v = _decode_case(torch, dev, gen, 4, 32, 32, S, 64, dtype)
+                got = flash_decode.flash_decode(q, k, v, pos, SSM_WINDOW)
+                expect = ref.decode_attention(q, k, v, pos, SSM_WINDOW).float()
+                torch.cuda.synchronize()
+                scale = expect.abs().max().item()
+                tol = 2e-5 if dtype == torch.float32 else 2e-2 * scale
+                err = (got.float() - expect).abs().max().item()
+                at = f"pos {pos.tolist() if torch.is_tensor(pos) else pos}"
+                log(f"[kernels] flash_decode zamba2 (4,32,1,64) vs (4,{S},32,64) "
+                    f"{str(dtype)[6:]}, {at}, window {SSM_WINDOW}: max abs err {err:.3e} (tol "
+                    f"{tol:.3e}; max |out| {scale:.3f})")
+                assert err <= tol, f"flash_decode zamba2 S={S} {dtype} {at}: {err} > {tol}"
+                if dtype == torch.bfloat16:
+                    err_bf16 = max(err_bf16, err)
+    return err_bf16
+
+
+def card_vs_cpu_ssm_serve(torch, dev, arch: str):
+    """Phase 18 (d): ``arch``'s smoke config in fp32 through the per-token
+    loop on the card and on the CPU from the same weights: the tokens,
+    then the decode logits teacher-forced on the prompt and the CPU's
+    tokens. Returns (tokens equal, max |logit diff|, max |logit|)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import loop_generate
+    from repro_torch.models import build_model
+    from repro_torch.utils.tree import tree_map
+
+    model = build_model(get_config(arch).smoke())
+    cfg = model.cfg
+    params = model.init(torch.Generator().manual_seed(0))
+    params_card = tree_map(lambda t: t.to(dev), params)
+    prompts = torch.from_numpy(np.random.default_rng(7).integers(0, cfg.vocab_size, (2, 9)))
+    card = loop_generate(model, params_card, prompts.to(dev), 8).cpu()
+    cpu = loop_generate(model, params, prompts, 8)
+    seq = torch.cat([prompts, cpu.long()], 1)
+    diff = scale = 0.0
+    with torch.no_grad():
+        c_card = model.init_cache(2, seq.shape[1], dev)
+        c_cpu = model.init_cache(2, seq.shape[1], "cpu")
+        for t in range(seq.shape[1]):
+            a, _ = model.decode_step(params_card, seq[:, t:t + 1].to(dev), c_card, t)
+            b, _ = model.decode_step(params, seq[:, t:t + 1], c_cpu, t)
+            diff = max(diff, (a.cpu() - b).abs().max().item())
+            scale = max(scale, b.abs().max().item())
+    log(f"[card-vs-cpu ssm] {cfg.arch_id} ({cfg.family}, fp32): tokens card {card.tolist()} / "
+        f"cpu {cpu.tolist()}; max |logit diff| {diff:.3e} over {seq.shape[1]} decode steps "
+        f"(max |logit| {scale:.3f})")
+    return torch.equal(card, cpu), diff, scale
+
+
+def ssm_swarm(torch, dev, lm_data, card: str):
+    """Phase 18 (e): phase 15's swarm settings on mamba2-370m at full width
+    with its depth cut to ``SSM_SWARM_LAYERS``, ``SSM_SWARM_ROUNDS``
+    rounds with the coordinator's launch counts asserted (``lm_fit``) and
+    a profiled round; then one round of zamba2's smoke config on the card
+    and on the CPU from one state and one set of draws. Returns
+    (launches, round seconds, peak bytes)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import make_token_swarm_data
+
+    full, cfg = get_config(SSM_ARCH), _ssm_swarm_config()
+    log(f"reduced: {SSM_ARCH} n_layers {full.n_layers} → {SSM_SWARM_LAYERS} in the swarm round "
+        f"(6 clients' params, adam state, gradients and transients on one card; "
+        f"{SSM_SWARM_LAYERS + 1} run out of memory after the earlier phases)")
+    log(f"reduced: token data vocab {full.vocab_size} → {LM_DATA_VOCAB} (phase 15's data; the "
+        f"model keeps its {full.vocab_size}-row embedding and read-out)")
+    tr, launches, secs, peak = lm_fit(torch, dev, cfg, lm_data, SSM_SWARM_ROUNDS, "ssm")
+    log(f"[lm ssm] round seconds {[round(s, 4) for s in secs]}; peak {peak / 1e9:.2f} GB of the "
+        f"card's {torch.cuda.get_device_properties(dev).total_memory / 1e9:.1f} GB at "
+        f"{SSM_SWARM_LAYERS} layers ({card})")
+    profile_round(torch, tr)
+    del tr
+    torch.cuda.empty_cache()
+    smoke_cfg = get_config(HYBRID_ARCH).smoke()
+    smoke_data = make_token_swarm_data(LM_CLIENTS, smoke_cfg.vocab_size, n_seqs=LM_SEQS,
+                                       seq_len=LM_SEQ_LEN)
+    diff, m_card, m_cpu = card_vs_cpu(torch, lm_trainer(dev, smoke_cfg, smoke_data, 1),
+                                      smoke_data, local_steps=2, eps=1e-6, batch=LM_BATCH,
+                                      k=LM_CLUSTERS)
+    log(f"[card-vs-cpu ssm swarm] {smoke_cfg.arch_id}, 2 local steps, adam eps 1e-6: assignments "
+        f"{m_card.assignments.tolist()} / {m_cpu.assignments.tolist()}, centers "
+        f"{m_card.centers.tolist()} / {m_cpu.centers.tolist()}, max |param diff| {diff:.3e}, "
+        f"max |val acc diff| {(m_card.val_acc.cpu() - m_cpu.val_acc).abs().max().item():.3e}")
+    assert torch.equal(m_card.assignments.cpu(), m_cpu.assignments), "zamba2 assignments differ"
+    assert torch.equal(m_card.centers.cpu(), m_cpu.centers), "zamba2 centers differ"
+    # atol 1e-4, as phase 4
+    assert diff <= 1e-4, f"card and CPU zamba2 params differ by {diff}"
+    return launches, secs, peak
+
+
+def ssm_depth_probe(torch, dev, depths) -> int:
+    """``--ssm-depth-probe N ...``: one round of phase 18 (e)'s mamba2 fit
+    at each depth in ascending order, alone in this process, its peak
+    device memory printed, up to the first depth that runs out of memory.
+    Its reading sets ``SSM_SWARM_LAYERS`` (PERF.md §4)."""
+    import gc
+
+    from repro_torch.kernels import _build
+    _build.build()
+    card = card_line()
+    log(card)
+    lm_data = lm_clients(LM_DATA_VOCAB)
+    total = torch.cuda.get_device_properties(dev).total_memory / 1e9
+    for n in sorted(depths):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tr = None
+        try:
+            tr = lm_trainer(dev, _ssm_swarm_config(n), lm_data, 1)
+            tr.round()
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError as e:
+            log(f"[depth probe] {SSM_ARCH} at {n} layers: out of memory in the round "
+                f"({str(e).splitlines()[0]}) ({card})")
+            return 0
+        finally:
+            tr = None
+        log(f"[depth probe] {SSM_ARCH} at {n} layers: one round, peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB of the card's {total:.1f} GB "
+            f"({card})")
+    return 0
+
+
+def ssm_phase(torch, dev, lm_data, card: str) -> dict:
+    """Phase 18 (a)-(e). Returns what the [done] line and the kernels line
+    read: K1 / K2 launch counts of (e), K3 launches of (b), and the
+    numbers printed."""
+    import gc
+    # what earlier phases left in reference cycles (an engine and its
+    # graphs) would count in this phase's peak memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _, mamba = ssm_serve_path(torch, dev, SSM_ARCH, card)
+    k3, zamba = ssm_serve_path(torch, dev, HYBRID_ARCH, card)
+    log(f"[ssm] zamba2 decode step: flash_decode {zamba['k3_ms']:.4f} ms of {zamba['busy_ms']:.3f} "
+        f"ms busy ({zamba['k3_ms'] / max(zamba['busy_ms'], 1e-9):.2%}) ({card})")
+    k3_err = check_flash_decode_zamba(torch, dev)
+    times = {S: time_flash_decode(torch, dev, 32, 64, label="zamba2", KV=32, S=S,
+                                  window=SSM_WINDOW) for S in SSM_K3_SEQS}
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        same, diff, _ = card_vs_cpu_ssm_serve(torch, dev, arch)
+        assert same, f"{arch}: card and CPU generate different tokens in fp32"
+        # 1e-3, as phase 7
+        assert diff <= 1e-3, f"{arch}: card and CPU logits differ by {diff}"
+    launches, secs, peak = ssm_swarm(torch, dev, lm_data, card)
+    log(f"[ssm] phase 18 in {time.perf_counter() - t0:.1f} s")
+    return {"k3": k3, "k3_err": k3_err, "k3_times": times, "mamba": mamba, "zamba": zamba,
+            "launches": launches, "round_s": secs, "peak_gb": peak / 1e9}
 
 
 # ------------------------------------------------------------ phases 8-11
@@ -2258,13 +2578,15 @@ def hier_scaling(torch, dev):
 
 
 def lm_stacks(torch, dev):
-    """The two LM fits' client stacks as their first round uploads them:
-    ``LM_CLIENTS`` models from one generator seeded 0, as
-    ``make_swarm_state`` builds them. Returns {name: (cfg, stacked)}."""
+    """The LM fits' client stacks as their first round uploads them (phase
+    15's two and phase 18 (e)'s mamba2): ``LM_CLIENTS`` models from one
+    generator seeded 0, as ``make_swarm_state`` builds them. Returns
+    {name: (cfg, stacked)}."""
     from repro_torch.models import build_model
     from repro_torch.utils.tree import tree_stack
     out = {}
-    for name, cfg in (("granite", _lm_config()), ("100m", _preset_config())):
+    for name, cfg in (("granite", _lm_config()), ("100m", _preset_config()),
+                      ("mamba2", _ssm_swarm_config())):
         model = build_model(cfg)
         gen = torch.Generator(device=dev).manual_seed(0)
         out[name] = (cfg, tree_stack([model.init(gen) for _ in range(LM_CLIENTS)]))
@@ -2280,6 +2602,13 @@ def _lm_config():
 def _preset_config():
     from repro_torch.launch.train import preset_config
     return preset_config(LM_PRESET)
+
+
+def _ssm_swarm_config(n_layers: int | None = None):
+    """mamba2-370m as registered, cut to ``n_layers`` layers
+    (``SSM_SWARM_LAYERS`` unless given)."""
+    from repro_torch.configs import get_config
+    return replace(get_config(SSM_ARCH), n_layers=n_layers or SSM_SWARM_LAYERS)
 
 
 def check_lm_coordinator(torch, dev, stacks):
@@ -2499,9 +2828,10 @@ def lm_checkpoint_serve(torch, dev, tr, clients):
 
 
 def train_single_path(torch):
-    """Phase 16 (b): ``repro_torch.launch.train``'s ``main`` in single
-    mode on the ``LM_PRESET`` preset for ``TRAIN_STEPS`` steps with a
-    checkpoint, on the card; the loss falls and the checkpoint restores
+    """Phase 16 (b): ``repro_torch.launch.train``'s ``train_single`` (what
+    ``main`` runs in single mode) on ``main``'s parsed arguments, the
+    ``LM_PRESET`` preset for ``TRAIN_STEPS`` steps with a checkpoint, on
+    the card; the loss falls and the checkpoint restores
     bitwise; then the train step alone, timed on one batch. Returns (ce
     of each step, wall seconds, tok/s end to end, seconds a step
     alone)."""
@@ -2522,7 +2852,7 @@ def train_single_path(torch):
                 "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--ckpt", ckpt]
         log(f"[train] python -m repro_torch.launch.train {' '.join(argv[:-1])} <tmp>")
         t0 = time.perf_counter()
-        params, ces = train.main(argv)
+        params, ces = train.train_single(train.parse_args(argv))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         restored, step = restore_into(tree_map(torch.empty_like, params), ckpt)
@@ -2570,6 +2900,11 @@ def _kernel_line(name, source, replaces, launches, err, times) -> dict:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description="Bring-up check of the PyTorch/CUDA port on one "
+                                 "card; with no arguments, every phase.")
+    ap.add_argument("--ssm-depth-probe", type=int, nargs="+", metavar="LAYERS",
+                    help="only phase 18 (e)'s mamba2 round at each depth (ssm_depth_probe)")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the card", file=sys.stderr)
@@ -2579,6 +2914,8 @@ def main() -> int:
               "is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    if args.ssm_depth_probe:
+        return ssm_depth_probe(torch, torch.device("cuda"), args.ssm_depth_probe)
     from repro_torch.core.diststats import swarm_distribution_matrix
     from repro_torch.data.dr import make_dr_swarm_data, scale_table
     from repro_torch.kernels import _build
@@ -2632,7 +2969,7 @@ def main() -> int:
         f"wrapper): {cuda_ms(torch, lambda: swarm_distribution_matrix(stacked)):.4f} ms a call")
     log(f"[kernels] kmeans_assign (14,56)x(3,56): kernel {k2[0]:.4f} ms, plain {k2[1]:.4f} ms, "
         f"cdist+argmin {k2[2]:.4f} ms, bound {k2[3]:.7f} ms ({k2[4]})")
-    # the LM path's shapes (phase 15): both fits' first uploads
+    # the LM paths' shapes (phases 15 and 18 (e)): the fits' first uploads
     lm = lm_stacks(torch, dev)
     k1_lm_err, lm_feats = check_lm_coordinator(torch, dev, lm)
     k1_err = max(k1_err, k1_lm_err)
@@ -2827,20 +3164,26 @@ def main() -> int:
     torch.cuda.empty_cache()
     k3_moe += moe_smoke_serve(torch, dev)
     log(f"[moe] phase 17 in {time.perf_counter() - t17:.1f} s")
+    torch.cuda.empty_cache()
+
+    # --- phase 18: the ssm and hybrid families served and trained, launch
+    # counts from each run alone
+    assert get_config(HYBRID_ARCH).sliding_window == SSM_WINDOW
+    ssm = ssm_phase(torch, dev, lm_data, card)
 
     kernels = [
         _kernel_line("param_stats_batched", "param_stats", "src/repro/kernels/param_stats.py:92",
                      sum(n["param_stats_batched"]
                          for n in (launches, g_launches, c_launches, b_launches, h_launches,
-                                   la, lb)),
+                                   la, lb, ssm["launches"])),
                      k1_err, k1),
         _kernel_line("kmeans_assign", "kmeans_assign", "src/repro/kernels/kmeans_assign.py:44",
                      sum(n["kmeans_assign"]
                          for n in (launches, g_launches, c_launches, b_launches, h_launches,
-                                   la, lb)),
+                                   la, lb, ssm["launches"])),
                      k2_err, k2),
         _kernel_line("flash_decode", "flash_decode", "src/repro/kernels/flash_decode.py:93",
-                     k3_launches + k3_lm + k3_moe, k3_err, k3),
+                     k3_launches + k3_lm + k3_moe + ssm["k3"], max(k3_err, ssm["k3_err"]), k3),
         _kernel_line("flash_attention", "flash_attention",
                      "src/repro/kernels/flash_attention.py:89", k4_launches, k4_err, k4),
     ]
@@ -2865,8 +3208,17 @@ def main() -> int:
         f"{moe_info['ttft_p50_ms']:.1f} ms, {moe_info['tick_ms']:.2f} ms a decode call reading "
         f"{moe_info['tick_gb']:.2f} GB, busy {moe_info['busy']:.1%} of a profiled tick, peak "
         f"{moe_info['peak_gb']:.2f} GB (init {moe_info['init_peak_gb']:.2f} GB), fp8 vs bf16 "
-        f"cache {moe_info['fp8_rel']:.4f}; K1 and K2 launches in the kernels line: phases 3, "
-        f"11, 12, 13, 14 (its 4-pod fit and scaling axis) and 15; K3: phases 6, 16 and 17")
+        f"cache {moe_info['fp8_rel']:.4f}; mamba2-370m served (phase 18): "
+        f"{ssm['mamba']['tok_s']:.2f} tok/s, {ssm['mamba']['step_ms']:.2f} ms a decode step, peak "
+        f"{ssm['mamba']['peak_gb']:.2f} GB; zamba2-1.2b: {ssm['zamba']['tok_s']:.2f} tok/s, "
+        f"{ssm['zamba']['step_ms']:.2f} ms a decode step, peak {ssm['zamba']['peak_gb']:.2f} GB, "
+        f"K3 {ssm['zamba']['k3_ms'] / max(ssm['zamba']['busy_ms'], 1e-9):.2%} of a profiled "
+        f"step's busy time; K3 at (4,32,1,64) vs (4,S,32,64) bf16 through the wrapper "
+        f"{({S: round(t[0], 4) for S, t in ssm['k3_times'].items()})} ms; mamba2 swarm "
+        f"({SSM_SWARM_LAYERS} layers) round seconds {ssm['round_s']}, peak "
+        f"{ssm['peak_gb']:.2f} GB, launches {ssm['launches']}; K1 and K2 launches in the kernels "
+        f"line: phases 3, 11, 12, 13, 14 (its 4-pod fit and scaling axis), 15 and 18; K3: phases "
+        f"6, 16, 17 and 18; K3's max_abs_err over phases 5 and 18")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

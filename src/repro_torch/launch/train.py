@@ -5,13 +5,15 @@ Two modes:
              100m`` is the ~100M-parameter driver), adamw on a cosine
              schedule, with an optional ``--ckpt``;
   * swarm    the full BSO-SL protocol over simulated clients with any
-             ported ``--arch``: the CNNs on Table-I data, an LM at its
-             ``smoke()`` width on ``make_token_swarm_data``.
+             ported ``--arch``: the CNNs on Table-I data, an LM (dense,
+             moe, ssm or hybrid) at its ``smoke()`` width on
+             ``make_token_swarm_data``.
 
 Both run on ``cuda`` unless ``--device`` names another device::
 
   PYTHONPATH=src python -m repro_torch.launch.train --mode single --preset 100m --steps 300
   PYTHONPATH=src python -m repro_torch.launch.train --mode swarm --arch granite-3-2b --rounds 2
+  PYTHONPATH=src python -m repro_torch.launch.train --mode swarm --arch mamba2-370m --rounds 1
   PYTHONPATH=src python -m repro_torch.launch.train --mode single --preset tiny --device cpu
 """
 from __future__ import annotations
@@ -52,12 +54,18 @@ def preset_config(name: str) -> ModelConfig:
                        scan_layers=False, **PRESETS[name])
 
 
-def run_single(args, params=None):
+def run_single(args) -> float:
+    """Train one LM of ``args.preset`` (:func:`train_single`); returns the
+    last step's cross-entropy, as the reference does."""
+    return train_single(args)[1][-1]
+
+
+def train_single(args, params=None):
     """Train one LM of ``args.preset`` for ``args.steps`` steps on
     ``make_lm_batches`` (client 0, ``args.seed``). ``params`` replaces
     the seeded init (a parity test passes the reference's). Returns
     ``(params, ce)``: the trained params and each step's cross-entropy,
-    read on the host once at the end (the reference returns the last)."""
+    read on the host once at the end."""
     dev = resolve_device(args.device)
     cfg = preset_config(args.preset)
     model = build_model(cfg)
@@ -111,7 +119,7 @@ def run_swarm(args):
     return acc
 
 
-def main(argv=None):
+def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", default="single", choices=["single", "swarm"])
     ap.add_argument("--preset", default="tiny", choices=list(PRESETS))
@@ -130,7 +138,11 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt", default="")
     ap.add_argument("--device", default=None, help="cuda unless given (e.g. cpu)")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
     if args.mode == "single":
         return run_single(args)
     return run_swarm(args)

@@ -3,11 +3,13 @@
 ``build_model(cfg)`` returns a :class:`Model` whose members are plain
 functions over parameter trees, so the swarm layer can vmap them over
 a client-stacked tree with ``torch.func``. The CNN family and the
-dense and moe decoder-only LMs (with their KV cache, decode step and
-chunked prefill) are ported, and the swarm trains the CNNs and the dense
-LMs through these functions (an LM's batches are ``{"tokens",
-"labels"}`` and its accuracy counts unmasked tokens); the other
-families raise.
+dense, moe, ssm and hybrid decoder-only LMs (with their caches and
+decode step) are ported, and the swarm trains them through these
+functions (an LM's batches are ``{"tokens", "labels"}`` and its accuracy
+counts unmasked tokens); the other families raise. Only the
+attention-backed families (dense, moe) have a chunked ``prefill``: an
+SSM state cannot mask padded prompt tails after the fact, so ssm and
+hybrid serve through the per-token loop (``launch/serve.run_serve``).
 """
 from __future__ import annotations
 
@@ -91,5 +93,6 @@ def build_model(cfg: ModelConfig) -> Model:
         _lm_loss(lm_fwd),
         init_cache=lambda b, s, device: tf_lib.init_lm_cache(cfg, b, s, device),
         decode_step=lambda p, t, c, pos: tf_lib.lm_decode_step(p, t, c, pos, cfg),
-        prefill=lambda p, t, c, pos0: tf_lib.lm_prefill(p, t, c, pos0, cfg),
+        prefill=(lambda p, t, c, pos0: tf_lib.lm_prefill(p, t, c, pos0, cfg))
+        if cfg.family in ("dense", "moe") else None,
     )

@@ -1,10 +1,13 @@
-"""Decoder-only LM assembly, dense and moe families (counterpart of
-``repro.models.transformer``).
+"""Decoder-only LM assembly (counterpart of ``repro.models.transformer``).
 
 ``dense`` is ``[attn + MLP] x L`` (granite); ``moe`` is ``[attn + MoE]``
 with leading dense layers (kimi-k2's first) or a dense layer every
-``moe_every``-th (llama4-maverick). Parameters come in the
-reference's two layouts: ``"blocks"``, a list of per-layer dicts, or,
+``moe_every``-th (llama4-maverick); ``ssm`` is ``[Mamba2/SSD] x L``
+(mamba2-370m); ``hybrid`` is a Mamba2 backbone with ONE shared
+attention block (``params["shared_attn"]``) applied after every
+``attn_every``-th layer (zamba2), its KV cache interleaved in the cache
+list after that layer's SSM cache, as in the reference. Parameters come
+in the reference's two layouts: ``"blocks"``, a list of per-layer dicts, or,
 under ``cfg.scan_layers``, ``"layers": {"prefix": [...], "period0":
 <leaves stacked on a leading L axis>}`` with the cache as
 ``{"prefix": [...], "body": {"period0": {"k", "v": (L,B,S,KV,hd)}}}``
@@ -12,10 +15,11 @@ under ``cfg.scan_layers``, ``"layers": {"prefix": [...], "period0":
 ``period1``, ...).
 The port keeps the stacked tensors and loops over the layer index in
 Python (per-layer views, so in-place cache writes land in the stacked
-cache), so the bridge stays the identity.
+cache), so the bridge stays the identity. ssm and hybrid use the
+``"blocks"`` list in both packages.
 
-The other families (ssm, hybrid, vlm, encdec) are not ported yet and
-raise ``NotImplementedError``.
+The other families (vlm, encdec) are not ported yet and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (
     apply_embedding,
     apply_mlp,
@@ -39,7 +44,7 @@ from repro_torch.models.layers import (
 from repro_torch.models.moe import apply_moe, init_moe
 from repro_torch.utils.tree import tree_map
 
-PORTED_FAMILIES = ("dense", "moe")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -69,13 +74,10 @@ def layer_kinds(cfg: ModelConfig):
 # single block
 
 
-def _check_kind(kind: str) -> None:
-    if kind not in ("dense", "moe"):
-        raise NotImplementedError(f"{kind!r} blocks are not ported yet (ROADMAP A12)")
-
-
 def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, lead=()):
-    _check_kind(kind)
+    if kind == "ssm":                    # never stacked: ssm and hybrid are not scannable
+        return {"ssm_norm": init_norm(gen, cfg, cfg.d_model),
+                "ssm": ssm_lib.init_ssm(gen, cfg)}
     p = {"attn_norm": init_norm(gen, cfg, cfg.d_model, lead),
          "attn": attn_lib.init_attention(gen, cfg, lead=lead),
          "mlp_norm": init_norm(gen, cfg, cfg.d_model, lead)}
@@ -94,14 +96,21 @@ def _ffn(p, h, cfg: ModelConfig, kind: str):
 
 
 def block_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int, device, lead=()):
-    _check_kind(kind)
+    if kind == "ssm":
+        return ssm_lib.init_ssm_cache(cfg, batch, device)
     return attn_lib.init_kv_cache(cfg, batch, max_seq, device, lead)
 
 
 def apply_block(p, x, cfg: ModelConfig, kind: str, *, positions=None, cache=None, pos=None,
                 sliding_window=0):
     """Returns (x, cache, aux_loss); the cache is written in place."""
-    _check_kind(kind)
+    if kind == "ssm":
+        h = apply_norm(p["ssm_norm"], x, cfg)
+        if cache is None:
+            out, _ = ssm_lib.apply_ssm(p["ssm"], h, cfg)
+        else:
+            out, cache = ssm_lib.apply_ssm_decode(p["ssm"], h, cache, cfg)
+        return x + out, cache, torch.zeros((), device=x.device)
     h = apply_norm(p["attn_norm"], x, cfg)
     if cache is None:
         a = attn_lib.attend_full(p["attn"], h, cfg, positions=positions, causal=True,
@@ -136,14 +145,27 @@ def _scan_plan(cfg: ModelConfig):
     return prefix, body[:period], len(body) // period
 
 
+def _shared_after(cfg: ModelConfig, i: int) -> bool:
+    """Whether hybrid's shared attention block runs after layer i."""
+    return cfg.family == "hybrid" and bool(cfg.attn_every) and (i + 1) % cfg.attn_every == 0
+
+
 def _each_layer(params, caches, cfg: ModelConfig):
-    """(kind, layer params, layer cache or None) for every layer in
-    order. Stacked leaves are indexed per layer: views, so writes into a
-    layer's cache land in the stacked cache."""
+    """(kind, block params, block cache or None) for every block in
+    order, hybrid's shared attention block (kind ``"dense"``) after every
+    ``attn_every``-th layer with the next cache of the list. Stacked
+    leaves are indexed per layer: views, so writes into a layer's cache
+    land in the stacked cache."""
     kinds = layer_kinds(cfg)
     if "blocks" in params:
+        ci = 0
         for i, p in enumerate(params["blocks"]):
-            yield kinds[i], p, None if caches is None else caches[i]
+            blocks = [(kinds[i], p)]
+            if _shared_after(cfg, i):
+                blocks.append(("dense", params["shared_attn"]))
+            for kind, bp in blocks:
+                yield kind, bp, None if caches is None else caches[ci]
+                ci += 1
         return
     lp = params["layers"]
     prefix, period_kinds, n_periods = _scan_plan(cfg)
@@ -170,6 +192,8 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig):
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": dense_init(gen, (cfg.d_model, cfg.padded_vocab),
                                              dtype=dtype_of(cfg.param_dtype))}
+    if cfg.family == "hybrid":
+        params["shared_attn"] = init_block(gen, cfg, "dense")
     if cfg.scan_layers and _scannable(cfg):
         prefix, period_kinds, n_periods = _scan_plan(cfg)
         layers: Dict[str, Any] = {"prefix": [init_block(gen, cfg, k) for k in prefix]}
@@ -189,7 +213,12 @@ def init_lm_cache(cfg: ModelConfig, batch: int, max_seq: int, device):
                 "body": {f"period{j}": block_cache(cfg, kind, batch, max_seq, device,
                                                    lead=(n_periods,))
                          for j, kind in enumerate(period_kinds)}}
-    return [block_cache(cfg, k, batch, max_seq, device) for k in layer_kinds(cfg)]
+    caches = []
+    for i, kind in enumerate(layer_kinds(cfg)):
+        caches.append(block_cache(cfg, kind, batch, max_seq, device))
+        if _shared_after(cfg, i):
+            caches.append(block_cache(cfg, "dense", batch, max_seq, device))
+    return caches
 
 
 def _readout(params, x, cfg: ModelConfig):
@@ -229,7 +258,11 @@ def lm_decode_step(params, tokens, caches, pos, cfg: ModelConfig):
 
 
 def _prefill_block(p, x, cache, pos0: int, cfg: ModelConfig, kind: str):
-    _check_kind(kind)
+    """Attention-backed kinds only: an SSM state updated by padded prompt
+    tails cannot be masked after the fact, so ssm and hybrid serve
+    through the per-token loop."""
+    if kind != "dense" and kind != "moe":
+        raise NotImplementedError(f"chunked prefill supports attention blocks, got '{kind}'")
     h = apply_norm(p["attn_norm"], x, cfg)
     a, cache = attn_lib.attend_prefill(p["attn"], h, cache, pos0, cfg,
                                        sliding_window=cfg.sliding_window)

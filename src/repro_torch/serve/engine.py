@@ -162,8 +162,9 @@ class ServeEngine:
         cfg = model.cfg
         if cfg.family not in SERVE_FAMILIES or model.prefill is None:
             raise ValueError(
-                f"ServeEngine serves attention-backed LMs {SERVE_FAMILIES}; got family "
-                f"'{cfg.family}' (the other families are not ported yet)")
+                f"ServeEngine serves attention-backed LMs {SERVE_FAMILIES}; "
+                f"got family '{cfg.family}' (ssm/hybrid/encdec serve via "
+                "the per-token repro_torch.launch.serve path)")
         self.device = resolve_device(device)
         if cfg.cache_ring and cfg.sliding_window:
             # ring caches clamp the slot axis to the window; prefill

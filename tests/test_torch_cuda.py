@@ -250,6 +250,14 @@ DECODE_CASES = [
     (1, 8, 2, 1024, 128, 1023, 0, False),
     (1, 8, 1, 300, 256, 299, 0, False),
     (2, 4, 2, 96, 32, [0, 37], 0, False),
+    # zamba2-1.2b's shared attention (chip_smoke.py phase 18): G = 1, D 64,
+    # its 8,192 window wider than the cache; the per-token loop's cache of
+    # 129 positions (a ragged last tile) at a scalar position, as the loop
+    # passes it
+    (4, 32, 32, 128, 64, [127, 0, 64, 100], 8192, True),
+    (4, 32, 32, 129, 64, [128, 0, 64, 126], 8192, True),
+    (4, 32, 32, 129, 64, 126, 8192, True),
+    (4, 32, 32, 4096, 64, [4095, 2047, 17, 3000], 8192, True),
 ]
 
 
@@ -265,16 +273,21 @@ def _decode_inputs(dev, B, H, KV, S, D, dtype, stored, seed):
 @pytest.mark.parametrize("case", DECODE_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_flash_decode_kernel_matches_plain_on_the_card(cuda, case, dtype):
-    """fp32 2e-5, bf16 and fp16 2e-2: the reference's tolerances for its
-    own kernel against its oracle."""
+    """fp32 2e-5, the reference's tolerance for its own kernel against its
+    oracle; bf16 and fp16 2e-2 of the plain output's largest magnitude
+    (its own 2e-2, scaled: the outputs are means of O(1) values over up
+    to S keys, so a flat 2e-2 would pass a kernel that dropped keys)."""
     B, H, KV, S, D, pos, window, stored = case
     q, k, v = _decode_inputs(cuda, B, H, KV, S, D, getattr(torch, dtype), stored, seed=S + D)
     pos_t = torch.tensor(pos, dtype=torch.int32, device=cuda) if isinstance(pos, list) else pos
     got = k_decode.flash_decode(q, k, v, pos_t, window)
-    expect = ref.decode_attention(q, k, v, pos_t, window)
-    tol = 2e-5 if dtype == "float32" else 2e-2
+    expect = ref.decode_attention(q, k, v, pos_t, window).float()
     assert got.dtype == q.dtype and got.shape == (B, H, 1, D)
-    torch.testing.assert_close(got.float(), expect.float(), rtol=tol, atol=tol)
+    if dtype == "float32":
+        torch.testing.assert_close(got.float(), expect, rtol=2e-5, atol=2e-5)
+    else:
+        torch.testing.assert_close(got.float(), expect, rtol=0,
+                                   atol=2e-2 * expect.abs().max().item())
 
 
 @pytest.mark.cuda
@@ -381,6 +394,63 @@ def test_smoke_generate_on_the_card_matches_the_cpu(cuda):
     assert k_decode.flash_decode.launches - before == model.cfg.n_layers * eng.n_decode_calls
     cpu = serve.generate(model, params, prompts, max_new_tokens=5, buckets=buckets, device="cpu")
     assert [r.tokens for r in res] == [r.tokens for r in cpu]
+
+
+@pytest.mark.cuda
+def test_apply_ssm_on_the_card_matches_the_cpu(cuda):
+    """mamba2-370m's SSD block at smoke widths in fp32 (chunk 8, S 32,
+    four chunks) from the same params and input: y and the final state
+    within 1e-5 (the same fp32 operations, sums in another order), the
+    carry-passing split too."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    from repro_torch.utils.tree import tree_map
+
+    cfg = replace(get_config("mamba2-370m").smoke(), ssm_chunk=8)
+    p = ssm.init_ssm(torch.Generator().manual_seed(0), cfg)
+    x = torch.randn((2, 32, cfg.d_model), generator=torch.Generator().manual_seed(1)) * 0.5
+    pc = tree_map(lambda t: t.to(cuda), p)
+    y, st = ssm.apply_ssm(p, x, cfg)
+    yc, stc = ssm.apply_ssm(pc, x.to(cuda), cfg)
+    torch.testing.assert_close(yc.cpu(), y, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(stc.cpu(), st, rtol=1e-5, atol=1e-5)
+    ya, (sa, ca) = ssm.apply_ssm(pc, x[:, :16].to(cuda), cfg, return_carry=True)
+    yb, sb = ssm.apply_ssm(pc, x[:, 16:].to(cuda), cfg, initial_state=sa, initial_conv=ca)
+    torch.testing.assert_close(torch.cat([ya, yb], 1).cpu(), y, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(sb.cpu(), st, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_zamba2_smoke_decode_on_the_card_matches_the_cpu(cuda):
+    """zamba2-1.2b's smoke config (fp32) through the per-token loop on the
+    card and on the CPU from the same weights: the same tokens; the
+    teacher-forced decode logits within 1e-4; K3 launched once per shared
+    attention block per decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import loop_generate
+    from repro_torch.models import build_model
+    from repro_torch.utils.tree import tree_map
+
+    model = build_model(get_config("zamba2-1.2b").smoke())
+    cfg = model.cfg
+    params = model.init(torch.Generator().manual_seed(0))
+    pc = tree_map(lambda t: t.to(cuda), params)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 6)))
+    before = k_decode.flash_decode.launches
+    toks = loop_generate(model, pc, prompts.to(cuda), 5)
+    n_shared = cfg.n_layers // cfg.attn_every
+    assert k_decode.flash_decode.launches - before == n_shared * (6 + 4)
+    cpu = loop_generate(model, params, prompts, 5)
+    assert torch.equal(toks.cpu(), cpu)
+    seq = torch.cat([prompts, cpu], 1)
+    with torch.no_grad():
+        caches = [model.init_cache(2, 16, d) for d in (cuda, "cpu")]
+        for t in range(seq.shape[1]):
+            a, _ = model.decode_step(pc, seq[:, t:t + 1].to(cuda), caches[0], t)
+            b, _ = model.decode_step(params, seq[:, t:t + 1], caches[1], t)
+            torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4)
 
 
 # K3's fp8 cache and kimi-k2's head_dim 112: B, H, KV, S, D, q dtype, cache

@@ -17,23 +17,18 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.configs import get_config as jax_get_config  # noqa: E402
-from repro.configs.base import OptimizerConfig as JaxOptimizerConfig  # noqa: E402
 from repro.core import engine as jeng  # noqa: E402
 from repro.core.diststats import swarm_distribution_matrix as jax_feats  # noqa: E402
 from repro.data.tokens import make_token_swarm_data  # noqa: E402
 from repro.models import build_model as jax_build_model  # noqa: E402
-from repro.optim.optimizers import make_optimizer as jax_make_optimizer  # noqa: E402
-from repro.train.steps import make_train_step as jax_make_train_step  # noqa: E402
-from repro_torch.bridge import params_from_numpy, params_to_numpy, state_from_numpy  # noqa: E402
+from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.configs import ModelConfig, OptimizerConfig, SwarmConfig, get_config  # noqa: E402
 from repro_torch.core import engine as teng  # noqa: E402
-from repro_torch.core.bso import BSODraws  # noqa: E402
 from repro_torch.core.diststats import swarm_distribution_matrix  # noqa: E402
 from repro_torch.core.swarm import SwarmTrainer  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
-from repro_torch.optim.optimizers import make_optimizer  # noqa: E402
 from repro_torch.utils.tree import tree_paths_and_leaves  # noqa: E402
-from torch_parity import jax_bso_draws, jax_kmeans_init_idx  # noqa: E402
+from torch_parity import assert_lm_round_matches_reference  # noqa: E402
 
 ARCH = "granite-3-2b"
 N_CLIENTS = 6
@@ -106,69 +101,13 @@ def test_lm_distribution_matrix_matches_reference(layout):
 # --------------------------------------------------------------- one round
 
 
-@pytest.fixture(scope="module")
-def jax_setup(clients):
-    jcfg, _ = _pair_cfg()
-    model = jax_build_model(jcfg)
-    opt = jax_make_optimizer(JaxOptimizerConfig(name="adam", lr=LR, eps=ROUND_ADAM_EPS))
-    cfg = jeng.EngineConfig(model=model, opt=opt, local_steps=LOCAL_STEPS, batch_size=BATCH,
-                            lr=LR, aggregation="bso", n_clusters=K, p1=0.9, p2=0.8,
-                            kmeans_iters=20)
-    return cfg, jeng.make_swarm_data(model.cfg, clients)
-
-
-def test_whole_lm_swarm_round_matches_reference(clients, jax_setup):
+def test_whole_lm_swarm_round_matches_reference(clients):
     """One BSO-SL round of the LM from the reference's fresh state, its
-    batch rows, k-means++ seeds and brain-storm draws injected. val_acc
-    within 1e-6 (token accuracy is a ratio of argmax hits, equal unless
-    a logit tie flips), assignments, centers and events equal, params
-    within atol 1e-4 (5% of one adam step at lr 2e-3)."""
-    jcfg, jdata = jax_setup
-    state0 = jax.tree.map(np.asarray, jax.jit(
-        lambda k: jeng.make_swarm_state(jcfg.model, jcfg.opt, clients, k))(
-            jax.random.PRNGKey(0)))
-    jstate = jax.tree.map(jnp.asarray, state0)
-    _, k_local, k_kmeans, k_bso = jax.random.split(jstate.key, 4)
-    sample_keys = jax.random.split(k_local, LOCAL_STEPS)
-    batch_idx = np.stack([np.asarray(jax.random.randint(kt, (N_CLIENTS, BATCH), 0,
-                                                        jdata.train_n[:, None]))
-                          for kt in sample_keys])
-    step = jax_make_train_step(jcfg.model, jcfg.opt)
-    feats = jax.jit(lambda s: jax_feats(jeng.local_phase(
-        step, s.params, s.opt_state, LR, sample_keys,
-        lambda kt: jeng.sample_round_batch(kt, jdata, BATCH))[0]))(jstate)
-    draws = teng.RoundDraws(
-        batch_idx=torch.from_numpy(batch_idx),
-        kmeans_init_idx=torch.from_numpy(jax_kmeans_init_idx(k_kmeans, feats, K)),
-        bso=BSODraws(*(torch.from_numpy(t) for t in jax_bso_draws(k_bso, K, N_CLIENTS))))
-
-    jnew, jm = jeng.jit_swarm_round(jstate, jdata, jcfg)
-
-    _, cfg = _pair_cfg()
-    model = build_model(cfg)
-    tcfg = teng.EngineConfig(
-        model=model, opt=make_optimizer(OptimizerConfig(name="adam", lr=LR, eps=ROUND_ADAM_EPS)),
-        local_steps=LOCAL_STEPS, batch_size=BATCH, lr=LR, aggregation="bso", n_clusters=K,
-        p1=0.9, p2=0.8, kmeans_iters=20)
-    tstate = state_from_numpy(state0._asdict(), "cpu")
-    tnew, tm = teng.swarm_round(tstate, teng.make_swarm_data(cfg, clients, device="cpu"), tcfg,
-                                draws=draws)
-
-    np.testing.assert_array_equal(tm.assignments.numpy(), np.asarray(jm.assignments))
-    np.testing.assert_array_equal(tm.centers.numpy(), np.asarray(jm.centers))
-    assert int(tm.n_replaced) == int(jm.n_replaced)
-    assert int(tm.n_swapped) == int(jm.n_swapped)
-    np.testing.assert_allclose(tm.val_acc.numpy(), np.asarray(jm.val_acc), rtol=0, atol=1e-6)
-    np.testing.assert_allclose(float(tm.train_loss), float(jm.train_loss), rtol=1e-4)
-    jp = jax.tree.map(np.asarray, jnew.params)
-    tp = params_to_numpy(tnew.params)
-    pairs = list(zip(tree_paths_and_leaves(tp), tree_paths_and_leaves(jp)))
-    assert len(pairs) == len(tree_paths_and_leaves(jp))
-    for (path, a), (jpath, b) in pairs:
-        assert path == jpath
-        np.testing.assert_allclose(a, b, atol=1e-4, rtol=0, err_msg=path)
-    np.testing.assert_array_equal(tnew.opt_state["step"].numpy(),
-                                  np.asarray(jnew.opt_state["step"]))
+    batch rows, k-means++ seeds and brain-storm draws injected; the checks
+    and tolerances are ``torch_parity.assert_lm_round_matches_reference``'s."""
+    jcfg, cfg = _pair_cfg()
+    assert_lm_round_matches_reference(jcfg, cfg, clients, k=K, lr=LR, local_steps=LOCAL_STEPS,
+                                      batch=BATCH, eps=ROUND_ADAM_EPS)
 
 
 def test_swarm_trainer_fits_an_lm(clients):

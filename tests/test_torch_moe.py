@@ -477,3 +477,37 @@ def test_moe_loss_under_vmap_equals_each_clients_own():
     for i, p in enumerate(models):
         want, _ = model.loss(p, {k: v[i] for k, v in batch.items()})
         assert float(got[i]) == pytest.approx(float(want), abs=1e-6), i
+
+
+# ------------------------------------------------------------------ the swarm
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_whole_moe_swarm_round_matches_reference(arch):
+    """One BSO-SL round of the ``smoke()`` config on 6 token clients, k 2,
+    adam lr 2e-3 at eps 1e-6, batch 4, 2 local steps, the reference's
+    draws injected; the checks and tolerances are
+    ``torch_parity.assert_lm_round_matches_reference``'s. The round's train
+    loss carries the router's aux loss, which is positive here."""
+    from repro.data.tokens import make_token_swarm_data
+    from torch_parity import assert_lm_round_matches_reference
+    jcfg = jax_get_config(arch).smoke()
+    clients = make_token_swarm_data(6, jcfg.vocab_size, n_seqs=12, seq_len=32)
+    toks = jnp.asarray(clients[0]["train"][0][:4])
+    jm = jax_build_model(jcfg)
+    _, metrics = jm.loss(jm.init(jax.random.PRNGKey(0)), {"tokens": toks, "labels": toks})
+    assert float(metrics["aux"]) > 0
+    assert_lm_round_matches_reference(jcfg, ModelConfig(**dataclasses.asdict(jcfg)), clients,
+                                      k=2, lr=2e-3, local_steps=2, batch=4, eps=1e-6)
+
+
+def test_train_swarm_mode_runs_kimi_on_the_cpu(capsys):
+    """``launch/train.py --mode swarm --arch kimi-k2-1t-a32b --rounds 1
+    --device cpu`` trains the smoke config, as the reference's
+    ``run_swarm`` does for an LM."""
+    from repro_torch.launch import train
+    acc = train.main(["--mode", "swarm", "--arch", "kimi-k2-1t-a32b", "--rounds", "1",
+                      "--clients", "4", "--clusters", "2", "--local-steps", "2",
+                      "--batch", "4", "--device", "cpu"])
+    assert np.isfinite(acc) and 0.0 <= acc <= 1.0
+    assert "final mean test accuracy" in capsys.readouterr().out

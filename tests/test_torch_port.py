@@ -56,13 +56,14 @@ def test_cnn_configs_match_reference(arch):
 
 
 def test_registry_holds_the_four_cnns_and_refuses_others():
-    """The four CNNs, the reference's four dense LMs and its two moe LMs;
-    the unported families' archs stay unknown."""
+    """The four CNNs, the reference's four dense LMs, its two moe LMs, its
+    ssm and its hybrid LM; the unported families' archs stay unknown."""
     assert sorted(REGISTRY) == sorted(ARCHS + ["granite-3-2b", "command-r-35b", "deepseek-7b",
                                                "deepseek-67b", "kimi-k2-1t-a32b",
-                                               "llama4-maverick-400b-a17b"])
+                                               "llama4-maverick-400b-a17b", "mamba2-370m",
+                                               "zamba2-1.2b"])
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("mamba2-370m")
+        get_config("whisper-base")
 
 
 @pytest.mark.parametrize("ours,theirs", [(OptimizerConfig, JaxOptimizerConfig),

@@ -107,7 +107,8 @@ def test_run_single_matches_reference_per_step_ce(tmp_path):
                            jnp.asarray(sched(i)))
         expect.append(float(m["ce"]))
 
-    params, ces = train.run_single(args, params=params_from_numpy(jax.tree.map(np.asarray, jp)))
+    params, ces = train.train_single(args,
+                                     params=params_from_numpy(jax.tree.map(np.asarray, jp)))
     np.testing.assert_allclose(ces, expect, rtol=1e-5, atol=0)
     restored, saved_step = restore_into(tree_map(torch.zeros_like, params), args.ckpt)
     assert saved_step == 3
@@ -116,10 +117,15 @@ def test_run_single_matches_reference_per_step_ce(tmp_path):
 
 
 def test_run_single_seeded_init_trains(capsys):
-    params, ces = train.run_single(_args(steps=4, seq=32))
-    assert len(ces) == 4 and np.all(np.isfinite(ces))
+    """``run_single`` returns the last step's ce as a float, as the
+    reference's does; ``train_single`` returns the params and every
+    step's ce, the same run's."""
+    ce = train.run_single(_args(steps=4, seq=32))
+    assert isinstance(ce, float) and np.isfinite(ce)
     out = capsys.readouterr().out
     assert "params=623,232 on cpu" in out and out.count("tok/s=") == 4
+    params, ces = train.train_single(_args(steps=4, seq=32))
+    assert len(ces) == 4 and np.all(np.isfinite(ces)) and ces[-1] == pytest.approx(ce, rel=1e-6)
 
 
 def test_main_swarm_mode_runs_an_lm_round_on_the_cpu(capsys):

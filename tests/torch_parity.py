@@ -91,3 +91,80 @@ def jax_hier_draws(k_kmeans, k_bso, feats, present, pods, k_local: int, k: int,
         jax.random.split(k_kmeans)[0], pods)
     g_idx = jax_kmeans_init_idx(k_global, C, k, weights=counts)
     return pod_idx, g_idx, jax_bso_draws(k_bso, k, len(pods) * k_local)
+
+
+def assert_lm_round_matches_reference(jcfg, cfg, clients, *, k: int, lr: float, local_steps: int,
+                                      batch: int, eps: float):
+    """One BSO-SL round of the LM ``jcfg`` (the reference's config) and
+    ``cfg`` (the port's, built from its asdict) from the reference's
+    fresh state, its batch rows, k-means++ seeds and brain-storm draws
+    injected into the port's ``swarm_round``; adam at ``eps``. val_acc
+    within 1e-6 (token accuracy is a ratio of argmax hits, equal unless a
+    logit tie flips), assignments, centers and events equal, train loss
+    (the router's aux included for moe) within 1e-4 relative, params
+    within atol 1e-4 (5% of one adam step at lr 2e-3)."""
+    import torch
+
+    from repro.configs.base import OptimizerConfig as JaxOptimizerConfig
+    from repro.core import engine as jeng
+    from repro.core.diststats import swarm_distribution_matrix as jax_feats
+    from repro.models import build_model as jax_build_model
+    from repro.optim.optimizers import make_optimizer as jax_make_optimizer
+    from repro.train.steps import make_train_step as jax_make_train_step
+    from repro_torch.bridge import params_to_numpy, state_from_numpy
+    from repro_torch.configs import OptimizerConfig
+    from repro_torch.core import engine as teng
+    from repro_torch.core.bso import BSODraws
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.utils.tree import tree_paths_and_leaves
+
+    n = len(clients)
+    jmodel = jax_build_model(jcfg)
+    jopt = jax_make_optimizer(JaxOptimizerConfig(name="adam", lr=lr, eps=eps))
+    jecfg = jeng.EngineConfig(model=jmodel, opt=jopt, local_steps=local_steps, batch_size=batch,
+                              lr=lr, aggregation="bso", n_clusters=k, p1=0.9, p2=0.8,
+                              kmeans_iters=20)
+    jdata = jeng.make_swarm_data(jcfg, clients)
+    state0 = jax.tree.map(np.asarray, jax.jit(
+        lambda key: jeng.make_swarm_state(jmodel, jopt, clients, key))(jax.random.PRNGKey(0)))
+    jstate = jax.tree.map(jnp.asarray, state0)
+    _, k_local, k_kmeans, k_bso = jax.random.split(jstate.key, 4)
+    sample_keys = jax.random.split(k_local, local_steps)
+    batch_idx = np.stack([np.asarray(jax.random.randint(kt, (n, batch), 0,
+                                                        jdata.train_n[:, None]))
+                          for kt in sample_keys])
+    step = jax_make_train_step(jmodel, jopt)
+    feats = jax.jit(lambda s: jax_feats(jeng.local_phase(
+        step, s.params, s.opt_state, lr, sample_keys,
+        lambda kt: jeng.sample_round_batch(kt, jdata, batch))[0]))(jstate)
+    draws = teng.RoundDraws(
+        batch_idx=torch.from_numpy(batch_idx),
+        kmeans_init_idx=torch.from_numpy(jax_kmeans_init_idx(k_kmeans, feats, k)),
+        bso=BSODraws(*(torch.from_numpy(t) for t in jax_bso_draws(k_bso, k, n))))
+
+    jnew, jm = jeng.jit_swarm_round(jstate, jdata, jecfg)
+
+    tcfg = teng.EngineConfig(
+        model=build_model(cfg), opt=make_optimizer(OptimizerConfig(name="adam", lr=lr, eps=eps)),
+        local_steps=local_steps, batch_size=batch, lr=lr, aggregation="bso", n_clusters=k,
+        p1=0.9, p2=0.8, kmeans_iters=20)
+    tstate = state_from_numpy(state0._asdict(), "cpu")
+    tnew, tm = teng.swarm_round(tstate, teng.make_swarm_data(cfg, clients, device="cpu"), tcfg,
+                                draws=draws)
+
+    np.testing.assert_array_equal(tm.assignments.numpy(), np.asarray(jm.assignments))
+    np.testing.assert_array_equal(tm.centers.numpy(), np.asarray(jm.centers))
+    assert int(tm.n_replaced) == int(jm.n_replaced)
+    assert int(tm.n_swapped) == int(jm.n_swapped)
+    np.testing.assert_allclose(tm.val_acc.numpy(), np.asarray(jm.val_acc), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(float(tm.train_loss), float(jm.train_loss), rtol=1e-4)
+    jp = jax.tree.map(np.asarray, jnew.params)
+    tp = params_to_numpy(tnew.params)
+    pairs = list(zip(tree_paths_and_leaves(tp), tree_paths_and_leaves(jp)))
+    assert len(pairs) == len(tree_paths_and_leaves(jp)) == len(tree_paths_and_leaves(tp))
+    for (path, a), (jpath, b) in pairs:
+        assert path == jpath
+        np.testing.assert_allclose(a, b, atol=1e-4, rtol=0, err_msg=path)
+    np.testing.assert_array_equal(tnew.opt_state["step"].numpy(),
+                                  np.asarray(jnew.opt_state["step"]))
