@@ -165,7 +165,29 @@ exits non-zero and prints no result. It imports nothing of JAX. Phases:
    earlier phases (each cut printed), 2 rounds with K1 and K2 launches
    asserted, round seconds, peak memory, a profiled round; then one
    zamba2 ``smoke()`` round on the card and on the CPU, compared as
-   phase 15 (c).
+   phase 15 (c);
+19. the encdec and vlm families: (a) whisper-base as registered (6 + 6
+   layers, d_model 512, 8 heads of 64, a 1,500-frame cross cache, vocab
+   51,865, bf16 activations, uncut) and (b) internvl2-26b at full width
+   (d_model 6144, 48/8 heads of 128, d_ff 16,384, vocab 92,553) cut to
+   24 of its 48 layers, each through ``run_serve(smoke=False,
+   engine="auto")``'s per-token loop as phase 18's, K3 = 12 and 24
+   launches a decode step asserted; (c) K3 at whisper's self (4,8,1,64)
+   vs (4,129,8,64) and cross (4,1500,8,64) shapes and internvl's G = 6
+   (4,48,1,128) vs (4,S,8,128), S 129 and 4,096, bf16 and fp32, per-row
+   and scalar positions, against its plain version and timed beside
+   SDPA; (d) both ``smoke()`` configs in fp32 through the loop on the
+   card and on the CPU (whisper's logits on a random cross cache); (e)
+   whisper-base uncut trained (B 4, audio (4,1500,512), text 448) with
+   adamw at lr 3e-4, weight decay 0.1 and 2 microbatches, 3 steps; the
+   gradients of one step with 1 and with 2 microbatches from one state
+   (within 1e-2 of the largest, and half the batch alone outside it);
+   adafactor (lr 1e-3, clip 1.0), 3 steps, its state's bytes against
+   adam's; internvl2-26b at full width cut to 2 layers (B 2, vision
+   (2,256,6144), text 768), adamw, 2 microbatches, 2 steps; one
+   adafactor step of whisper's smoke config on the card and on the CPU,
+   the update from the same gradients and the whole step (on the leaves
+   whose gradient is above rounding level) within 1e-5.
 
 ``python3 chip_smoke.py --ssm-depth-probe 36 37 38 39`` runs only phase
 18 (e)'s mamba2 round at each depth, alone, and prints each peak up to
@@ -231,6 +253,32 @@ SSM_K3_SEQS = (SSM_PROMPT_LEN + SSM_NEW_TOKENS + 1, 4096)
 # not: ``--ssm-depth-probe``; PERF.md §4)
 SSM_SWARM_LAYERS = 37
 SSM_SWARM_ROUNDS = 2
+# the encdec and vlm families (phase 19): served through the per-token loop
+# with phase 18's prompts; trained on the reference's input_specs shapes
+# (src/repro/models/model.py) with its optimizer choice for an fp32-master
+# config (src/repro/launch/dryrun.py optimizer_for)
+ENCDEC_ARCH = "whisper-base"
+VLM_ARCH = "internvl2-26b"
+VLM_SERVE_LAYERS = 24
+VLM_TRAIN_LAYERS = 2
+ENCDEC_CROSS_SEQ = 1500
+VLM_K3_SEQS = (129, 4096)
+TRAIN_MICROBATCHES = 2
+TRAIN_ADAMW_LR = 3e-4
+TRAIN_ADAMW_WD = 0.1
+TRAIN_ADAFACTOR_LR = 1e-3
+# phase 19 (e): microbatched gradients within this share of the largest
+# gradient of the full batch's (each partial sum is rounded to bf16, 2^-8)
+MB_GRAD_RTOL = 1e-2
+# ... and the card's whole adafactor step is held on the leaves whose CPU
+# gradient is above this share of the largest
+STEP_GRAD_FLOOR = 1e-6
+ENCDEC_TRAIN_BATCH = 4
+ENCDEC_TRAIN_SEQ = 448
+ENCDEC_TRAIN_STEPS = 3
+VLM_TRAIN_BATCH = 2
+VLM_TRAIN_TEXT = 768
+VLM_TRAIN_STEPS = 2
 EAGER_TICK = "234.7 ms, busy 6.6-8.7% (eager decode, PERF.md §5)"
 
 # flash_attention's path (phases 8 and 9): granite-3-2b's prefill shape
@@ -1046,13 +1094,14 @@ def check_flash_decode_graph(torch, dev, gen):
 
 
 def time_flash_decode(torch, dev, H: int = 32, D: int = 64, cache=None, label: str = "granite",
-                      KV: int = 8, S: int = 2048, window: int = 0):
+                      KV: int = 8, S: int = 2048, window: int = 0, pos=None):
     """K3 at the larger serve bucket: q (4,H,1,D) bf16 against a cache
     stored (4,S,KV,D) in ``cache``'s dtype (bf16 unless given), rows at
-    S, 3S/4, S/2 and S/4 less one, under ``window`` (0: none; the rows
-    here lie inside any window given). The library call is SDPA on the
-    bf16 cache; on an fp8 cache, the cache upcast to bf16 and then SDPA
-    (twice the cache's bytes read, and a bf16 copy written)."""
+    S, 3S/4, S/2 and S/4 less one (or every row at the scalar ``pos``),
+    under ``window`` (0: none; the rows here lie inside any window
+    given). The library call is SDPA on the bf16 cache; on an fp8 cache,
+    the cache upcast to bf16 and then SDPA (twice the cache's bytes read,
+    and a bf16 copy written)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_decode, ref
@@ -1061,9 +1110,17 @@ def time_flash_decode(torch, dev, H: int = 32, D: int = 64, cache=None, label: s
     assert window == 0 or window >= S
     cache = cache or torch.bfloat16
     q, k, v = _decode_case(torch, dev, gen, B, H, KV, S, D, (torch.bfloat16, cache))
-    pos = torch.tensor([S - 1, 3 * S // 4 - 1, S // 2 - 1, S // 4 - 1], dtype=torch.int32,
-                       device=dev)
-    mask = torch.arange(S, device=dev)[None, None, None, :] <= pos[:, None, None, None]
+    if pos is None:
+        pos = torch.tensor([S - 1, 3 * S // 4 - 1, S // 2 - 1, S // 4 - 1], dtype=torch.int32,
+                           device=dev)
+        valid_cols = int((pos + 1).sum())
+        mask = torch.arange(S, device=dev)[None, None, None, :] <= pos[:, None, None, None]
+    else:
+        valid_cols = B * (pos + 1)
+        # a 0-d tensor on the card, as attend_decode hands it over: a graph
+        # cannot capture the copy of a Python int
+        pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+        mask = torch.arange(S, device=dev)[None, None, None, :] <= pos
 
     def kernel():
         flash_decode.flash_decode(q, k, v, pos, window)
@@ -1078,12 +1135,12 @@ def time_flash_decode(torch, dev, H: int = 32, D: int = 64, cache=None, label: s
     lib_err = (library().float()
                - ref.decode_attention(q, k, v, pos, window).float()).abs().max().item()
     ms, plain_ms, lib_ms = (cuda_ms(torch, f, reps=200) for f in (kernel, plain, library))
-    name = f"flash_decode {label} (4,{H},1,{D}) vs a (4,{S},{KV},{D}) {str(cache)[6:]} cache"
+    name = f"flash_decode {label} (4,{H},1,{D}) vs a (4,{S},{KV},{D}) {str(cache)[6:]} cache" + (
+        f" at pos {int(pos)}" if pos.dim() == 0 else "")
     log(f"[kernels] {name} device time alone (CUDA graph of one call): "
         f"kernel {graph_ms(torch, kernel):.4f} ms, plain {graph_ms(torch, plain):.4f} ms, "
         f"library {graph_ms(torch, library):.4f} ms (library vs plain max abs err {lib_err:.3e})")
     es = k.element_size()
-    valid_cols = int((pos + 1).sum())
     kv_bytes = valid_cols * KV * D * 2 * es           # the K and V columns the output reads
     full_bytes = B * S * KV * D * 2 * es
     n_bytes = kv_bytes + 2 * q.numel() * q.element_size() + B * 4   # + q, the output and pos
@@ -1525,7 +1582,8 @@ def moe_smoke_serve(torch, dev):
 # ---------------------------------------------------------------- phase 18
 
 
-def _profiled_decode_step(torch, model, params, dev, arch: str, pos: int) -> dict:
+def _profiled_decode_step(torch, model, params, dev, arch: str, pos: int,
+                          tag: str = "ssm") -> dict:
     """One decode step of ``model`` (``SSM_SERVE_BATCH`` rows, a fresh
     cache of the loop's length) at position ``pos`` under
     ``torch.profiler``, after one unprofiled step there. The step's device
@@ -1550,7 +1608,7 @@ def _profiled_decode_step(torch, model, params, dev, arch: str, pos: int) -> dic
     k3_us = sum(e.time_range.end - e.time_range.start for e in prof.events()
                 if e.device_type == DeviceType.CUDA and "flash_decode_" in e.name)
     out = {"step_wall_ms": wall_ms, "busy_ms": busy_us / 1e3, "k3_ms": k3_us / 1e3}
-    log(f"[ssm] {arch}: a profiled decode step at position {pos}, {wall_ms:.2f} ms wall: "
+    log(f"[{tag}] {arch}: a profiled decode step at position {pos}, {wall_ms:.2f} ms wall: "
         f"{len(spans)} device events, device busy {out['busy_ms']:.3f} ms "
         f"({out['busy_ms'] / wall_ms:.1%}), idle {1 - out['busy_ms'] / wall_ms:.1%}; "
         f"flash_decode {out['k3_ms']:.4f} ms ({out['k3_ms'] / max(out['busy_ms'], 1e-9):.2%} of "
@@ -1561,60 +1619,90 @@ def _profiled_decode_step(torch, model, params, dev, arch: str, pos: int) -> dic
     return out
 
 
-def ssm_serve_path(torch, dev, arch: str, card: str) -> tuple:
-    """Phase 18 (a) / (b): ``arch`` as registered, uncut, through
-    ``run_serve(..., smoke=False, engine="auto")``, which must take the
-    per-token loop: ``SSM_SERVE_BATCH`` prompts of ``SSM_PROMPT_LEN``
-    tokens and ``SSM_NEW_TOKENS`` new ones, every prompt token and every
-    new token but the last one decode step. K3 launches from this run
-    alone: once a shared attention block a step. Before it, on the same
-    model and weights as run_serve builds them: a warm-up (cuBLAS set-up,
-    first launches) and a profiled decode step at the run's last
-    position. Returns (K3 launches, {tok_s, step_ms, wall_s, peak_gb, and
-    the profiled step's})."""
+def k3_per_step(cfg) -> int:
+    """flash_decode calls a decode step of ``cfg``'s model: one a shared
+    attention block (hybrid), two a decoder layer (encdec: self and
+    cross), one a layer (the attention families), none (ssm)."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every
+    if cfg.family == "ssm":
+        return 0
+    return cfg.n_layers * (2 if cfg.family == "encdec" else 1)
+
+
+def _served_config_line(cfg) -> str:
+    if cfg.family in ("ssm", "hybrid"):
+        return (f"{cfg.family}, {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_ssm_heads} "
+                f"SSD heads of {cfg.ssm_head_dim}, state {cfg.ssm_state}, vocab {cfg.vocab_size}, "
+                f"activations {cfg.dtype}"
+                + (f"; the shared block ({cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, "
+                   f"d_ff {cfg.d_ff}) after every {cfg.attn_every}th layer, window "
+                   f"{cfg.sliding_window}" if cfg.family == "hybrid" else ""))
+    enc = (f" + {cfg.n_encoder_layers} encoder layers, cross cache of {cfg.encoder_seq}"
+           if cfg.family == "encdec" else "")
+    return (f"{cfg.family}, {cfg.n_layers} layers{enc}, d_model {cfg.d_model}, "
+            f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim} (G "
+            f"{cfg.n_heads // cfg.n_kv_heads}), d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+            f"activations {cfg.dtype}, params {cfg.param_dtype}")
+
+
+def loop_serve_path(torch, dev, arch: str, card: str, layers: int = 0,
+                    tag: str = "ssm") -> tuple:
+    """Phase 18 (a) / (b) and 19 (a) / (b): ``arch`` as registered (cut to
+    ``layers`` layers at full width if given) through ``run_serve(...,
+    smoke=False, engine="auto")``, which must take the per-token loop:
+    ``SSM_SERVE_BATCH`` prompts of ``SSM_PROMPT_LEN`` tokens and
+    ``SSM_NEW_TOKENS`` new ones, every prompt token and every new token
+    but the last one decode step. K3 launches from this run alone:
+    :func:`k3_per_step` a step. Before it, on the same model and weights
+    as run_serve builds them: a warm-up (cuBLAS set-up, first launches)
+    and a profiled decode step at the run's last position. Returns (K3
+    launches, {tok_s, step_ms, wall_s, peak_gb, params, and the profiled
+    step's})."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_decode
     from repro_torch.launch.serve import loop_generate, run_serve
     from repro_torch.models import build_model
 
     cfg = get_config(arch)
-    n_shared = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else 0
+    if layers:
+        cfg = replace(cfg, n_layers=layers)
     steps = SSM_PROMPT_LEN + SSM_NEW_TOKENS - 1
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
+    n_params = model.param_count(params)
     loop_generate(model, params, torch.zeros((SSM_SERVE_BATCH, 2), dtype=torch.int32,
                                              device=dev), 2)
-    profiled = _profiled_decode_step(torch, model, params, dev, arch, steps - 1)
+    profiled = _profiled_decode_step(torch, model, params, dev, arch, steps - 1, tag)
     del model, params
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     flash_decode.flash_decode.launches = 0
     gen, info = run_serve(arch, batch=SSM_SERVE_BATCH, prompt_len=SSM_PROMPT_LEN,
-                          tokens=SSM_NEW_TOKENS, smoke=False, engine="auto", device=dev)
+                          tokens=SSM_NEW_TOKENS, smoke=False, engine="auto", device=dev,
+                          layers=layers)
     launches = flash_decode.flash_decode.launches
-    want = n_shared * steps
+    per_step = k3_per_step(cfg)
+    want = per_step * steps
     out = {"tok_s": info["tok_per_s"], "step_ms": info["wall_s"] / steps * 1e3,
-           "wall_s": info["wall_s"], "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
-    log(f"[ssm] {arch} as registered: {cfg.family}, {cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.n_ssm_heads} SSD heads of {cfg.ssm_head_dim}, state "
-        f"{cfg.ssm_state}, vocab {cfg.vocab_size}, activations {cfg.dtype}"
-        + (f"; the shared block ({cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
-           f"{cfg.d_ff}) after every {cfg.attn_every}th layer, window {cfg.sliding_window}"
-           if n_shared else ""))
-    log(f"[ssm] {arch}: run_serve path {info['path']!r}, {SSM_SERVE_BATCH} prompts of "
+           "wall_s": info["wall_s"], "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "params": n_params}
+    log(f"[{tag}] {arch} {'cut to ' + str(layers) + ' layers' if layers else 'as registered'}: "
+        f"{_served_config_line(cfg)}; {n_params:,} params")
+    log(f"[{tag}] {arch}: run_serve path {info['path']!r}, {SSM_SERVE_BATCH} prompts of "
         f"{SSM_PROMPT_LEN} tokens, {SSM_NEW_TOKENS} new tokens: {steps} decode steps in "
         f"{info['wall_s']:.3f} s, {out['tok_s']:.2f} tok/s (new tokens), {out['step_ms']:.2f} ms "
         f"a decode step; peak device memory {out['peak_gb']:.2f} GB; flash_decode launches "
-        f"{launches}, expected {n_shared} x {steps} = {want} ({card})")
-    log(f"[ssm] {arch}: tokens of prompt 0: {gen[0, :12].tolist()}")
+        f"{launches}, expected {per_step} x {steps} = {want} ({card})")
+    log(f"[{tag}] {arch}: tokens of prompt 0: {gen[0, :12].tolist()}")
     assert info["path"] == "loop", f"{arch} served through {info['path']}"
     assert gen.shape == (SSM_SERVE_BATCH, SSM_NEW_TOKENS), gen.shape
     assert ((gen >= 0) & (gen < cfg.padded_vocab)).all(), f"{arch}: a token out of range"
     assert launches == want, f"{arch}: flash_decode launches {launches} != {want}"
-    if n_shared:
+    if cfg.family == "hybrid":
         last = steps - 1
-        log(f"[ssm] {arch}: positions 0..{last} stay below the {cfg.sliding_window}-position "
+        log(f"[{tag}] {arch}: positions 0..{last} stay below the {cfg.sliding_window}-position "
             f"window: K3 receives window={cfg.sliding_window} and masks no key here")
         assert last < cfg.sliding_window
     out.update(profiled)
@@ -1622,46 +1710,48 @@ def ssm_serve_path(torch, dev, arch: str, card: str) -> tuple:
     return launches, out
 
 
-def check_flash_decode_zamba(torch, dev):
-    """Phase 18 (c): K3 at zamba2's decode shape, q (4,32,1,64) against a
-    cache stored (4,S,32,64) (G = 1), at each of ``SSM_K3_SEQS`` (the
-    loop's 129-position cache, whose last column is a ragged tile, and
-    4,096) under zamba2's window, with per-row positions and with one
-    scalar position, S - 3 (at 129 the loop's last decode step, 126, as
-    the loop passes it), against its plain version: fp32 within 2e-5,
+def check_flash_decode_shape(torch, dev, label: str, H: int, KV: int, D: int, seqs,
+                             window: int = 0, back: int = 3, seed: int = 19) -> float:
+    """Phase 18 (c) and 19 (c): K3 at q (4,H,1,D) against a cache stored
+    (4,S,KV,D), at each S in ``seqs``, with per-row positions (S-1, 0, S/2, 3S/4-1) and with one
+    scalar position, S - ``back`` (3: at 129 the loop's last decode step,
+    126, as the loop passes it; 1: the cross cache's last key, as encdec
+    decode passes it), against its plain version: fp32 within 2e-5,
     bf16 within 2e-2 of the plain output's largest magnitude (two bf16
     steps at it; the outputs are means of O(1) values over up to S keys,
     so a flat 2e-2 would pass a kernel that dropped keys). Returns the max
     abs error of the bf16 cases."""
     from repro_torch.kernels import flash_decode, ref
-    gen = torch.Generator(device=dev).manual_seed(18)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     err_bf16 = 0.0
-    for S in SSM_K3_SEQS:
+    for S in seqs:
         rows = torch.tensor([S - 1, 0, S // 2, 3 * S // 4 - 1], dtype=torch.int32, device=dev)
         for dtype in (torch.bfloat16, torch.float32):
-            for pos in (rows, S - 3):
-                q, k, v = _decode_case(torch, dev, gen, 4, 32, 32, S, 64, dtype)
-                got = flash_decode.flash_decode(q, k, v, pos, SSM_WINDOW)
-                expect = ref.decode_attention(q, k, v, pos, SSM_WINDOW).float()
+            for pos in (rows, S - back):
+                q, k, v = _decode_case(torch, dev, gen, 4, H, KV, S, D, dtype)
+                got = flash_decode.flash_decode(q, k, v, pos, window)
+                expect = ref.decode_attention(q, k, v, pos, window).float()
                 torch.cuda.synchronize()
                 scale = expect.abs().max().item()
                 tol = 2e-5 if dtype == torch.float32 else 2e-2 * scale
                 err = (got.float() - expect).abs().max().item()
                 at = f"pos {pos.tolist() if torch.is_tensor(pos) else pos}"
-                log(f"[kernels] flash_decode zamba2 (4,32,1,64) vs (4,{S},32,64) "
-                    f"{str(dtype)[6:]}, {at}, window {SSM_WINDOW}: max abs err {err:.3e} (tol "
+                log(f"[kernels] flash_decode {label} (4,{H},1,{D}) vs (4,{S},{KV},{D}) "
+                    f"{str(dtype)[6:]}, {at}, window {window}: max abs err {err:.3e} (tol "
                     f"{tol:.3e}; max |out| {scale:.3f})")
-                assert err <= tol, f"flash_decode zamba2 S={S} {dtype} {at}: {err} > {tol}"
+                assert err <= tol, f"flash_decode {label} S={S} {dtype} {at}: {err} > {tol}"
                 if dtype == torch.bfloat16:
                     err_bf16 = max(err_bf16, err)
     return err_bf16
 
 
-def card_vs_cpu_ssm_serve(torch, dev, arch: str):
-    """Phase 18 (d): ``arch``'s smoke config in fp32 through the per-token
-    loop on the card and on the CPU from the same weights: the tokens,
-    then the decode logits teacher-forced on the prompt and the CPU's
-    tokens. Returns (tokens equal, max |logit diff|, max |logit|)."""
+def card_vs_cpu_loop_serve(torch, dev, arch: str, tag: str = "ssm"):
+    """Phase 18 (d) and 19 (d): ``arch``'s smoke config in fp32 through the
+    per-token loop on the card and on the CPU from the same weights: the
+    tokens, then the decode logits teacher-forced on the prompt and the
+    CPU's tokens (for encdec with the same random non-zero cross cache on
+    both, so that the cross-attention reads keys that differ). Returns
+    (tokens equal, max |logit diff|, max |logit|)."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -1681,14 +1771,19 @@ def card_vs_cpu_ssm_serve(torch, dev, arch: str):
     with torch.no_grad():
         c_card = model.init_cache(2, seq.shape[1], dev)
         c_cpu = model.init_cache(2, seq.shape[1], "cpu")
+        if cfg.family == "encdec":
+            gen = torch.Generator().manual_seed(8)
+            for name in ("cross_k", "cross_v"):
+                c_cpu[name].normal_(generator=gen)
+                c_card[name].copy_(c_cpu[name])
         for t in range(seq.shape[1]):
             a, _ = model.decode_step(params_card, seq[:, t:t + 1].to(dev), c_card, t)
             b, _ = model.decode_step(params, seq[:, t:t + 1], c_cpu, t)
             diff = max(diff, (a.cpu() - b).abs().max().item())
             scale = max(scale, b.abs().max().item())
-    log(f"[card-vs-cpu ssm] {cfg.arch_id} ({cfg.family}, fp32): tokens card {card.tolist()} / "
+    log(f"[card-vs-cpu {tag}] {cfg.arch_id} ({cfg.family}, fp32): tokens card {card.tolist()} / "
         f"cpu {cpu.tolist()}; max |logit diff| {diff:.3e} over {seq.shape[1]} decode steps "
-        f"(max |logit| {scale:.3f})")
+        f"(max |logit| {scale:.3f})" + (", random cross cache" if cfg.family == "encdec" else ""))
     return torch.equal(card, cpu), diff, scale
 
 
@@ -1776,15 +1871,18 @@ def ssm_phase(torch, dev, lm_data, card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    _, mamba = ssm_serve_path(torch, dev, SSM_ARCH, card)
-    k3, zamba = ssm_serve_path(torch, dev, HYBRID_ARCH, card)
+    _, mamba = loop_serve_path(torch, dev, SSM_ARCH, card)
+    k3, zamba = loop_serve_path(torch, dev, HYBRID_ARCH, card)
     log(f"[ssm] zamba2 decode step: flash_decode {zamba['k3_ms']:.4f} ms of {zamba['busy_ms']:.3f} "
         f"ms busy ({zamba['k3_ms'] / max(zamba['busy_ms'], 1e-9):.2%}) ({card})")
-    k3_err = check_flash_decode_zamba(torch, dev)
+    # zamba2's shape (G = 1) at the loop's 129-position cache (a ragged
+    # last tile) and 4,096, under its window
+    k3_err = check_flash_decode_shape(torch, dev, "zamba2", 32, 32, 64, SSM_K3_SEQS, SSM_WINDOW,
+                                      seed=18)
     times = {S: time_flash_decode(torch, dev, 32, 64, label="zamba2", KV=32, S=S,
                                   window=SSM_WINDOW) for S in SSM_K3_SEQS}
     for arch in (SSM_ARCH, HYBRID_ARCH):
-        same, diff, _ = card_vs_cpu_ssm_serve(torch, dev, arch)
+        same, diff, _ = card_vs_cpu_loop_serve(torch, dev, arch)
         assert same, f"{arch}: card and CPU generate different tokens in fp32"
         # 1e-3, as phase 7
         assert diff <= 1e-3, f"{arch}: card and CPU logits differ by {diff}"
@@ -1792,6 +1890,232 @@ def ssm_phase(torch, dev, lm_data, card: str) -> dict:
     log(f"[ssm] phase 18 in {time.perf_counter() - t0:.1f} s")
     return {"k3": k3, "k3_err": k3_err, "k3_times": times, "mamba": mamba, "zamba": zamba,
             "launches": launches, "round_s": secs, "peak_gb": peak / 1e9}
+
+
+# ---------------------------------------------------------------- phase 19
+
+
+def _bytes(tree) -> int:
+    from repro_torch.utils.tree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _family_batch(torch, cfg, B: int, S_text: int, dev, seed: int) -> dict:
+    """The reference's ``input_specs`` layout for a train batch: tokens and
+    labels (B, S_text) int32, plus the frontend stub's rows in the
+    activation dtype (encdec: (B, encoder_seq, d) audio frames; vlm:
+    (B, n_vision_tokens, d) patches), random from ``seed``."""
+    from repro_torch.models.layers import dtype_of
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def ids():
+        return torch.randint(0, cfg.vocab_size, (B, S_text), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    batch = {"tokens": ids(), "labels": ids()}
+    rows = {"encdec": ("audio_embed", cfg.encoder_seq),
+            "vlm": ("vision_embed", cfg.n_vision_tokens)}.get(cfg.family)
+    if rows:
+        batch[rows[0]] = (torch.randn((B, rows[1], cfg.d_model), generator=gen, device=dev)
+                          * 0.02).to(dtype_of(cfg.dtype))
+    return batch
+
+
+def timed_train(torch, model, opt, params, batch, steps: int, lr: float, microbatches: int,
+                label: str, card: str):
+    """``steps`` train steps (``make_train_step(..., microbatches=)``) from
+    ``params``, each timed to a synchronize, the loss read after it.
+    Returns (params, opt state, seconds a step, losses, peak bytes)."""
+    from repro_torch.train.steps import make_train_step
+    step = make_train_step(model, opt, microbatches=microbatches)
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs, losses = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        params, state, met = step(params, state, batch, lr)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(met["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[train] {label}: {opt.name}, microbatches {microbatches}, {steps} steps, seconds "
+        f"{[round(x, 4) for x in secs]}, losses {[round(x, 4) for x in losses]}, peak "
+        f"{peak / 1e9:.2f} GB ({card})")
+    assert all(math.isfinite(x) for x in losses), f"{label}: a loss is not finite"
+    return params, state, secs, losses, peak
+
+
+def _max_tree_diff(a, b):
+    """(max |a - b| over every leaf, the path of the leaf that holds it)."""
+    from repro_torch.utils.tree import tree_paths_and_leaves
+    return max(((x.float().cpu() - y.float().cpu()).abs().max().item(), p)
+               for (p, x), (_, y) in zip(tree_paths_and_leaves(a), tree_paths_and_leaves(b)))
+
+
+def encdec_vlm_train(torch, dev, card: str) -> dict:
+    """Phase 19 (e): whisper-base uncut and internvl2-26b at full width cut
+    to ``VLM_TRAIN_LAYERS``, trained with gradient accumulation and
+    adamw; the accumulation held against the full batch; adafactor on
+    whisper-base; one adafactor step of whisper's smoke config on the
+    card and on the CPU."""
+    from repro_torch.configs import OptimizerConfig, get_config
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizers import Optimizer, make_optimizer
+    from repro_torch.train.steps import make_train_step
+    from repro_torch.utils.tree import tree_leaves, tree_map, tree_paths_and_leaves
+
+    out = {}
+    adamw = make_optimizer(OptimizerConfig(name="adamw", lr=TRAIN_ADAMW_LR,
+                                           weight_decay=TRAIN_ADAMW_WD))
+    adafactor = make_optimizer(OptimizerConfig(name="adafactor", lr=TRAIN_ADAFACTOR_LR,
+                                               grad_clip=1.0))
+    # whisper-base uncut: adamw with 2 microbatches
+    wm = build_model(get_config(ENCDEC_ARCH))
+    p0 = wm.init(torch.Generator(device=dev).manual_seed(0))
+    wb = _family_batch(torch, wm.cfg, ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ, dev, 1)
+    log(f"[train] {ENCDEC_ARCH} uncut ({wm.param_count(p0):,} params, {wm.cfg.param_dtype} "
+        f"params, {wm.cfg.dtype} activations): audio_embed {tuple(wb['audio_embed'].shape)}, "
+        f"tokens {tuple(wb['tokens'].shape)}")
+    _, _, secs, _, peak = timed_train(torch, wm, adamw, p0, wb, ENCDEC_TRAIN_STEPS,
+                                      TRAIN_ADAMW_LR, TRAIN_MICROBATCHES, ENCDEC_ARCH, card)
+    out["whisper"] = {"step_s": secs, "peak_gb": peak / 1e9}
+    # accumulation against the full batch, from one state: an "optimizer"
+    # whose update returns the gradients, so the step's output is the
+    # averaged gradients that make_train_step hands to the update
+    grads_out = Optimizer("grads", lambda p: {}, lambda g, s, p, lr: (g, s))
+    g_one, g_mb, g_half = (
+        make_train_step(wm, grads_out, microbatches=n)(p0, {}, b, TRAIN_ADAMW_LR)[0]
+        for n, b in ((1, wb), (TRAIN_MICROBATCHES, wb),
+                     (1, tree_map(lambda x: x[:len(x) // TRAIN_MICROBATCHES], wb))))
+    g_scale = max(t.abs().max().item() for t in tree_leaves(g_one))
+    mb_diff, mb_at = _max_tree_diff(g_one, g_mb)
+    half_diff, _ = _max_tree_diff(g_one, g_half)
+    limit = MB_GRAD_RTOL * g_scale
+    log(f"[train] {ENCDEC_ARCH}: one step's gradients, microbatches 1 vs {TRAIN_MICROBATCHES}: "
+        f"max |diff| {mb_diff:.3e} at {mb_at}, max |grad| {g_scale:.3e}, limit {limit:.3e} "
+        f"({MB_GRAD_RTOL} of max |grad|: bf16 rounding of the partial sums); the first "
+        f"microbatch alone differs by {half_diff:.3e}, one not divided by the count would by "
+        f"{g_scale:.3e}")
+    assert mb_diff <= limit, f"microbatched and full-batch whisper gradients differ by {mb_diff}"
+    assert half_diff > limit, (f"half the batch gives gradients within {half_diff} of the whole "
+                               f"batch's: the accumulation check cannot tell them apart")
+    out["mb_diff"] = mb_diff / g_scale
+    del g_one, g_mb, g_half
+    # adafactor on whisper-base uncut
+    _, st, secs, _, peak = timed_train(torch, wm, adafactor, p0, wb, ENCDEC_TRAIN_STEPS,
+                                       TRAIN_ADAFACTOR_LR, 1, ENCDEC_ARCH, card)
+    adam_bytes = _bytes(adamw.init(p0))
+    out["adafactor"] = {"step_s": secs, "peak_gb": peak / 1e9, "state_bytes": _bytes(st),
+                        "adam_bytes": adam_bytes}
+    log(f"[train] {ENCDEC_ARCH}: adafactor state {_bytes(st):,} bytes against adamw's "
+        f"{adam_bytes:,} ({_bytes(st) / adam_bytes:.2%})")
+    del p0, st, wb
+    torch.cuda.empty_cache()
+    # internvl2-26b at full width, cut: adamw with 2 microbatches
+    full = get_config(VLM_ARCH)
+    vm = build_model(replace(full, n_layers=VLM_TRAIN_LAYERS))
+    log(f"reduced: {VLM_ARCH} n_layers {full.n_layers} → {VLM_TRAIN_LAYERS} in training (adamw "
+        f"over fp32 params holds params, gradients, m and v and their updated copies at once: "
+        f"about 8 x the params' bytes at the update)")
+    vp = vm.init(torch.Generator(device=dev).manual_seed(0))
+    vb = _family_batch(torch, vm.cfg, VLM_TRAIN_BATCH, VLM_TRAIN_TEXT, dev, 2)
+    log(f"[train] {VLM_ARCH} at {VLM_TRAIN_LAYERS} layers: {vm.param_count(vp):,} params "
+        f"({_bytes(vp) / 1e9:.2f} GB); vision_embed {tuple(vb['vision_embed'].shape)}, tokens "
+        f"{tuple(vb['tokens'].shape)}")
+    _, _, secs, _, peak = timed_train(torch, vm, adamw, vp, vb, VLM_TRAIN_STEPS, TRAIN_ADAMW_LR,
+                                      TRAIN_MICROBATCHES, VLM_ARCH, card)
+    out["internvl"] = {"step_s": secs, "peak_gb": peak / 1e9}
+    del vp, vb
+    torch.cuda.empty_cache()
+    # adafactor on whisper's smoke config, card against CPU
+    sm = build_model(get_config(ENCDEC_ARCH).smoke())
+    sp = sm.init(torch.Generator().manual_seed(0))
+    sb = _family_batch(torch, sm.cfg, 4, 16, "cpu", 3)
+    sp_card, sb_card = (tree_map(lambda t: t.to(dev), x) for x in (sp, sb))
+    grad_fn = torch.func.grad_and_value(sm.loss, has_aux=True)
+    g_card, (l_card, _) = grad_fn(sp_card, sb_card)
+    g_cpu, (l_cpu, _) = grad_fn(sp, sb)
+    g_diff, g_at = _max_tree_diff(g_card, g_cpu)
+    g_scale = max(t.abs().max().item() for t in tree_leaves(g_cpu))
+    same_g = tree_map(lambda t: t.to(dev), g_cpu)
+    u_card, _ = adafactor.update(same_g, adafactor.init(sp_card), sp_card, TRAIN_ADAFACTOR_LR)
+    u_cpu, _ = adafactor.update(g_cpu, adafactor.init(sp), sp, TRAIN_ADAFACTOR_LR)
+    u_diff, u_at = _max_tree_diff(u_card, u_cpu)
+    step = make_train_step(sm, adafactor)
+    s_card, _, _ = step(sp_card, adafactor.init(sp_card), sb_card, TRAIN_ADAFACTOR_LR)
+    s_cpu, _, _ = step(sp, adafactor.init(sp), sb, TRAIN_ADAFACTOR_LR)
+    # the whole step, on every leaf whose gradient is above rounding level: a
+    # gradient that is 0 in exact arithmetic (a key bias's, under softmax)
+    # is rounding noise, which adafactor scales up to an update of order lr
+    held, left_out = [], []
+    for (p, a), (_, b), (_, g) in zip(tree_paths_and_leaves(s_card), tree_paths_and_leaves(s_cpu),
+                                      tree_paths_and_leaves(g_cpu)):
+        d = (a.float().cpu() - b.float()).abs().max().item()
+        g_max = g.abs().max().item()
+        (held if g_max > STEP_GRAD_FLOOR * g_scale else left_out).append((d, p, g_max))
+    s_diff, s_at, _ = max(held)
+    log(f"[card-vs-cpu adafactor] {sm.cfg.arch_id} (fp32): loss {l_card.item():.6f} / "
+        f"{l_cpu.item():.6f}; max |grad diff| {g_diff:.3e} at {g_at} (max |grad| {g_scale:.3e}); "
+        f"one update from the same gradients: max |param diff| {u_diff:.3e} at {u_at}; the whole "
+        f"step: max |param diff| {s_diff:.3e} at {s_at} over {len(held)} leaves (asserted <= "
+        f"1e-5); {len(left_out)} leaves left out, their max |grad| <= {STEP_GRAD_FLOOR} x "
+        f"{g_scale:.3e}")
+    for d, p, g_max in left_out:
+        log(f"[card-vs-cpu adafactor]   left out: {p}, max |grad| {g_max:.3e}, "
+            f"max |param diff| {d:.3e}")
+    # 1e-4 of the largest gradient: fp32 sums in other orders differ by ~1e-6
+    assert g_diff <= 1e-4 * g_scale, f"card and CPU whisper gradients differ by {g_diff}"
+    assert u_diff <= 1e-5, f"card and CPU adafactor updates differ by {u_diff}"
+    assert s_diff <= 1e-5, f"card and CPU adafactor steps differ by {s_diff} at {s_at}"
+    out["smoke"] = {"grad_diff": g_diff, "update_diff": u_diff, "step_diff": s_diff}
+    return out
+
+
+def encdec_vlm_phase(torch, dev, card: str) -> dict:
+    """Phase 19 (a)-(e). Returns what the [done] line and the kernels line
+    read: K3 launches of (a) and (b), and the numbers printed."""
+    import gc
+
+    from repro_torch.configs import get_config
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log(f"[encdec] phase 19 starts with {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved")
+    k3_w, whisper = loop_serve_path(torch, dev, ENCDEC_ARCH, card, tag="encdec")
+    k3_v, internvl = loop_serve_path(torch, dev, VLM_ARCH, card, layers=VLM_SERVE_LAYERS,
+                                     tag="vlm")
+    full = get_config(VLM_ARCH)
+    per_layer = (internvl["params"] - 2 * full.padded_vocab * full.d_model
+                 - full.d_model) / VLM_SERVE_LAYERS
+    log(f"reduced: {VLM_ARCH} n_layers {full.n_layers} → {VLM_SERVE_LAYERS} when served (all "
+        f"{full.n_layers} layers' fp32 params would take "
+        f"{4 * (internvl['params'] + (full.n_layers - VLM_SERVE_LAYERS) * per_layer) / 1e9:.1f} "
+        f"GB of the card's 80)")
+    for name, info in ((ENCDEC_ARCH, whisper), (VLM_ARCH, internvl)):
+        log(f"[encdec] {name} decode step: flash_decode {info['k3_ms']:.4f} ms of "
+            f"{info['busy_ms']:.3f} ms busy ({info['k3_ms'] / max(info['busy_ms'], 1e-9):.2%}), "
+            f"busy {info['busy_ms'] / info['step_wall_ms']:.1%} of the step's wall ({card})")
+    err = max(check_flash_decode_shape(torch, dev, "whisper self", 8, 8, 64, (129,)),
+              check_flash_decode_shape(torch, dev, "whisper cross", 8, 8, 64,
+                                       (ENCDEC_CROSS_SEQ,), back=1),
+              check_flash_decode_shape(torch, dev, "internvl2", 48, 8, 128, VLM_K3_SEQS))
+    # every row at the cache's last position: the cross call's, and the
+    # whole cache read at the others
+    shapes = [("whisper self", 8, 8, 64, 129), ("whisper cross", 8, 8, 64, ENCDEC_CROSS_SEQ)] + [
+        (f"internvl2 S={S}", 48, 8, 128, S) for S in VLM_K3_SEQS]
+    times = {label: time_flash_decode(torch, dev, H, D, label=label, KV=KV, S=S, pos=S - 1)
+             for label, H, KV, D, S in shapes}
+    for arch in (ENCDEC_ARCH, VLM_ARCH):
+        same, diff, _ = card_vs_cpu_loop_serve(torch, dev, arch, tag="encdec")
+        assert same, f"{arch}: card and CPU generate different tokens in fp32"
+        # 1e-3, as phase 7
+        assert diff <= 1e-3, f"{arch}: card and CPU logits differ by {diff}"
+    train = encdec_vlm_train(torch, dev, card)
+    log(f"[encdec] phase 19 in {time.perf_counter() - t0:.1f} s")
+    return {"k3": k3_w + k3_v, "k3_err": err, "k3_times": times, "whisper": whisper,
+            "internvl": internvl, "train": train}
 
 
 # ------------------------------------------------------------ phases 8-11
@@ -3171,6 +3495,11 @@ def main() -> int:
     assert get_config(HYBRID_ARCH).sliding_window == SSM_WINDOW
     ssm = ssm_phase(torch, dev, lm_data, card)
 
+    # --- phase 19: the encdec and vlm families served and trained, K3
+    # launches from each run alone
+    assert get_config(ENCDEC_ARCH).encoder_seq == ENCDEC_CROSS_SEQ
+    ev = encdec_vlm_phase(torch, dev, card)
+
     kernels = [
         _kernel_line("param_stats_batched", "param_stats", "src/repro/kernels/param_stats.py:92",
                      sum(n["param_stats_batched"]
@@ -3183,7 +3512,8 @@ def main() -> int:
                                    la, lb, ssm["launches"])),
                      k2_err, k2),
         _kernel_line("flash_decode", "flash_decode", "src/repro/kernels/flash_decode.py:93",
-                     k3_launches + k3_lm + k3_moe + ssm["k3"], max(k3_err, ssm["k3_err"]), k3),
+                     k3_launches + k3_lm + k3_moe + ssm["k3"] + ev["k3"],
+                     max(k3_err, ssm["k3_err"], ev["k3_err"]), k3),
         _kernel_line("flash_attention", "flash_attention",
                      "src/repro/kernels/flash_attention.py:89", k4_launches, k4_err, k4),
     ]
@@ -3216,9 +3546,19 @@ def main() -> int:
         f"step's busy time; K3 at (4,32,1,64) vs (4,S,32,64) bf16 through the wrapper "
         f"{({S: round(t[0], 4) for S, t in ssm['k3_times'].items()})} ms; mamba2 swarm "
         f"({SSM_SWARM_LAYERS} layers) round seconds {ssm['round_s']}, peak "
-        f"{ssm['peak_gb']:.2f} GB, launches {ssm['launches']}; K1 and K2 launches in the kernels "
+        f"{ssm['peak_gb']:.2f} GB, launches {ssm['launches']}; whisper-base served (phase 19): "
+        f"{ev['whisper']['tok_s']:.2f} tok/s, {ev['whisper']['step_ms']:.2f} ms a decode step, "
+        f"peak {ev['whisper']['peak_gb']:.2f} GB; internvl2-26b at {VLM_SERVE_LAYERS} layers: "
+        f"{ev['internvl']['tok_s']:.2f} tok/s, {ev['internvl']['step_ms']:.2f} ms a decode step, "
+        f"peak {ev['internvl']['peak_gb']:.2f} GB; K3 at phase 19's shapes through the wrapper "
+        f"{({k: round(t[0], 4) for k, t in ev['k3_times'].items()})} ms; training seconds a "
+        f"step: whisper adamw {[round(x, 4) for x in ev['train']['whisper']['step_s']]}, "
+        f"adafactor {[round(x, 4) for x in ev['train']['adafactor']['step_s']]}, internvl "
+        f"({VLM_TRAIN_LAYERS} layers) {[round(x, 4) for x in ev['train']['internvl']['step_s']]}, "
+        f"peaks {ev['train']['whisper']['peak_gb']:.2f} / "
+        f"{ev['train']['internvl']['peak_gb']:.2f} GB; K1 and K2 launches in the kernels "
         f"line: phases 3, 11, 12, 13, 14 (its 4-pod fit and scaling axis), 15 and 18; K3: phases "
-        f"6, 16, 17 and 18; K3's max_abs_err over phases 5 and 18")
+        f"6, 16, 17, 18 and 19; K3's max_abs_err over phases 5, 18 and 19")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

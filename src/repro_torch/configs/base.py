@@ -149,7 +149,7 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class OptimizerConfig:
-    name: str = "adamw"              # sgd | momentum | adam | adamw
+    name: str = "adamw"              # sgd | momentum | adam | adamw | adafactor
     lr: float = 3e-4
     b1: float = 0.9
     b2: float = 0.95

@@ -2,7 +2,7 @@
 
 * :func:`prefill_into_cache` is the per-token teacher-forcing reference
   that the engine's chunked prefill is held against, and the only
-  prefill of the families without one (ssm, hybrid);
+  prefill of the families without one (ssm, hybrid, vlm, encdec);
 * :func:`loop_generate` is the per-token loop: that prefill, then one
   greedy decode step a token;
 * :func:`run_serve` generates for a few random prompts through the
@@ -11,11 +11,16 @@
 
 PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b --tokens 32
 (on the card; add ``--device cpu`` to run on the CPU)
+
+The encoder-decoder (whisper-base) decodes against its cross cache as
+the reference's loop leaves it: zeros, since nothing runs the encoder
+when serving.
 """
 from __future__ import annotations
 
 import argparse
 import time
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -55,21 +60,24 @@ def loop_generate(model, params, prompts: torch.Tensor, tokens: int) -> torch.Te
 
 def run_serve(arch: str, *, batch: int = 4, prompt_len: int = 8, tokens: int = 16,
               seed: int = 0, smoke: bool = True, engine: str = "auto", verbose: bool = False,
-              device=None):
+              device=None, layers: int = 0):
     """Generate ``tokens`` greedy tokens for ``batch`` random prompts
     (numpy's generator from ``seed``, params from a torch generator
     seeded with it). ``engine="auto"`` takes the continuous-batching
     engine (one bucket) when the family has a chunked prefill and the
     per-token loop (:func:`loop_generate`) otherwise; ``"loop"`` forces
-    the loop, ``"engine"`` the engine. Returns ``(gen, info)``: the
-    (batch, tokens) int32 generations and a stats dict whose ``path``
-    names the path taken."""
+    the loop, ``"engine"`` the engine. ``layers`` > 0 cuts the config to
+    that many (decoder) layers. Returns ``(gen, info)``: the (batch,
+    tokens) int32 generations and a stats dict whose ``path`` names the
+    path taken."""
     if engine not in ("auto", "engine", "loop"):
         raise ValueError(f"engine must be 'auto', 'engine' or 'loop', got {engine!r}")
     dev = resolve_device(device)
     cfg = get_config(arch)
     if smoke:
         cfg = cfg.smoke()
+    if layers:
+        cfg = replace(cfg, n_layers=layers)
     model = build_model(cfg)
     use_engine = engine == "engine" or (engine == "auto" and model.prefill is not None)
     params = model.init(torch.Generator(device=dev).manual_seed(seed))

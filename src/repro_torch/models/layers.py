@@ -1,5 +1,5 @@
-"""Shared layer primitives: inits, norms, RoPE, MLPs, embeddings
-(counterpart of ``repro.models.layers``).
+"""Shared layer primitives: inits, norms, RoPE, sinusoidal positions,
+MLPs, embeddings (counterpart of ``repro.models.layers``).
 
 Models are functional: ``init_*`` builds parameter dicts with the
 reference's key names and layouts, the ``apply``-style functions
@@ -85,6 +85,20 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
+    """(n, d) fp32 table ``[sin(p / 10000^(2i/d)), cos(...)]`` over
+    positions p < n and i < d/2, sines in the first half (whisper's)."""
+    return sinusoidal_at(torch.arange(n, dtype=torch.float32, device=device)[:, None], d)
+
+
+def sinusoidal_at(pos: torch.Tensor, d: int) -> torch.Tensor:
+    """pos (..., 1), any numeric dtype -> (..., d) fp32 rows of
+    :func:`sinusoidal_positions`, computed on ``pos``'s device."""
+    dim = torch.arange(d // 2, dtype=torch.float32, device=pos.device)
+    ang = pos.float() / (10_000.0 ** (2 * dim / d))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

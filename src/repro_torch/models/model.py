@@ -4,12 +4,15 @@
 functions over parameter trees, so the swarm layer can vmap them over
 a client-stacked tree with ``torch.func``. The CNN family and the
 dense, moe, ssm and hybrid decoder-only LMs (with their caches and
-decode step) are ported, and the swarm trains them through these
+decode step), the vlm (whose batches add ``"vision_embed"``) and the
+encoder-decoder (``"audio_embed"``, a dict cache ``{"self", "cross_k",
+"cross_v"}``) are ported, and the swarm trains them through these
 functions (an LM's batches are ``{"tokens", "labels"}`` and its accuracy
-counts unmasked tokens); the other families raise. Only the
-attention-backed families (dense, moe) have a chunked ``prefill``: an
-SSM state cannot mask padded prompt tails after the fact, so ssm and
-hybrid serve through the per-token loop (``launch/serve.run_serve``).
+counts unmasked tokens). Only the dense and moe families have a chunked
+``prefill``, as in the reference: an SSM state cannot mask padded
+prompt tails after the fact, and the reference gives vlm and encdec
+none, so ssm, hybrid, vlm and encdec serve through the per-token loop
+(``launch/serve.run_serve``).
 """
 from __future__ import annotations
 
@@ -81,8 +84,20 @@ def build_model(cfg: ModelConfig) -> Model:
 
         return Model(cfg, lambda gen: cnn_lib.init_cnn(gen, cfg), fwd, loss)
 
-    tf_lib.check_family(cfg)
+    if cfg.family == "encdec":
+        def encdec_fwd(params, batch):
+            return tf_lib.encdec_forward(params, batch, cfg)
 
+        return Model(
+            cfg,
+            lambda gen: tf_lib.init_encdec(gen, cfg),
+            encdec_fwd,
+            _lm_loss(encdec_fwd),
+            init_cache=lambda b, s, device: tf_lib.init_encdec_cache(cfg, b, s, device),
+            decode_step=lambda p, t, c, pos: tf_lib.encdec_decode_step(p, t, c, pos, cfg),
+        )
+
+    # decoder-only families: dense / moe / ssm / hybrid / vlm
     def lm_fwd(params, batch):
         return tf_lib.lm_forward(params, batch, cfg)
 

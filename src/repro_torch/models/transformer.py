@@ -1,4 +1,5 @@
-"""Decoder-only LM assembly (counterpart of ``repro.models.transformer``).
+"""Model assembly for every family of the reference (counterpart of
+``repro.models.transformer``).
 
 ``dense`` is ``[attn + MLP] x L`` (granite); ``moe`` is ``[attn + MoE]``
 with leading dense layers (kimi-k2's first) or a dense layer every
@@ -6,7 +7,12 @@ with leading dense layers (kimi-k2's first) or a dense layer every
 (mamba2-370m); ``hybrid`` is a Mamba2 backbone with ONE shared
 attention block (``params["shared_attn"]``) applied after every
 ``attn_every``-th layer (zamba2), its KV cache interleaved in the cache
-list after that layer's SSM cache, as in the reference. Parameters come
+list after that layer's SSM cache, as in the reference; ``vlm`` is the
+dense stack with stub patch embeddings (``batch["vision_embed"]``)
+prepended to the token stream (internvl2); ``encdec`` is a bidirectional
+encoder and a causal decoder with cross-attention, sinusoidal positions
+and an untied read-out (whisper). Any other family builds the dense
+stack, as the reference's does. The decoder-only parameters come
 in the reference's two layouts: ``"blocks"``, a list of per-layer dicts, or,
 under ``cfg.scan_layers``, ``"layers": {"prefix": [...], "period0":
 <leaves stacked on a leading L axis>}`` with the cache as
@@ -16,10 +22,8 @@ under ``cfg.scan_layers``, ``"layers": {"prefix": [...], "period0":
 The port keeps the stacked tensors and loops over the layer index in
 Python (per-layer views, so in-place cache writes land in the stacked
 cache), so the bridge stays the identity. ssm and hybrid use the
-``"blocks"`` list in both packages.
-
-The other families (vlm, encdec) are not ported yet and raise
-``NotImplementedError``.
+``"blocks"`` list in both packages; encdec has its own
+``"encoder"`` / ``"decoder"`` lists.
 """
 from __future__ import annotations
 
@@ -40,18 +44,11 @@ from repro_torch.models.layers import (
     init_mlp,
     init_norm,
     logits_from_embedding,
+    sinusoidal_at,
+    sinusoidal_positions,
 )
 from repro_torch.models.moe import apply_moe, init_moe
 from repro_torch.utils.tree import tree_map
-
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-
-
-def check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the {cfg.family!r} family is not ported yet (ROADMAP A12); "
-            f"the port runs {PORTED_FAMILIES} and the cnn family")
 
 
 def layer_kinds(cfg: ModelConfig):
@@ -183,7 +180,6 @@ def _each_layer(params, caches, cfg: ModelConfig):
 
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig):
-    check_family(cfg)
     kinds = layer_kinds(cfg)
     params: Dict[str, Any] = {
         "embedding": init_embedding(gen, cfg.padded_vocab, cfg.d_model, cfg),
@@ -206,7 +202,6 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig):
 
 
 def init_lm_cache(cfg: ModelConfig, batch: int, max_seq: int, device):
-    check_family(cfg)
     if cfg.scan_layers and _scannable(cfg):
         prefix, period_kinds, n_periods = _scan_plan(cfg)
         return {"prefix": [block_cache(cfg, k, batch, max_seq, device) for k in prefix],
@@ -222,16 +217,26 @@ def init_lm_cache(cfg: ModelConfig, batch: int, max_seq: int, device):
 
 
 def _readout(params, x, cfg: ModelConfig):
-    x = apply_norm(params["final_norm"], x, cfg)
     if cfg.tie_embeddings:
-        return logits_from_embedding(params["embedding"], x)
+        return logits_from_embedding(params["embedding"], apply_norm(params["final_norm"], x, cfg))
+    return _head(params, x, cfg)
+
+
+def _head(params, x, cfg: ModelConfig):
+    """The final norm, then the untied ``lm_head``."""
+    x = apply_norm(params["final_norm"], x, cfg)
     return x @ params["lm_head"]["w"].to(x.dtype)
 
 
 def lm_forward(params, batch, cfg: ModelConfig):
-    """Train/prefill forward. batch: {"tokens": (B,S)}. Returns (logits, aux)."""
-    check_family(cfg)
+    """Train/prefill forward. batch: {"tokens": (B,S)[, "vision_embed"
+    (B,n_vis,d) for vlm]}: the vision rows, cast to the activation dtype,
+    go before the token embeddings, positions run over the joined
+    sequence and the vision rows' logits are sliced off. Returns
+    (logits (B,S,V), aux)."""
     x = apply_embedding(params["embedding"], batch["tokens"], cfg)
+    if cfg.family == "vlm":
+        x = torch.cat([batch["vision_embed"].to(x.dtype), x], dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     aux_total = torch.zeros((), device=x.device)
@@ -239,7 +244,10 @@ def lm_forward(params, batch, cfg: ModelConfig):
         x, _, aux = apply_block(p, x, cfg, kind, positions=positions,
                                 sliding_window=cfg.sliding_window)
         aux_total = aux_total + aux
-    return _readout(params, x, cfg), aux_total
+    logits = _readout(params, x, cfg)
+    if cfg.family == "vlm":
+        logits = logits[:, batch["vision_embed"].shape[1]:, :]
+    return logits, aux_total
 
 
 def lm_decode_step(params, tokens, caches, pos, cfg: ModelConfig):
@@ -280,3 +288,97 @@ def lm_prefill(params, tokens, caches, pos0: int, cfg: ModelConfig):
     for kind, p, cache in _each_layer(params, caches, cfg):
         x, _ = _prefill_block(p, x, cache, pos0, cfg, kind)
     return _readout(params, x, cfg), caches
+
+
+# ---------------------------------------------------------------------------
+# encoder-decoder (whisper)
+
+
+def init_encdec(gen: torch.Generator, cfg: ModelConfig):
+    """``{"embedding", "enc_final_norm", "final_norm", "encoder": [dense
+    block] x n_encoder_layers, "decoder": [dense block + "cross_norm",
+    "cross_attn"] x n_layers, "lm_head"}``, the reference's tree."""
+    encoder = [init_block(gen, cfg, "dense") for _ in range(cfg.n_encoder_layers)]
+    decoder = []
+    for _ in range(cfg.n_layers):
+        b = init_block(gen, cfg, "dense")
+        b["cross_norm"] = init_norm(gen, cfg, cfg.d_model)
+        b["cross_attn"] = attn_lib.init_attention(gen, cfg)
+        decoder.append(b)
+    return {"embedding": init_embedding(gen, cfg.padded_vocab, cfg.d_model, cfg),
+            "enc_final_norm": init_norm(gen, cfg, cfg.d_model),
+            "final_norm": init_norm(gen, cfg, cfg.d_model),
+            "encoder": encoder,
+            "decoder": decoder,
+            "lm_head": {"w": dense_init(gen, (cfg.d_model, cfg.padded_vocab),
+                                        dtype=dtype_of(cfg.param_dtype))}}
+
+
+def encdec_encode(params, audio_embed, cfg: ModelConfig):
+    """audio_embed (B, S_enc, d), the frontend stub's frame embeddings ->
+    the encoder's (B, S_enc, d): sinusoidal positions, bidirectional
+    attention."""
+    _, S, d = audio_embed.shape
+    dt = dtype_of(cfg.dtype)
+    x = audio_embed.to(dt) + sinusoidal_positions(S, d, audio_embed.device).to(dt)[None]
+    for p in params["encoder"]:
+        x = x + attn_lib.attend_full(p["attn"], apply_norm(p["attn_norm"], x, cfg), cfg,
+                                     causal=False)
+        x = x + apply_mlp(p["mlp"], apply_norm(p["mlp_norm"], x, cfg), cfg)
+    return apply_norm(params["enc_final_norm"], x, cfg)
+
+
+def encdec_forward(params, batch, cfg: ModelConfig):
+    """batch: {"audio_embed": (B,S_enc,d), "tokens": (B,S_dec)}: causal
+    self-attention, then cross-attention to the encoder's output, then
+    the MLP, in each decoder block. Returns (logits (B,S_dec,V), 0)."""
+    enc = encdec_encode(params, batch["audio_embed"], cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = apply_embedding(params["embedding"], tokens, cfg)
+    x = x + sinusoidal_positions(S, cfg.d_model, x.device).to(x.dtype)[None]
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    for p in params["decoder"]:
+        x = x + attn_lib.attend_full(p["attn"], apply_norm(p["attn_norm"], x, cfg), cfg,
+                                     positions=positions, causal=True)
+        x = x + attn_lib.attend_full(p["cross_attn"], apply_norm(p["cross_norm"], x, cfg), cfg,
+                                     x_kv=enc, causal=False)
+        x = x + apply_mlp(p["mlp"], apply_norm(p["mlp_norm"], x, cfg), cfg)
+    return _head(params, x, cfg), torch.zeros((), device=x.device)
+
+
+def init_encdec_cache(cfg: ModelConfig, batch: int, max_seq: int, device):
+    """``{"self": [k, v cache] x n_layers, "cross_k", "cross_v":
+    (n_layers, B, encoder_seq, KV, hd)}``. The cross cache is zeros in
+    ``cfg.dtype`` (not ``cache_dtype``), as the reference's: nothing
+    runs the encoder into it when serving."""
+    shape = (cfg.n_layers, batch, cfg.encoder_seq, cfg.n_kv_heads, cfg.head_dim)
+    dt = dtype_of(cfg.dtype)
+    return {"self": [attn_lib.init_kv_cache(cfg, batch, max_seq, device)
+                     for _ in range(cfg.n_layers)],
+            "cross_k": torch.zeros(shape, dtype=dt, device=device),
+            "cross_v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def encdec_decode_step(params, tokens, caches, pos, cfg: ModelConfig):
+    """tokens (B,1) int at ``pos``, one scalar position for every row (the
+    reference's sinusoidal term takes no per-row positions): self-attention
+    through the cache (written in place), cross-attention against
+    ``cross_k[i]``, ``cross_v[i]`` with all ``encoder_seq`` keys valid.
+    Returns (logits (B,1,V), caches)."""
+    x = apply_embedding(params["embedding"], tokens, cfg)
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+    if pos.dim():
+        raise ValueError(f"encdec decode takes one scalar position, got shape "
+                         f"{tuple(pos.shape)}")
+    x = x + sinusoidal_at(pos.reshape(1, 1), cfg.d_model).to(x.dtype)[None]
+    for i, p in enumerate(params["decoder"]):
+        a, _ = attn_lib.attend_decode(p["attn"], apply_norm(p["attn_norm"], x, cfg),
+                                      caches["self"][i], pos, cfg)
+        x = x + a
+        cross = {"k": caches["cross_k"][i], "v": caches["cross_v"][i]}
+        a, _ = attn_lib.attend_decode(p["cross_attn"], apply_norm(p["cross_norm"], x, cfg),
+                                      cross, cfg.encoder_seq - 1, cfg, update_cache=False)
+        x = x + a
+        x = x + apply_mlp(p["mlp"], apply_norm(p["mlp_norm"], x, cfg), cfg)
+    return _head(params, x, cfg), caches

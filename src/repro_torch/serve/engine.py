@@ -163,7 +163,7 @@ class ServeEngine:
         if cfg.family not in SERVE_FAMILIES or model.prefill is None:
             raise ValueError(
                 f"ServeEngine serves attention-backed LMs {SERVE_FAMILIES}; "
-                f"got family '{cfg.family}' (ssm/hybrid/encdec serve via "
+                f"got family '{cfg.family}' (ssm/hybrid/encdec/vlm serve via "
                 "the per-token repro_torch.launch.serve path)")
         self.device = resolve_device(device)
         if cfg.cache_ring and cfg.sliding_window:

@@ -3,7 +3,8 @@
 
 The train and eval steps act on ONE client's params; the swarm engine
 vmaps them over the client axis with ``torch.func.vmap``, the optimizer
-update included. Microbatching is not ported. The serve and prefill
+update included. The train step accumulates gradients over
+microbatches when asked, as the reference's does. The serve and prefill
 steps run the LM's decode step and chunked prefill.
 """
 from __future__ import annotations
@@ -13,17 +14,47 @@ from torch.func import grad_and_value
 
 from repro_torch.models.model import Model
 from repro_torch.optim.optimizers import Optimizer
+from repro_torch.utils.tree import tree_map
 
 
-def make_train_step(model: Model, opt: Optimizer):
+def make_train_step(model: Model, opt: Optimizer, *, microbatches: int = 0):
+    """``train_step(params, opt_state, batch, lr) -> (params, opt_state,
+    metrics)``. With ``microbatches`` > 1 every batch leaf is split on
+    axis 0 into that many equal microbatches, whose gradients and
+    metrics are summed in a Python loop and divided by the count before
+    one optimizer update (gradient accumulation: activation memory of one
+    microbatch)."""
     grad_fn = grad_and_value(model.loss, has_aux=True)
 
+    def accumulate(params, batch):
+        n = microbatches
+        g_sum = m_sum = None
+        for i in range(n):
+            mb = tree_map(lambda x: _split(x, n)[i], batch)
+            grads, (_, metrics) = grad_fn(params, mb)
+            if g_sum is None:
+                g_sum, m_sum = grads, metrics
+            else:
+                g_sum = tree_map(torch.add, g_sum, grads)
+                m_sum = tree_map(torch.add, m_sum, metrics)
+        return tree_map(lambda g: g / n, g_sum), tree_map(lambda m: m / n, m_sum)
+
     def train_step(params, opt_state, batch, lr):
-        grads, (_, metrics) = grad_fn(params, batch)
+        if microbatches and microbatches > 1:
+            grads, metrics = accumulate(params, batch)
+        else:
+            grads, (_, metrics) = grad_fn(params, batch)
         new_params, new_opt = opt.update(grads, opt_state, params, lr)
         return new_params, new_opt, metrics
 
     return train_step
+
+
+def _split(x: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, ...) -> (n, B/n, ...)."""
+    if x.shape[0] % n:
+        raise ValueError(f"a batch of {x.shape[0]} rows does not split into {n} microbatches")
+    return x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))
 
 
 def make_eval_step(model: Model):

@@ -258,6 +258,17 @@ DECODE_CASES = [
     (4, 32, 32, 129, 64, [128, 0, 64, 126], 8192, True),
     (4, 32, 32, 129, 64, 126, 8192, True),
     (4, 32, 32, 4096, 64, [4095, 2047, 17, 3000], 8192, True),
+    # whisper-base (chip_smoke.py phase 19): G = 1, D 64; the loop's self
+    # cache of 129 positions and the 1,500-key cross cache at its last key,
+    # as encdec decode passes it
+    (4, 8, 8, 129, 64, 126, 0, True),
+    (4, 8, 8, 1500, 64, 1499, 0, True),
+    (4, 8, 8, 1500, 64, [1499, 0, 750, 1124], 0, True),
+    # internvl2-26b: G = 6 (48/8 heads of 128), six warps a CTA
+    (4, 48, 8, 129, 128, 126, 0, True),
+    (4, 48, 8, 129, 128, [128, 0, 64, 96], 0, True),
+    (4, 48, 8, 4096, 128, 4093, 0, True),
+    (4, 48, 8, 4096, 128, [4095, 0, 2048, 3071], 0, True),
 ]
 
 
@@ -451,6 +462,79 @@ def test_zamba2_smoke_decode_on_the_card_matches_the_cpu(cuda):
             a, _ = model.decode_step(pc, seq[:, t:t + 1].to(cuda), caches[0], t)
             b, _ = model.decode_step(params, seq[:, t:t + 1], caches[1], t)
             torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-base", "internvl2-26b"])
+def test_encdec_and_vlm_smoke_decode_on_the_card_match_the_cpu(cuda, arch):
+    """The smoke config (fp32) through the per-token loop on the card and
+    on the CPU from the same weights: the same tokens, K3 launched a
+    decode step once a layer (twice for encdec: self and cross); the
+    teacher-forced decode logits within 1e-4, whisper's against the same
+    random non-zero cross cache on both."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import loop_generate
+    from repro_torch.models import build_model
+    from repro_torch.utils.tree import tree_map
+
+    model = build_model(get_config(arch).smoke())
+    cfg = model.cfg
+    params = model.init(torch.Generator().manual_seed(0))
+    pc = tree_map(lambda t: t.to(cuda), params)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 6)))
+    before = k_decode.flash_decode.launches
+    toks = loop_generate(model, pc, prompts.to(cuda), 5)
+    per_step = cfg.n_layers * (2 if cfg.family == "encdec" else 1)
+    assert k_decode.flash_decode.launches - before == per_step * (6 + 4)
+    cpu = loop_generate(model, params, prompts, 5)
+    assert torch.equal(toks.cpu(), cpu)
+    seq = torch.cat([prompts, cpu], 1)
+    with torch.no_grad():
+        caches = [model.init_cache(2, 16, d) for d in (cuda, "cpu")]
+        if cfg.family == "encdec":
+            gen = torch.Generator().manual_seed(1)
+            for name in ("cross_k", "cross_v"):
+                caches[1][name].normal_(generator=gen)
+                caches[0][name].copy_(caches[1][name])
+        for t in range(seq.shape[1]):
+            a, _ = model.decode_step(pc, seq[:, t:t + 1].to(cuda), caches[0], t)
+            b, _ = model.decode_step(params, seq[:, t:t + 1], caches[1], t)
+            torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_adafactor_and_microbatched_step_on_the_card_match_the_cpu(cuda):
+    """whisper-base's smoke config (fp32): one adafactor update from the
+    same gradients on the card and on the CPU, params and state within
+    1e-5; one microbatched (2) sgd step, params within 1e-5 (sgd is linear
+    in the gradient, which fp32 sums in other orders move by ~1e-7)."""
+    from repro_torch.configs import OptimizerConfig, get_config
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.train.steps import make_train_step
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    model = build_model(get_config("whisper-base").smoke())
+    cfg = model.cfg
+    params = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(2)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 16))),
+             "labels": torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 16))),
+             "audio_embed": torch.from_numpy(
+                 rng.normal(size=(4, cfg.encoder_seq, cfg.d_model)).astype(np.float32))}
+    grads, _ = torch.func.grad_and_value(model.loss, has_aux=True)(params, batch)
+    ada = make_optimizer(OptimizerConfig(name="adafactor", lr=1e-3, grad_clip=1.0))
+    on_card = tree_map(lambda t: t.to(cuda), [params, grads, batch])
+    got = list(ada.update(on_card[1], ada.init(on_card[0]), on_card[0], 1e-3))
+    want = list(ada.update(grads, ada.init(params), params, 1e-3))
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5)
+    sgd = make_optimizer(OptimizerConfig(name="sgd", lr=1e-2, grad_clip=0.0))
+    step = make_train_step(model, sgd, microbatches=2)
+    got, _, _ = step(on_card[0], sgd.init(on_card[0]), on_card[2], 1e-2)
+    want, _, _ = step(params, sgd.init(params), batch, 1e-2)
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5)
 
 
 # K3's fp8 cache and kimi-k2's head_dim 112: B, H, KV, S, D, q dtype, cache

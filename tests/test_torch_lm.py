@@ -16,6 +16,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro.configs import ASSIGNED_ARCHS  # noqa: E402
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.models import attention as jax_attn  # noqa: E402
 from repro.models import build_model as jax_build_model  # noqa: E402
@@ -62,7 +63,7 @@ def test_granite_config_is_the_references():
 
 
 @pytest.mark.parametrize("arch", ["granite-3-2b", "mamba2-370m", "kimi-k2-1t-a32b",
-                                  "whisper-base", "squeezenet-dr"])
+                                  "whisper-base", "internvl2-26b", "squeezenet-dr"])
 def test_every_reference_config_builds_the_ports_one_to_one(arch):
     jcfg = jax_get_config(arch)
     ours = ModelConfig(**dataclasses.asdict(jcfg))
@@ -71,11 +72,18 @@ def test_every_reference_config_builds_the_ports_one_to_one(arch):
         assert getattr(ours, prop) == getattr(jcfg, prop), prop
 
 
-@pytest.mark.parametrize("family_arch", ["internvl2-26b", "whisper-base"])
-def test_unported_families_raise_naming_the_roadmap(family_arch):
-    cfg = ModelConfig(**dataclasses.asdict(jax_get_config(family_arch).smoke()))
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        build_model(cfg)
+@pytest.mark.parametrize("arch", ASSIGNED_ARCHS)
+def test_every_reference_arch_builds_in_the_port(arch):
+    """The registered config builds (no init at full size), and at smoke
+    size the port's parameter tree has the reference's paths, shapes and
+    dtypes (the reference's through ``jax.eval_shape``)."""
+    assert build_model(get_config(arch)).cfg.arch_id == arch
+    jcfg = jax_get_config(arch).smoke()
+    theirs = jax.eval_shape(jax_build_model(jcfg).init, jax.random.PRNGKey(0))
+    ours = build_model(ModelConfig(**dataclasses.asdict(jcfg))).init(
+        torch.Generator().manual_seed(0))
+    assert [(p, tuple(t.shape), str(t.dtype)[6:]) for p, t in tree_paths_and_leaves(ours)] == \
+        [(p, tuple(a.shape), str(a.dtype)) for p, a in jax_paths(theirs)]
 
 
 # ------------------------------------------------------------------ layers

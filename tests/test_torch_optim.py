@@ -128,5 +128,54 @@ def test_vmapped_train_and_eval_step_match_reference():
 
 
 def test_unported_optimizer_raises():
-    with pytest.raises(ValueError, match="adafactor"):
-        make_optimizer(OptimizerConfig(name="adafactor"))
+    """A name neither package knows raises with the reference's message."""
+    with pytest.raises(ValueError) as terr:
+        make_optimizer(OptimizerConfig(name="lion"))
+    with pytest.raises(ValueError) as jerr:
+        jax_make_optimizer(JaxOptimizerConfig(name="lion"))
+    assert str(terr.value) == str(jerr.value) == "unknown optimizer 'lion'"
+
+
+def _ranked_params():
+    """Three clients' tree with leaves of rank 1, 2, 3 and 4: a stacked
+    (L, rows, cols) leaf as the scanned layers hold them among them."""
+    rng = np.random.default_rng(1)
+    shapes = {"stack": {"w": (3, 6, 5), "b": (3, 5)}, "fc": {"w": (8, 5), "b": (5,)},
+              "conv": {"w": (3, 3, 2, 4)}}
+    return jax.tree.map(lambda s: jnp.asarray(rng.normal(size=(N_CLIENTS,) + s), jnp.float32),
+                        shapes, is_leaf=lambda x: isinstance(x, tuple))
+
+
+@pytest.mark.parametrize("wd", [0.0, 0.1])
+def test_adafactor_three_updates_match_reference(wd):
+    """Three vmapped adafactor updates (factored ``vr`` / ``vc`` over the
+    last two axes for rank >= 2, a full ``v`` below, beta = 1 - t^-0.8,
+    the update's RMS clip), the global-norm clip at the middle client's
+    norm: params and state rtol/atol 1e-5, the same fp32 arithmetic in
+    both packages. The stacked leaf's state is one (rows,) / (cols,) pair
+    a layer."""
+    jparams = _ranked_params()
+    clip = float(np.median(np.asarray(jax.jit(jax.vmap(jax_global_norm))(_grads(jparams, 0)))))
+    jopt = jax_make_optimizer(JaxOptimizerConfig(name="adafactor", lr=1e-2, grad_clip=clip,
+                                                 weight_decay=wd))
+    topt = make_optimizer(OptimizerConfig(name="adafactor", lr=1e-2, grad_clip=clip,
+                                          weight_decay=wd))
+    jstate = jax.jit(jax.vmap(jopt.init))(jparams)
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams))
+    tstate = torch.func.vmap(topt.init)(tparams)
+    _assert_trees_close(opt_state_to_numpy(tstate), jstate, rtol=0, atol=0)
+    assert tuple(tstate["v"]["stack"]["w"]["vr"].shape) == (N_CLIENTS, 3, 6)
+    assert tuple(tstate["v"]["stack"]["w"]["vc"].shape) == (N_CLIENTS, 3, 5)
+    assert set(tstate["v"]["fc"]["b"]) == {"v"}
+    jupd = jax.jit(jax.vmap(jopt.update, in_axes=(0, 0, 0, None)))
+    tupd = torch.func.vmap(topt.update, in_dims=(0, 0, 0, None))
+    for s in range(3):
+        g = _grads(jparams, s)
+        jparams, jstate = jupd(g, jstate, jparams, 1e-2)
+        tparams, tstate = tupd(params_from_numpy(jax.tree.map(np.asarray, g)), tstate,
+                               tparams, 1e-2)
+    _assert_trees_close(params_to_numpy(tparams), jparams, rtol=1e-5, atol=1e-5)
+    _assert_trees_close(opt_state_to_numpy(tstate), jstate, rtol=1e-5, atol=1e-5)
+    back = opt_state_from_numpy(opt_state_to_numpy(tstate))
+    _assert_trees_close(opt_state_to_numpy(back), jax.tree.map(np.asarray, jstate), rtol=1e-5,
+                        atol=1e-5)

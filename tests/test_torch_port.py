@@ -57,13 +57,14 @@ def test_cnn_configs_match_reference(arch):
 
 def test_registry_holds_the_four_cnns_and_refuses_others():
     """The four CNNs, the reference's four dense LMs, its two moe LMs, its
-    ssm and its hybrid LM; the unported families' archs stay unknown."""
+    ssm and its hybrid LM, its encoder-decoder and its vlm; an arch
+    neither package registers stays unknown."""
     assert sorted(REGISTRY) == sorted(ARCHS + ["granite-3-2b", "command-r-35b", "deepseek-7b",
                                                "deepseek-67b", "kimi-k2-1t-a32b",
                                                "llama4-maverick-400b-a17b", "mamba2-370m",
-                                               "zamba2-1.2b"])
+                                               "zamba2-1.2b", "whisper-base", "internvl2-26b"])
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("whisper-base")
+        get_config("whisper-large")
 
 
 @pytest.mark.parametrize("ours,theirs", [(OptimizerConfig, JaxOptimizerConfig),

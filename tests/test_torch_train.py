@@ -1,6 +1,7 @@
-"""The port's learning-rate schedules and trainer entry point
-(``repro_torch.optim.schedules``, ``repro_torch.launch.train``) against
-the JAX reference on the CPU."""
+"""The port's learning-rate schedules, trainer entry point and
+microbatched train step (``repro_torch.optim.schedules``,
+``repro_torch.launch.train``, ``repro_torch.train.steps``) against the
+JAX reference on the CPU."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -12,6 +13,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.configs.base import OptimizerConfig as JaxOptimizerConfig  # noqa: E402
 from repro.data.tokens import make_lm_batches  # noqa: E402
 from repro.launch import train as jax_train  # noqa: E402
@@ -19,10 +21,15 @@ from repro.models import build_model as jax_build_model  # noqa: E402
 from repro.optim.optimizers import make_optimizer as jax_make_optimizer  # noqa: E402
 from repro.optim.schedules import make_schedule as jax_make_schedule  # noqa: E402
 from repro.train.steps import make_train_step as jax_make_train_step  # noqa: E402
+from repro.utils.tree import tree_paths_and_leaves as jax_paths  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.checkpoint import restore_into  # noqa: E402
+from repro_torch.configs import ModelConfig, OptimizerConfig  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.optim.optimizers import make_optimizer  # noqa: E402
 from repro_torch.optim.schedules import make_schedule  # noqa: E402
+from repro_torch.train.steps import make_train_step  # noqa: E402
 from repro_torch.utils.tree import tree_map, tree_paths_and_leaves  # noqa: E402
 
 # ------------------------------------------------------------------ schedules
@@ -149,3 +156,53 @@ def test_main_needs_a_card_unless_told(monkeypatch, mode):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--mode", mode, "--steps", "1", "--rounds", "1"])
+
+
+# ------------------------------------------------------------------ gradient accumulation
+
+
+def _mb_setup(arch):
+    jcfg = jax_get_config(arch).smoke()
+    jm, tm = jax_build_model(jcfg), build_model(ModelConfig(**dataclasses.asdict(jcfg)))
+    jp = jm.init(jax.random.PRNGKey(0))
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, jcfg.vocab_size, size=(4, 16)).astype(np.int32)
+    batch = {"tokens": toks, "labels": toks}
+    if jcfg.family == "encdec":
+        batch["audio_embed"] = (rng.normal(size=(4, jcfg.encoder_seq, jcfg.d_model))
+                                * 0.02).astype(np.float32)
+    opt = dict(name="sgd", lr=1e-2, grad_clip=0)
+    return (jm, jp, jax_make_optimizer(JaxOptimizerConfig(**opt)), tm,
+            make_optimizer(OptimizerConfig(**opt)), batch)
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "whisper-base"])
+def test_microbatched_step_matches_reference_and_the_full_batch(arch):
+    """``make_train_step(..., microbatches=2)``: one sgd step (no clip) on
+    4 rows against the reference's microbatched step and against the
+    port's full-batch step, params within rtol 2e-5 / atol 2e-6 (the
+    reference's own bound for accumulation against the full batch) and
+    the averaged metrics within rtol 1e-5."""
+    jm, jp, jopt, tm, topt, batch = _mb_setup(arch)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp))
+    jnew, _, jmet = jax.jit(jax_make_train_step(jm, jopt, microbatches=2))(
+        jp, jopt.init(jp), jb, jnp.asarray(1e-2))
+    micro, _, tmet = make_train_step(tm, topt, microbatches=2)(tp, topt.init(tp), tb, 1e-2)
+    full, _, _ = make_train_step(tm, topt)(tp, topt.init(tp), tb, 1e-2)
+    want = [np.asarray(a) for _, a in jax_paths(jnew)]
+    for (p, a), b, (_, c) in zip(tree_paths_and_leaves(micro), want,
+                                 tree_paths_and_leaves(full)):
+        np.testing.assert_allclose(a.numpy(), b, rtol=2e-5, atol=2e-6, err_msg=p)
+        np.testing.assert_allclose(a.numpy(), c.numpy(), rtol=2e-5, atol=2e-6, err_msg=p)
+    for k in ("loss", "ce", "acc"):
+        np.testing.assert_allclose(float(tmet[k]), float(jmet[k]), rtol=1e-5, err_msg=k)
+
+
+def test_microbatches_must_divide_the_batch():
+    _, _, _, tm, topt, batch = _mb_setup("granite-3-2b")
+    tp = tm.init(torch.Generator().manual_seed(0))
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    with pytest.raises(ValueError, match="does not split into 3 microbatches"):
+        make_train_step(tm, topt, microbatches=3)(tp, topt.init(tp), tb, 1e-2)
