@@ -187,7 +187,19 @@ exits non-zero and prints no result. It imports nothing of JAX. Phases:
    (2,256,6144), text 768), adamw, 2 microbatches, 2 steps; one
    adafactor step of whisper's smoke config on the card and on the CPU,
    the update from the same gradients and the whole step (on the leaves
-   whose gradient is above rounding level) within 1e-5.
+   whose gradient is above rounding level) within 1e-5;
+20. the fleet regime over one NCCL rank (``NCCL_SOCKET_IFNAME=lo``
+   unless set), phase 3's data and settings through
+   ``launch.fleet_driver.run_fleet``, 3 rounds each: (a) flat, K1 = 3
+   and K2 = 63 launches and the Eq. 2 census (2 all-reduces of 4 * (N *
+   P + N) bytes a round) asserted, round and coordinator seconds, a
+   profiled round step with NCCL's share; (b) churn, K2 = 21 x the
+   coordinated rounds; (c) the two-tier surface at k_local 4, K2 = 42 a
+   round; K1 over the fleet's stack and K2 at its three assign shapes
+   against their plain versions; (d) 2 rounds of 2 local steps at adam
+   eps 1e-6 resumed from (a)'s state on the card and on the CPU over a
+   gloo group beside the NCCL one: decisions equal, params within 1e-4;
+   (e) (a)'s final state exported, restored bitwise and served.
 
 ``python3 chip_smoke.py --ssm-depth-probe 36 37 38 39`` runs only phase
 18 (e)'s mamba2 round at each depth, alone, and prints each peak up to
@@ -375,6 +387,12 @@ TRAIN_STEPS = 30
 TRAIN_BATCH = 8
 TRAIN_SEQ = 256
 TRAIN_TIMED_STEPS = 10
+# the fleet regime (phase 20): phase 3's data and settings on one NCCL rank
+FLEET_ROUNDS = 3
+FLEET_SEED = 0
+FLEET_FAULTS = {"drop_rate": 0.2, "straggler_rate": 0.2, "stale_decay": 0.5, "quorum": 8}
+FLEET_HIER_K_LOCAL = 4
+FLEET_CARD_VS_CPU_ROUNDS = 2
 # kernels that phase 1 holds to no stack frame and no spills
 NO_SPILL_KERNELS = ("param_stats", "kmeans_assign")
 # calls captured in one graph for the coordinator kernels' second device time
@@ -3214,6 +3232,267 @@ def train_single_path(torch):
     return ces, wall, tok_s, step_s
 
 
+# ---------------------------------------------------------------- phase 20
+
+
+def check_fleet_kernels(torch, res, hier_res):
+    """K1 over the fleet's final client stack as one call, and K2 at the
+    fleet's assign shapes (the coordinator's (14,56) x (3,56), the pod's
+    (14,56) x (4,56), the global tier's (4,56) x (3,56)), against their
+    plain versions. Returns K1's max abs error."""
+    from repro_torch.core.diststats import swarm_distribution_matrix
+    from repro_torch.kernels import kmeans_assign, param_stats, ref
+
+    leaves = [x.contiguous() for x in _leaves(res.params)]
+    got, expect = param_stats.param_stats_leaves(leaves), ref.param_stats_leaves(leaves)
+    torch.cuda.synchronize()
+    _assert_stats_close(torch, got, expect, "fleet stack")
+    err = (got - expect).abs().max().item()
+    X = swarm_distribution_matrix(res.params)
+    gen = torch.Generator(device=X.device).manual_seed(20)
+    C4 = torch.as_tensor(hier_res.history[-1].stats, device=X.device)
+    cases = [("coordinator", X, X[torch.randperm(X.shape[0], generator=gen, device=X.device)[:K]]),
+             ("pod", X, C4), ("global tier", C4, X[:K].contiguous())]
+    for name, x, c in cases:
+        a, b = kmeans_assign.kmeans_assign(x.contiguous(), c.contiguous()), ref.kmeans_assign(x, c)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), f"kmeans_assign at the fleet's {name} shape differs"
+    log(f"[fleet] K1 over the fleet's {len(leaves)} leaves x {leaves[0].shape[0]} clients: max "
+        f"abs err {err:.3e}; K2 equal at {[tuple(x.shape) + tuple(c.shape) for _, x, c in cases]}")
+    return err
+
+
+def profile_fleet_round(torch, fd, mesh, model, opt, clients, res):
+    """One more flat fleet round step under ``torch.profiler``, from
+    ``res``'s final swarm: the device's busy share of its wall time and
+    the NCCL kernels' share of the busy time. Before it, the round's
+    host batch draw and its upload are timed apart."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.engine import init_opt_state, stack_eval_split
+    from repro_torch.launch.swarm_fleet import fleet_setup
+
+    dev = mesh.device
+    step = fleet_setup(model, opt, mesh, k=len(clients), n_local_steps=LOCAL_STEPS,
+                       with_eval=True).step
+    sp = res.params
+    so = init_opt_state(opt, sp)
+    val = stack_eval_split(model.cfg, clients, "val", device=dev)
+    clusters = torch.as_tensor(res.history[-1].assignments, device=dev)
+    w = torch.as_tensor([float(c["n_train"]) for c in clients], device=dev)
+
+    def one(r):
+        batch = fd._sample_round_batch(model.cfg, clients, LOCAL_STEPS * BATCH, FLEET_SEED, r,
+                                       device=dev)
+        return step(sp, so, batch, val, 2e-3, clusters, w)[2].stats.cpu()
+
+    one(100)
+    torch.cuda.synchronize()
+    draw_ms, up_ms = [], []
+    for r in range(102, 105):
+        t0 = time.perf_counter()
+        host = fd._sample_round_batch(model.cfg, clients, LOCAL_STEPS * BATCH, FLEET_SEED, r)
+        t1 = time.perf_counter()
+        on_dev = {key: v.to(dev) for key, v in host.items()}
+        torch.cuda.synchronize()
+        draw_ms.append((t1 - t0) * 1e3)
+        up_ms.append((time.perf_counter() - t1) * 1e3)
+    nbytes = sum(v.numel() * v.element_size() for v in on_dev.values())
+    log(f"[fleet profile] host batch draw {[round(x, 2) for x in draw_ms]} ms, upload of "
+        f"{nbytes} B from pageable memory {[round(x, 2) for x in up_ms]} ms")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one(101)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_us, spans = device_busy_us(prof)
+    nccl_us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and "nccl" in e.name.lower())
+    host_nccl = [e.name for e in prof.events()
+                 if e.device_type != DeviceType.CUDA and "nccl" in e.name.lower()]
+    copies = [e for e in prof.events()
+              if e.device_type == DeviceType.CUDA and "memcpy" in e.name.lower()]
+    copy_ms = sum(e.time_range.end - e.time_range.start for e in copies) / 1e3
+    log(f"[fleet profile] host-side NCCL ops {sorted(set(host_nccl))} x {len(host_nccl)}; "
+        f"device copies {len(copies)} ({copy_ms:.3f} ms: {sorted(set(e.name for e in copies))})")
+    log(f"[fleet profile] round step of {wall_ms:.1f} ms wall: {len(spans)} device events, busy "
+        f"{busy_us / 1e3:.1f} ms ({busy_us / 1e3 / wall_ms:.1%}), NCCL kernels {nccl_us / 1e3:.3f} "
+        f"ms ({nccl_us / max(busy_us, 1e-9):.2%} of busy)")
+    for kernel in COORDINATOR_KERNELS:
+        us = [e.time_range.end - e.time_range.start for e in prof.events()
+              if e.device_type == DeviceType.CUDA and kernel in e.name]
+        log(f"[fleet profile] {kernel}: {len(us)} launches, "
+            f"{statistics.mean(us) if us else float('nan'):.2f} us each")
+    table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=12)
+    for line in table.splitlines():
+        log(f"[fleet profile] {line}")
+    return busy_us / 1e3 / wall_ms, nccl_us / max(busy_us, 1e-9)
+
+
+def _fleet_rounds_line(tag, res) -> None:
+    for lg in res.history:
+        log(f"[fleet {tag}] round {lg.round}: wall {lg.wall_s:.4f} s, coord {lg.coord_s:.4f} s, "
+            f"val acc {lg.mean_val_acc:.4f}, loss {lg.train_loss:.4f}, decision "
+            f"{lg.assignments.tolist()}, coordinated {lg.coordinated}, events {lg.events}")
+        assert math.isfinite(lg.train_loss), f"fleet {tag}: loss is not finite"
+        assert 0.0 <= lg.mean_val_acc <= 1.0, f"fleet {tag}: val accuracy outside [0, 1]"
+
+
+def fleet_phase(torch, dev, clients, main_round_s) -> dict:
+    """Phase 20: the fleet regime on one NCCL rank, phase 3's data and
+    settings (squeezenet-dr, 14 clinics at 32 px, adam lr 2e-3, batch 8,
+    12 local steps, k 3). (a) ``run_fleet`` flat, 3 rounds: K1 = 3 and
+    K2 = 63 launches, the Eq. 2 census (1 + #leaves all-reduces of
+    4 * (N * P + N) bytes a round at k = N), a profiled round step; (b) churn
+    (``FLEET_FAULTS``), K2 = 21 x the coordinated rounds; (c) the two-tier
+    surface at k_local 4 (one pod), K2 = 42 a round; (d) 2 rounds at 2
+    local steps and adam eps 1e-6 on the card over NCCL and on the CPU
+    over a gloo group beside it: decisions equal every round, params
+    within 1e-4; (e) (a)'s final state exported, restored bitwise and
+    served. Returns the launches of (a)-(c) and the numbers printed."""
+    import os
+    import tempfile
+    from pathlib import Path as _Path
+
+    import numpy as np
+
+    from repro_torch import serve
+    from repro_torch.checkpoint import restore_into
+    from repro_torch.configs import OptimizerConfig, get_config
+    from repro_torch.launch import fleet_driver as fd
+    from repro_torch.launch.mesh import make_fleet_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.serve.api import stacked_example
+
+    t0 = time.perf_counter()
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    log(f"[fleet] NCCL_SOCKET_IFNAME={os.environ['NCCL_SOCKET_IFNAME']}")
+    N = len(clients)
+    model = build_model(get_config("squeezenet-dr"))
+    mesh = make_fleet_mesh(N, device=dev)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    assert mesh.backend == backend and mesh.world == 1, f"fleet mesh {mesh.backend} x {mesh.world}"
+
+    def opt(eps=1e-8):
+        return make_optimizer(OptimizerConfig(name="adam", lr=2e-3, eps=eps))
+
+    kw = dict(local_steps=LOCAL_STEPS, batch_size=BATCH, lr=2e-3, n_clusters=K,
+              kmeans_iters=KMEANS_ITERS, seed=FLEET_SEED)
+    k2_round = KMEANS_ITERS + 1
+    out = {"launches": {"param_stats_batched": 0, "kmeans_assign": 0}}
+
+    def counted(tag, **extra):
+        _zero_coordinator_counts()
+        res = fd.run_fleet(model, opt(), mesh, clients, rounds=FLEET_ROUNDS, **kw, **extra)
+        torch.cuda.synchronize()
+        n = _coordinator_counts()
+        _fleet_rounds_line(tag, res)
+        for key in out["launches"]:
+            out["launches"][key] += n[key]
+        return res, n
+
+    # (a) the flat fleet
+    res, n = counted("a")
+    want = {**_grid_want(1, FLEET_ROUNDS, len(_leaves(res.params))),
+            "kmeans_assign with k_active": 0}
+    log(f"[fleet a] launches {n}, expected {want}")
+    assert n == want, f"fleet launch counts {n} != {want}"
+    P = sum(x[0].numel() for x in _leaves(res.params))
+    eq2 = res.comm["eq2_collective_bytes"]
+    n_ar = 1 + len(_leaves(res.params))
+    assert eq2["op_counts"]["all_reduce"] == n_ar and eq2["total"] == 4 * (N * P + N), \
+        f"Eq. 2 census {eq2} != {n_ar} all-reduces of 4 * (N * P + N) = {4 * (N * P + N)} B"
+    walls = [lg.wall_s for lg in res.history]
+    log(f"[fleet a] ledger: stat_upload_bytes {res.comm['stat_upload_bytes']}, "
+        f"eq2_collective_bytes {eq2}, round collectives {res.comm['round_collective_bytes']}, "
+        f"coord_reduction_x {res.comm['coord_reduction_x']:.1f}; P = {P} params a client; "
+        f"round walls {[round(x, 4) for x in walls]} s beside phase 3's sim rounds "
+        f"{[round(x, 4) for x in main_round_s]} s")
+    out.update(walls=walls, coord=[lg.coord_s for lg in res.history], eq2=eq2["total"],
+               stat_bytes=res.comm["stat_upload_bytes"], P=P)
+    out["busy"], out["nccl_share"] = profile_fleet_round(torch, fd, mesh, model, opt(), clients,
+                                                         res)
+
+    # (b) churn
+    res_b, n = counted("b", faults=fd.FleetFaults(**FLEET_FAULTS))
+    coordinated = sum(lg.coordinated for lg in res_b.history)
+    assert n["kmeans_assign"] == k2_round * coordinated, \
+        f"churn K2 {n['kmeans_assign']} != {k2_round} x {coordinated} coordinated rounds"
+    assert n["param_stats_batched"] == FLEET_ROUNDS, f"churn K1 {n['param_stats_batched']}"
+    pres = np.mean([lg.present.mean() for lg in res_b.history])
+    rep = np.mean([lg.reported.mean() for lg in res_b.history])
+    log(f"[fleet b] {FLEET_FAULTS}: presence share {pres:.4f}, report share {rep:.4f}, quorum "
+        f"misses {FLEET_ROUNDS - coordinated} of {FLEET_ROUNDS}, launches {n}")
+    out.update(presence=pres, reported=rep, misses=FLEET_ROUNDS - coordinated)
+
+    # (c) the two-tier surface, one pod on one rank
+    res_c, n = counted("c", hier_k_local=FLEET_HIER_K_LOCAL)
+    assert n["kmeans_assign"] == 2 * k2_round * FLEET_ROUNDS, \
+        f"two-tier K2 {n['kmeans_assign']} != {2 * k2_round} a round"
+    assert n["param_stats_batched"] == FLEET_ROUNDS, f"two-tier K1 {n['param_stats_batched']}"
+    log(f"[fleet c] k_local {FLEET_HIER_K_LOCAL}: summary_upload_bytes "
+        f"{res_c.comm['summary_upload_bytes']} against flat_upload_bytes "
+        f"{res_c.comm['flat_upload_bytes']}, launches {n}")
+    out.update(summary_bytes=res_c.comm["summary_upload_bytes"],
+               flat_bytes=res_c.comm["flat_upload_bytes"])
+    out["k1_err"] = check_fleet_kernels(torch, res, res_c)
+
+    # (d) the card over NCCL against the CPU over a gloo group beside it,
+    # both resumed from (a)'s final state (a trained adam state, as phase
+    # 4's round starts from the trainer's: from a fresh one adam's first
+    # steps are lr * sign(g), and a gradient whose sign differs between
+    # cuDNN and the CPU moves its weight by ~lr; PERF.md §6)
+    cpu_mesh = make_fleet_mesh(N, device="cpu")
+    assert cpu_mesh.backend == "gloo", cpu_mesh.backend
+    kw_d = dict(kw, local_steps=2)
+    state = (res.params, res.opt_state)
+    r_card = fd.run_fleet(model, opt(1e-6), mesh, clients, rounds=FLEET_CARD_VS_CPU_ROUNDS,
+                          state=state, **kw_d)
+    r_cpu = fd.run_fleet(model, opt(1e-6), cpu_mesh, clients, rounds=FLEET_CARD_VS_CPU_ROUNDS,
+                         state=state, **kw_d)
+    diff = max((a.cpu() - b).abs().max().item()
+               for a, b in zip(_leaves(r_card.params), _leaves(r_cpu.params)))
+    for a, b in zip(r_card.history, r_cpu.history):
+        log(f"[fleet d] round {a.round}: decisions {a.assignments.tolist()} / "
+            f"{b.assignments.tolist()}, val acc {a.mean_val_acc:.4f} / {b.mean_val_acc:.4f}")
+        assert np.array_equal(a.assignments, b.assignments), "card and CPU fleet decisions differ"
+    log(f"[fleet d] from (a)'s state, 2 rounds of 2 local steps, adam eps 1e-6: max |param diff| "
+        f"{diff:.3e}")
+    # atol 1e-4, as phase 4
+    assert diff <= 1e-4, f"card and CPU fleet params differ by {diff}"
+    out["card_cpu_diff"] = diff
+
+    # (e) export (a)'s final state, restore it, serve it
+    with tempfile.TemporaryDirectory() as d:
+        path = _Path(d) / "fleet"
+        t1 = time.perf_counter()
+        agg = fd.export_fleet_checkpoint(
+            path, model, res.params, res.history[-1].assignments,
+            [float(c["n_train"]) for c in clients], round_idx=FLEET_ROUNDS - 1, n_clusters=K,
+            mean_val_acc=res.history[-1].mean_val_acc, mesh=mesh)
+        save_s = time.perf_counter() - t1
+        size = path.with_suffix(".npz").stat().st_size
+        t1 = time.perf_counter()
+        back, step = restore_into(stacked_example(model, N), path, device=dev)
+        load_s = time.perf_counter() - t1
+        assert step == FLEET_ROUNDS
+        assert all(torch.equal(a, b) for a, b in zip(_leaves(back), _leaves(agg))), \
+            "the restored client stack is not the exported one"
+        m2, params = serve.load_checkpoint(path, client="mean", device=dev)
+        imgs = list(np.concatenate([c["test"][0] for c in clients])[:8])
+        served = serve.classify(m2, params, imgs, batch_buckets=(8,), device=dev)
+        assert all(0 <= o.label < m2.cfg.vocab_size and math.isfinite(o.confidence)
+                   for o in served), "a served label or confidence is off"
+    log(f"[fleet e] checkpoint {size} B, exported in {save_s:.3f} s, restored bitwise in "
+        f"{load_s:.3f} s, served labels {[o.label for o in served]}")
+    out.update(ckpt_bytes=size, save_s=save_s, load_s=load_s)
+    mesh.close()
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[fleet] phase 20 in {out['phase_s']:.1f} s, launches {out['launches']}")
+    return out
+
+
 def _kernel_line(name, source, replaces, launches, err, times) -> dict:
     """One entry of the ``{"kernels": [...]}`` line; ``times`` is a
     timing function's (ms, plain_ms, library_ms, bound_ms, bound_by)."""
@@ -3499,17 +3778,22 @@ def main() -> int:
     # launches from each run alone
     assert get_config(ENCDEC_ARCH).encoder_seq == ENCDEC_CROSS_SEQ
     ev = encdec_vlm_phase(torch, dev, card)
+    torch.cuda.empty_cache()
+
+    # --- phase 20: the fleet regime over one NCCL rank, launch counts from
+    # each run alone
+    fl = fleet_phase(torch, dev, clients, round_s)
 
     kernels = [
         _kernel_line("param_stats_batched", "param_stats", "src/repro/kernels/param_stats.py:92",
                      sum(n["param_stats_batched"]
                          for n in (launches, g_launches, c_launches, b_launches, h_launches,
-                                   la, lb, ssm["launches"])),
-                     k1_err, k1),
+                                   la, lb, ssm["launches"], fl["launches"])),
+                     max(k1_err, fl["k1_err"]), k1),
         _kernel_line("kmeans_assign", "kmeans_assign", "src/repro/kernels/kmeans_assign.py:44",
                      sum(n["kmeans_assign"]
                          for n in (launches, g_launches, c_launches, b_launches, h_launches,
-                                   la, lb, ssm["launches"])),
+                                   la, lb, ssm["launches"], fl["launches"])),
                      k2_err, k2),
         _kernel_line("flash_decode", "flash_decode", "src/repro/kernels/flash_decode.py:93",
                      k3_launches + k3_lm + k3_moe + ssm["k3"] + ev["k3"],
@@ -3556,8 +3840,13 @@ def main() -> int:
         f"adafactor {[round(x, 4) for x in ev['train']['adafactor']['step_s']]}, internvl "
         f"({VLM_TRAIN_LAYERS} layers) {[round(x, 4) for x in ev['train']['internvl']['step_s']]}, "
         f"peaks {ev['train']['whisper']['peak_gb']:.2f} / "
-        f"{ev['train']['internvl']['peak_gb']:.2f} GB; K1 and K2 launches in the kernels "
-        f"line: phases 3, 11, 12, 13, 14 (its 4-pod fit and scaling axis), 15 and 18; K3: phases "
+        f"{ev['train']['internvl']['peak_gb']:.2f} GB; fleet (phase 20): round walls "
+        f"{[round(x, 4) for x in fl['walls']]} s, coordinator {[round(x, 4) for x in fl['coord']]} "
+        f"s, busy {fl['busy']:.1%} of a profiled round step, NCCL {fl['nccl_share']:.2%} of busy, "
+        f"Eq. 2 {fl['eq2']} B a round, card vs CPU {fl['card_cpu_diff']:.3e}, checkpoint "
+        f"{fl['ckpt_bytes']} B; K1 and K2 launches in the kernels "
+        f"line: phases 3, 11, 12, 13, 14 (its 4-pod fit and scaling axis), 15, 18 and 20 (the fleet's "
+        f"runs (a)-(c)); K3: phases "
         f"6, 16, 17, 18 and 19; K3's max_abs_err over phases 5, 18 and 19")
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -1,5 +1,12 @@
 """Brain Storm Aggregation, paper §III.C (counterpart of
-``repro.core.bso.brain_storm_jax``).
+``repro.core.bso``).
+
+Two versions of one decision procedure. :func:`brain_storm` is the
+reference's ``brain_storm_jax``, on the device (below). The fleet's host
+coordinator runs :func:`brain_storm_host`, a copy of the reference's
+numpy ``brain_storm`` (named apart because ``brain_storm`` is taken
+here); given the same ``numpy.random.Generator`` its plan is bitwise the
+reference's.
 
 The coordinator's per-round decision in fixed shapes over a static
 ``k``: centers are the best validation score of each cluster (masked
@@ -21,8 +28,10 @@ in a native ``k`` run on the first slices of the same draws.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from dataclasses import dataclass, field
+from typing import List, NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -47,12 +56,73 @@ def draw_bso(k: int, n: int, generator: torch.Generator, device) -> BSODraws:
         g2=_gumbel((k, k), generator, device))
 
 
+@dataclass
+class BSAPlan:
+    """The host coordinator's per-round output."""
+    assignments: np.ndarray            # (N,) effective cluster of each client
+    centers: np.ndarray                # (K,) client index of each cluster center
+    events: List[str] = field(default_factory=list)
+
+
+def brain_storm_host(rng: np.random.Generator, assignments: np.ndarray,
+                     val_scores: np.ndarray, k: int, p1: float, p2: float) -> BSAPlan:
+    """The brain storm on the host, in numpy: a copy of the reference's
+    ``repro.core.bso.brain_storm`` (the on-device version is
+    :func:`brain_storm`). ``assignments`` come from k-means on the
+    distribution summaries, ``val_scores`` are the clients' local
+    validation accuracies. ``rng`` is drawn in the reference's order: a
+    uniform for each occupied cluster's replacement (r1 > p1, then a
+    member by ``rng.choice``), then one for each occupied cluster's swap
+    (r2 > p2, then a partner)."""
+    assignments = np.asarray(assignments).copy()
+    val_scores = np.asarray(val_scores)
+    events: List[str] = []
+
+    # 1. centers = best validation score per cluster
+    centers = np.full((k,), -1, dtype=np.int64)
+    for c in range(k):
+        members = np.where(assignments == c)[0]
+        if len(members) == 0:
+            continue
+        centers[c] = members[np.argmax(val_scores[members])]
+
+    # 2a. random center replacement (r1 > p1)
+    for c in range(k):
+        members = np.where(assignments == c)[0]
+        if len(members) == 0:
+            continue
+        r1 = rng.uniform()
+        if r1 > p1:
+            new_center = int(rng.choice(members))
+            if new_center != centers[c]:
+                events.append(f"replace: cluster {c} center "
+                              f"{centers[c]} -> {new_center} (r1={r1:.3f})")
+            centers[c] = new_center
+
+    # 2b. cross-cluster center swap (r2 > p2); the swapped clients also
+    # trade aggregation membership
+    occupied = [c for c in range(k) if centers[c] >= 0]
+    for c in occupied:
+        r2 = rng.uniform()
+        if r2 > p2 and len(occupied) > 1:
+            other = int(rng.choice([o for o in occupied if o != c]))
+            ci, oi = centers[c], centers[other]
+            centers[c], centers[other] = oi, ci
+            assignments[ci], assignments[oi] = assignments[oi], assignments[ci]
+            events.append(f"swap: centers of clusters {c} and {other} "
+                          f"(clients {ci} <-> {oi}, r2={r2:.3f})")
+
+    return BSAPlan(assignments=assignments, centers=centers, events=events)
+
+
 def brain_storm(assignments, val_scores, k: int, p1, p2, *,
                 draws: BSODraws = None, generator: torch.Generator = None):
-    """``p1`` / ``p2`` are floats or () tensors on the assignments'
-    device. Returns ``(assignments, centers, n_replaced, n_swapped)``:
-    post-swap (N,) int32 assignments, (k,) int32 center client ids (-1
-    for an empty cluster) and the round's event counts."""
+    """The on-device brain storm (the reference's ``brain_storm_jax``;
+    the host's numpy version is :func:`brain_storm_host`). ``p1`` /
+    ``p2`` are floats or () tensors on the assignments' device. Returns
+    ``(assignments, centers, n_replaced, n_swapped)``: post-swap (N,)
+    int32 assignments, (k,) int32 center client ids (-1 for an empty
+    cluster) and the round's event counts."""
     a = assignments.to(torch.int32)
     dev = a.device
     val = val_scores.float()

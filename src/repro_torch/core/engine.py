@@ -72,8 +72,10 @@ member-count-weighted k-means and the brain storm over the
 client's cluster is ``g[pod * k_local + a_local]``; Eq. 2 is unchanged.
 A one-pod ``HierParams`` is the flat coordinator, draws included.
 
-Not ported yet: the fleet regime (A11), whose host coordinator is the
-fleet half of the two-tier path.
+The **fleet regime** (ROADMAP A11): :func:`make_fleet_round` is the
+round a multi-process driver (``repro_torch.launch.fleet_driver``)
+calls, a rank's slice of the client axis at a time, with Eq. 2 as
+all-reduced segment sums and the coordinator on the host between rounds.
 """
 from __future__ import annotations
 
@@ -95,6 +97,7 @@ from repro_torch.data.dr import bucket_clients
 from repro_torch.models.model import Model
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.train.steps import make_eval_step, make_train_step
+from repro_torch.utils.collectives import mean_over_ranks
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import tree_map, tree_stack
 
@@ -1301,3 +1304,193 @@ def copy_state(state: SwarmState) -> SwarmState:
                           generator=_fork(state.generator), n_samples=state.n_samples.clone(),
                           staleness=None if state.staleness is None else state.staleness.clone(),
                           churn_generator=_fork(state.churn_generator))
+
+
+# ------------------------------------------------------------- fleet regime
+
+
+class FleetRoundOut(NamedTuple):
+    """What a fleet round hands the coordinator: O(clients), the models
+    never leave their ranks (paper §III.B). On a rank, the local slice."""
+    stats: Any        # (N, 2*#tensors) distribution upload of the
+    #                   post-local-phase params (§III.B)
+    val_acc: Any      # (N,) per-client masked val accuracy, the scores
+    #                   the brain storm ranks (§III.C step 1)
+    train_loss: Any   # () mean loss of the last local step, over all ranks
+
+
+class HierRoundOut(NamedTuple):
+    """The two-tier fleet round's outputs: O(pods). Each pod's k-means
+    runs in the round, and only the ``S = n_pods * k_local`` pod-cluster
+    summaries go to the coordinator. ``a_local`` stays on the device as
+    the next round's ``a_prev``. On a rank (one pod), its own rows."""
+    centroids: Any    # (S, 2*#tensors) pod-cluster stat centroids
+    counts: Any       # (S,) reporting-member counts (the global tier's weights)
+    wsums: Any        # (S,) summed member Eq. 2 weights
+    valsums: Any      # (S,) summed member val accuracies
+    a_local: Any      # (N,) int32 global pod-cluster row of each client
+    mean_val: Any     # () swarm-mean val accuracy, over all ranks
+    train_loss: Any   # () mean loss of the last local step, over all ranks
+
+
+def _seed_kw(seeds, p: int) -> dict:
+    """``kmeans`` seeding of pod ``p`` from a (pods, k_local) operand:
+    integer rows are seed rows (``init_idx``), floating ones uniforms."""
+    row = seeds[p]
+    return {"init_idx": row} if not row.is_floating_point() else {"u": row}
+
+
+def make_fleet_round(model: Model, opt: Optimizer, k: int, n_local_steps: int = 1, *,
+                     with_eval: bool = False, with_loss: bool = False, group=None,
+                     with_churn: bool = False, hier_k_local: int = 0, hier_pods: int = 0,
+                     hier_kmeans_iters: int = 20):
+    """The fleet round (counterpart of the reference's
+    ``make_fleet_round``): the sim round's pieces reordered so that a
+    driver closes the coordinator loop between calls. First Eq. 2 applies
+    the *incoming* decision ``clusters`` over ``k`` segments, then
+    :func:`local_phase` trains on per-step microbatches of the uploaded
+    round ``batch`` (N, n_b, ...): ``mb = min(n_b, ceil(n_b / steps))``
+    rows, step i from row ``min(i * mb, n_b - mb)``, then the stat upload
+    :func:`~repro_torch.core.diststats.swarm_distribution_matrix` (one
+    ``param_stats`` launch on the card). Round 0 fed singletons makes
+    its Eq. 2 the identity, so R rounds run the sim protocol with the
+    last Eq. 2 pending.
+
+    ``group`` puts the round on a rank's local slice of the client axis:
+    Eq. 2 is :func:`~repro_torch.core.aggregation.cluster_fedavg` (or its
+    masked variant) all-reduced over ``group``, and the loss and mean val
+    are averaged over the ranks. ``group=None`` keeps the whole stack on
+    one process (the reference's ``axis_name=None``).
+
+    Surfaces, as the reference's:
+
+    - plain: ``round_step(sparams, sopt, batch, lr, clusters, weights)
+      -> (sparams, sopt, stats)``;
+    - ``with_eval``: ``round_step(sparams, sopt, batch, val, lr,
+      clusters, weights) -> (sparams, sopt, FleetRoundOut)``, val
+      accuracies of the post-local-phase params (:func:`make_client_eval`);
+    - ``with_loss`` (exclusive with ``with_eval``): the plain signature,
+      returning ``(sparams, sopt, stats, loss)``; the bucketed-eval
+      driver scores the clients itself;
+    - ``with_churn`` appends ``(present, agg_present)`` (N,) bool:
+      ``agg_present`` gates who receives the incoming Eq. 2 (the masked
+      variant, the effective weights in ``weights``), ``present`` masks
+      the local phase. All-ones masks are the churn-free round bitwise;
+    - ``hier_k_local > 0`` (exclusive with both): ``round_step(sparams,
+      sopt, batch, val, lr, g, use_composed, clusters0, a_prev, kmseed,
+      weights[, present, agg_present, report]) -> (sparams, sopt,
+      HierRoundOut)``. The incoming decision is ``where(use_composed,
+      g[a_prev], clusters0)``, built on the device. Each pod runs a
+      ``k_local``-means over its members' stats (masked by ``report``
+      under churn, which also masks the summary sums) through the
+      ``kmeans_assign`` kernel, as :func:`pod_summaries` does. ``kmseed``
+      (pods, k_local) seeds them, one row a pod: integer rows are seed
+      rows, floating ones k-means++ uniforms (they replace the
+      reference's key ``kmkey``). With ``group`` this rank is one pod,
+      pod index = rank; with ``group=None`` the stack is ``hier_pods``
+      equal contiguous pods.
+    """
+    if with_eval and with_loss:
+        raise ValueError("with_eval and with_loss are exclusive round surfaces")
+    step = make_train_step(model, opt)
+
+    def pmean(x):
+        return x if group is None else mean_over_ranks(x, group)
+
+    def body(sparams, sopt, batch, lr, clusters, weights, present=None, agg_present=None):
+        # Eq. 2 on the incoming (previous-round) coordinator decision
+        sparams = (cluster_fedavg(sparams, clusters, weights, k=k, group=group)
+                   if agg_present is None else
+                   cluster_fedavg_masked(sparams, clusters, weights, agg_present, k=k,
+                                         group=group))
+        # ceil-sized microbatches with a clamped last start cover every
+        # row (an indivisible batch overlaps at the tail)
+        n_b = batch["labels"].shape[1]
+        mb = min(n_b, -(-n_b // n_local_steps))
+        starts = [min(i * mb, n_b - mb) for i in range(n_local_steps)]
+        batches = ({key: v[:, s:s + mb].contiguous() for key, v in batch.items()}
+                   for s in starts)
+        sparams, sopt, losses = local_phase(step, sparams, sopt, lr, batches, present=present)
+        return sparams, sopt, swarm_distribution_matrix(sparams), losses
+
+    def churn_kw(masks):
+        if not with_churn:
+            return {}
+        return {"present": masks[0], "agg_present": masks[1]}
+
+    if hier_k_local > 0:
+        if with_eval or with_loss:
+            raise ValueError("hier_k_local selects its own eval surface — drop "
+                             "with_eval/with_loss")
+        kl = int(hier_k_local)
+        client_eval = make_client_eval(model)
+
+        def pod_summary(stats, val_acc, weights, report, seed_kw, pod_idx):
+            C, a = kmeans(stats, kl, hier_kmeans_iters, mask=report, **seed_kw)
+            w = (torch.ones(stats.shape[:1], dtype=stats.dtype, device=stats.device)
+                 if report is None else report.to(stats.dtype))
+            al = a.long()
+
+            def seg(x):
+                return torch.zeros((kl,), dtype=stats.dtype, device=stats.device).index_add_(
+                    0, al, x)
+
+            return C, seg(w), seg(weights * w), seg(val_acc * w), pod_idx * kl + a
+
+        def round_step_hier(sparams, sopt, batch, val, lr, g, use_comp, clusters0, a_prev,
+                            kmseed, weights, *masks):
+            report = masks[2] if with_churn else None
+            clusters = torch.where(use_comp, g[a_prev.long()], clusters0)
+            sparams, sopt, stats, losses = body(sparams, sopt, batch, lr, clusters, weights,
+                                                **churn_kw(masks))
+            val_acc = client_eval(sparams, val)
+            loss, mean_val = pmean(losses[-1]), pmean(torch.mean(val_acc))
+            if group is not None:
+                pod = torch.distributed.get_rank(group)
+                outs = [pod_summary(stats, val_acc, weights, report, _seed_kw(kmseed, 0), pod)]
+            else:
+                n_loc = stats.shape[0]
+                P = int(hier_pods)
+                if P <= 0 or n_loc % P:
+                    raise ValueError(
+                        "the stacked hier surface needs hier_pods to divide the client count "
+                        f"into equal contiguous pods (hier_pods={P}, clients={n_loc})")
+                m = n_loc // P
+                outs = [pod_summary(stats[p * m:(p + 1) * m], val_acc[p * m:(p + 1) * m],
+                                    weights[p * m:(p + 1) * m],
+                                    None if report is None else report[p * m:(p + 1) * m],
+                                    _seed_kw(kmseed, p), p) for p in range(P)]
+            C, counts, wsums, valsums, pc = (torch.cat(f) for f in zip(*outs))
+            return sparams, sopt, HierRoundOut(centroids=C, counts=counts, wsums=wsums,
+                                               valsums=valsums, a_local=pc.to(torch.int32),
+                                               mean_val=mean_val, train_loss=loss)
+
+        return round_step_hier
+
+    if with_eval:
+        client_eval = make_client_eval(model)
+
+        def round_step_eval(sparams, sopt, batch, val, lr, clusters, weights, *masks):
+            sparams, sopt, stats, losses = body(sparams, sopt, batch, lr, clusters, weights,
+                                                **churn_kw(masks))
+            val_acc = client_eval(sparams, val)
+            return sparams, sopt, FleetRoundOut(stats=stats, val_acc=val_acc,
+                                                train_loss=pmean(losses[-1]))
+
+        return round_step_eval
+
+    if with_loss:
+
+        def round_step_loss(sparams, sopt, batch, lr, clusters, weights, *masks):
+            sparams, sopt, stats, losses = body(sparams, sopt, batch, lr, clusters, weights,
+                                                **churn_kw(masks))
+            return sparams, sopt, stats, pmean(losses[-1])
+
+        return round_step_loss
+
+    def round_step(sparams, sopt, batch, lr, clusters, weights, *masks):
+        sparams, sopt, stats, _ = body(sparams, sopt, batch, lr, clusters, weights,
+                                       **churn_kw(masks))
+        return sparams, sopt, stats
+
+    return round_step

@@ -1037,3 +1037,125 @@ def test_a_capture_that_fails_raises(cuda, monkeypatch):
     eng.submit(serve.Request(rid=0, prompt=np.arange(4, dtype=np.int32), max_new_tokens=3))
     with pytest.raises(RuntimeError, match="captur"):
         eng.run_until_drained()
+
+
+def _fleet_inputs(dev, n=14, image=16, steps=2, batch=8, spread=0.0):
+    """A fresh squeezenet-dr swarm of ``n`` clients (CPU-seeded, so equal
+    on every device) with a round's batch, val stack, decision and
+    weights, on ``dev``; sgd, since adam's first steps from a fresh state
+    are lr * sign(g), and a gradient whose sign differs between cuDNN and
+    the CPU moves its weight by ~lr (PERF.md §6). ``spread``
+    scales client i's params by ``1 + spread * i``, so that the clients'
+    stats lie apart by more than the rounding of ``|x|^2 + |c|^2 - 2
+    x.c``: at a fresh init they do not, and nearest-centroid ids at such
+    ties follow the summation order (the kernel's warp sums against the
+    CPU's matmul)."""
+    from repro_torch.configs import OptimizerConfig, get_config
+    from repro_torch.core import engine
+    from repro_torch.data.dr import make_dr_swarm_data, scale_table
+    from repro_torch.launch.fleet_driver import _sample_round_batch
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.utils.tree import tree_map, tree_stack
+
+    clients = make_dr_swarm_data(image_size=image, seed=0, table=scale_table(8)[:, :n])
+    model = build_model(get_config("squeezenet-dr"))
+    opt = make_optimizer(OptimizerConfig(name="sgd", lr=2e-2))
+    gen = torch.Generator().manual_seed(0)
+    scale = 1.0 + spread * torch.arange(n, dtype=torch.float32)
+    sp = tree_map(lambda x: (x * scale.reshape((-1,) + (1,) * (x.dim() - 1))).to(dev),
+                  tree_stack([model.init(gen) for _ in range(n)]))
+    args = (sp, engine.init_opt_state(opt, sp),
+            _sample_round_batch(model.cfg, clients, steps * batch, 0, 0, device=dev),
+            engine.stack_eval_split(model.cfg, clients, "val", device=dev), 2e-3,
+            torch.as_tensor(np.arange(n) % 3, dtype=torch.int32, device=dev),
+            torch.as_tensor([float(c["n_train"]) for c in clients], device=dev))
+    return model, opt, args
+
+
+@pytest.mark.cuda
+def test_fleet_round_on_the_card_launches_k1_once_and_matches_the_cpu(cuda):
+    """A flat fleet round (stacked, with_eval) at the fleet's shapes
+    (14 clients): one K1 launch for the upload, which matches its plain
+    version over the round's params; the round's stats and params within
+    1e-4 of the same round on the CPU; the host coordinator's k-means on
+    the card's stats makes 21 K2 launches and the CPU's decision."""
+    from repro_torch.core import engine
+    from repro_torch.launch.fleet_driver import host_coordinator
+    from repro_torch.utils.tree import tree_leaves
+
+    model, opt, args = _fleet_inputs(cuda)
+    step = engine.make_fleet_round(model, opt, 14, 2, with_eval=True)
+    before = k_stats.param_stats_leaves.launches
+    p, _, out = step(*args)
+    torch.cuda.synchronize()
+    assert k_stats.param_stats_leaves.launches - before == 1
+    leaves = [x.contiguous() for x in tree_leaves(p)]
+    torch.testing.assert_close(k_stats.param_stats_leaves(leaves), ref.param_stats_leaves(leaves),
+                               rtol=1e-4, atol=1e-6)
+    p_cpu, _, out_cpu = step(*_fleet_inputs(torch.device("cpu"))[2])
+    torch.testing.assert_close(out.stats.cpu(), out_cpu.stats, rtol=0, atol=1e-4)
+    for a, b in zip(tree_leaves(p), tree_leaves(p_cpu)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4)
+    before = k_assign.kmeans_assign.launches
+    dec = host_coordinator(out.stats, out.val_acc.cpu(), k=3, p1=0.9, p2=0.8, seed=0)
+    assert k_assign.kmeans_assign.launches - before == 21
+    dec_cpu = host_coordinator(out.stats.cpu(), out.val_acc.cpu(), k=3, p1=0.9, p2=0.8, seed=0)
+    np.testing.assert_array_equal(dec[0], dec_cpu[0])
+
+
+@pytest.mark.cuda
+def test_fleet_two_tier_round_on_the_card_assigns_as_the_plain_version(cuda):
+    """The stacked two-tier round (2 pods of 7, k_local 4) on the card:
+    42 K2 launches (21 a pod), and each pod's a_local is the plain
+    version's nearest-centroid ids of the round's own stats against the
+    round's own centroids, with counts its member counts; the clients
+    spread apart (see :func:`_fleet_inputs`)."""
+    from repro_torch.core import engine
+    from repro_torch.core.diststats import swarm_distribution_matrix
+
+    model, opt, args = _fleet_inputs(cuda, spread=0.25)
+    step = engine.make_fleet_round(model, opt, 14, 2, hier_k_local=4, hier_pods=2)
+    sp, so, batch, val, lr, _, w = args
+    seeds = torch.as_tensor(np.random.default_rng(3).random((2, 4)), device=cuda)
+    before = k_assign.kmeans_assign.launches
+    # round 0's singletons: an incoming plan that merged clients would
+    # leave near-copies, whose ties follow the summation order
+    singletons = torch.arange(14, dtype=torch.int32, device=cuda)
+    p, _, out = step(sp, so, batch, val, lr, torch.zeros(8, dtype=torch.int32, device=cuda),
+                     torch.tensor(False, device=cuda), singletons,
+                     torch.zeros(14, dtype=torch.int32, device=cuda), seeds, w)
+    torch.cuda.synchronize()
+    assert k_assign.kmeans_assign.launches - before == 42
+    stats = swarm_distribution_matrix(p).cpu()
+    a_local, C = out.a_local.cpu(), out.centroids.cpu()
+    for pod in range(2):
+        rows = slice(7 * pod, 7 * (pod + 1))
+        expect = ref.kmeans_assign(stats[rows], C[4 * pod:4 * (pod + 1)]) + 4 * pod
+        assert torch.equal(a_local[rows], expect)
+    counts = torch.bincount(a_local.long(), minlength=8).float()
+    assert torch.equal(out.counts.cpu(), counts)
+
+
+@pytest.mark.cuda
+def test_fleet_nccl_mesh_runs_one_rank_on_the_card(cuda):
+    """run_fleet over an NCCL world of one: K1 once and K2 21 times a
+    round, the Eq. 2 census 1 + #leaves all-reduces a round."""
+    import os
+
+    from repro_torch.launch.fleet_driver import make_unit_fleet, run_fleet
+    from repro_torch.utils.tree import tree_leaves
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    model, opt, mesh, clients = make_unit_fleet(8, device=cuda)
+    try:
+        assert mesh.backend == "nccl"
+        k1, k2 = k_stats.param_stats_leaves.launches, k_assign.kmeans_assign.launches
+        res = run_fleet(model, opt, mesh, clients, rounds=2, local_steps=2, batch_size=8)
+        torch.cuda.synchronize()
+        assert k_stats.param_stats_leaves.launches - k1 == 2
+        assert k_assign.kmeans_assign.launches - k2 == 42
+        n_leaves = len(tree_leaves(res.params))
+        assert res.comm["eq2_collective_bytes"]["op_counts"]["all_reduce"] == 1 + n_leaves
+    finally:
+        mesh.close()
