@@ -199,7 +199,22 @@ exits non-zero and prints no result. It imports nothing of JAX. Phases:
    against their plain versions; (d) 2 rounds of 2 local steps at adam
    eps 1e-6 resumed from (a)'s state on the card and on the CPU over a
    gloo group beside the NCCL one: decisions equal, params within 1e-4;
-   (e) (a)'s final state exported, restored bitwise and served.
+   (e) (a)'s final state exported, restored bitwise and served;
+21. the production dry-run's one-card probe: (a) granite-3-2b as
+   registered, bf16 (``launch.dryrun.runtime_config``), through
+   ``launch.dryrun.probe_on_card`` at depths 1 and 2 for train_4k (16
+   sequences of 4,096, 16 microbatches, adamw, remat "full", and remat
+   "none" at depth 2 beside it: both peaks printed, the lower one
+   asserted, and one sequence's gradients within 1e-5 of the largest),
+   prefill_32k (2 x 32,768), decode_32k (8 rows against a 32,768-position
+   cache at pos 32,767) and long_500k (1 row, a 524,288-position cache,
+   window 8,192): ms a step, peak, FLOPs on the card asserted equal to the
+   same step's on ``meta``, the 40-layer extrapolation and the H100
+   roofline, K3 launches asserted; (b) K3 at the two decode probes'
+   shapes against its plain version, timed beside it and SDPA, with its
+   bound in the bytes of the keys the mask keeps; (c) ``kmeans.assign``
+   and ``ops.param_stats`` against their plain versions at phase 3's
+   shapes.
 
 ``python3 chip_smoke.py --ssm-depth-probe 36 37 38 39`` runs only phase
 18 (e)'s mamba2 round at each depth, alone, and prints each peak up to
@@ -3493,6 +3508,185 @@ def fleet_phase(torch, dev, clients, main_round_s) -> dict:
     return out
 
 
+# --- phase 21: the production dry-run's one-card probe
+
+
+DRYRUN_ARCH = "granite-3-2b"
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+DRYRUN_GRAD_RTOL = 1e-5           # of max |g|: remat "full" against "none"
+
+
+def _probe_line(rec: dict) -> None:
+    for L, d in rec["depths"].items():
+        log(f"[dryrun] {rec['arch']} {rec['shape']} depth {L} (remat {rec['remat']}, "
+            f"{rec['batch_rows']} rows, {rec['microbatches']} microbatches): "
+            f"{d['ms']:.2f} ms a step, peak {d['peak_bytes'] / 1e9:.2f} GB, {d['flops']:.6e} "
+            f"FLOPs on the card, {d['meta_flops']:.6e} on meta, {d['bytes']:.6e} op bytes")
+        assert d["flops"] == d["meta_flops"], \
+            f"{rec['shape']} depth {L}: card FLOPs {d['flops']} != meta {d['meta_flops']}"
+    if "full_depth" in rec:
+        f, r = rec["full_depth"], rec["roofline"]
+        log(f"[dryrun] {rec['arch']} {rec['shape']} at its {f['n_layers']} layers "
+            f"(extrapolated from depths {list(rec['depths'])}): {f['ms']:.2f} ms a step, peak "
+            f"{f['peak_bytes'] / 1e9:.2f} GB, {f['flops']:.6e} FLOPs; H100 roofline: compute "
+            f"{r['t_compute_s'] * 1e3:.3f} ms, memory (op bytes, unfused) "
+            f"{r['t_memory_s'] * 1e3:.3f} ms, dominant {r['dominant']}")
+
+
+def _remat_grads(torch, dev, remat: str):
+    """Gradients of one train_4k sequence through granite at depth 2
+    under ``remat``, from one seed."""
+    from torch.func import grad_and_value
+
+    from repro_torch.configs import INPUT_SHAPES
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build_model
+    cfg = dryrun._probe_cfg(replace(dryrun.runtime_config(DRYRUN_ARCH, INPUT_SHAPES["train_4k"]),
+                                    remat=remat), 2)
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init(gen)
+    toks = torch.randint(0, cfg.vocab_size, (1, INPUT_SHAPES["train_4k"].seq_len),
+                         generator=gen, device=dev, dtype=torch.int32)
+    grads, _ = grad_and_value(model.loss, has_aux=True)(params, {"tokens": toks,
+                                                                 "labels": toks})
+    return _leaves(grads)
+
+
+def time_flash_decode_probe(torch, dev, B: int, S: int, window: int) -> dict:
+    """K3 at a decode probe's shape: q (B,32,1,64) bf16 against a bf16
+    cache stored (B,S,8,64), every row at position S - 1, under
+    ``window``: held against its plain version (within 2e-2 of its
+    largest magnitude), timed through the wrapper beside the plain
+    version and SDPA, and bounded by the bytes of the keys the mask keeps
+    (the window's, where there is one) beside the whole cache's."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_decode, ref
+    H, KV, D = 32, 8, 64
+    gen = torch.Generator(device=dev).manual_seed(21)
+    q, k, v = _decode_case(torch, dev, gen, B, H, KV, S, D, torch.bfloat16)
+    pos = torch.tensor(S - 1, dtype=torch.int32, device=dev)
+    got = flash_decode.flash_decode(q, k, v, pos, window)
+    expect = ref.decode_attention(q, k, v, pos, window).float()
+    torch.cuda.synchronize()
+    scale = expect.abs().max().item()
+    err = (got.float() - expect).abs().max().item()
+    assert err <= 2e-2 * scale, f"flash_decode probe B {B} S {S} window {window}: {err}"
+    cols = torch.arange(S, device=dev)
+    mask = (cols <= pos) & ((cols > pos - window) if window else True)
+    keys = min(S, window) if window else S
+
+    def kernel():
+        flash_decode.flash_decode(q, k, v, pos, window)
+
+    def plain():
+        ref.decode_attention(q, k, v, pos, window)
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask[None, None, None, :],
+                                              enable_gqa=True)
+
+    lib_err = (library().float() - expect).abs().max().item()
+    ms, plain_ms, lib_ms = (cuda_ms(torch, f, reps=20, trials=3) for f in (kernel, plain, library))
+    es = k.element_size()
+    n_bytes = B * keys * KV * D * 2 * es + 2 * q.numel() * q.element_size() + 4
+    full_ms = B * S * KV * D * 2 * es / HBM_BYTES_PER_S * 1e3
+    b, by = bound_ms(n_bytes, B * keys * H * (4 * D + 5))
+    name = (f"flash_decode probe (B {B}) (B,32,1,64) vs (B,{S},8,64) bf16, pos {S - 1}, "
+            f"window {window}")
+    log(f"[kernels] {name}: max abs err {err:.3e} (tol {2e-2 * scale:.3e}); kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (sdpa vs plain {lib_err:.3e}), bound "
+        f"{b:.5f} ms ({by}, the {keys} keys the mask keeps); the whole cache's bytes "
+        f"{full_ms:.5f} ms")
+    if window:
+        log(f"[kernels] {name}: reads only the window's columns: "
+            f"{'yes' if ms < full_ms else 'no'} (kernel {ms:.4f} ms against {full_ms:.5f} ms "
+            f"to read the whole cache once)")
+    return {"err": err, "times": (ms, plain_ms, lib_ms, b, by)}
+
+
+def dryrun_phase(torch, dev, card: str) -> dict:
+    """Phase 21: (a) granite-3-2b as registered through
+    ``launch.dryrun.probe_on_card`` at depths 1 and 2 for the four input
+    shapes, and train_4k at remat "none" at depth 2 beside "full"
+    (peaks, and one sequence's gradients within 1e-5 of the largest);
+    (b) K3 at the two decode probes' shapes; (c) ``kmeans.assign`` and
+    ``ops.param_stats`` against their plain versions at phase 3's shapes.
+    K3 launches are counted over (a)'s decode probes alone."""
+    from repro_torch.core import kmeans
+    from repro_torch.kernels import flash_decode, ops, ref
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    out = {"records": {}, "k3": 0}
+    for shape in DRYRUN_SHAPES:
+        flash_decode.flash_decode.launches = 0
+        rec = dryrun.probe_on_card(DRYRUN_ARCH, shape, device=dev)
+        launches = flash_decode.flash_decode.launches
+        # each depth's step runs twice (counted, then timed), one K3 call a layer
+        decode = dryrun.INPUT_SHAPES[shape].kind == "decode"
+        want = 2 * sum(int(L) for L in rec["depths"]) if decode else 0
+        log(f"[dryrun] {DRYRUN_ARCH} {shape}: flash_decode launches {launches} (expected {want}); "
+            f"{card}")
+        assert launches == want, f"{shape}: flash_decode launches {launches} != {want}"
+        out["k3"] += launches
+        _probe_line(rec)
+        out["records"][shape] = rec
+        torch.cuda.empty_cache()
+    none = dryrun.probe_on_card(DRYRUN_ARCH, "train_4k", layers=(2,), device=dev,
+                                overrides={"remat": "none"})
+    _probe_line(none)
+    peak_full = out["records"]["train_4k"]["depths"]["2"]["peak_bytes"]
+    peak_none = none["depths"]["2"]["peak_bytes"]
+    g_full, g_none = (_remat_grads(torch, dev, r) for r in ("full", "none"))
+    gmax = max(g.abs().max().item() for g in g_none)
+    gdiff = max((a - b).abs().max().item() for a, b in zip(g_full, g_none))
+    log(f"[dryrun] train_4k depth 2 peak: remat full {peak_full / 1e9:.2f} GB, none "
+        f"{peak_none / 1e9:.2f} GB; one sequence's gradients full vs none max |diff| "
+        f"{gdiff:.3e} (max |g| {gmax:.3e}, tol {DRYRUN_GRAD_RTOL} of it)")
+    assert peak_full < peak_none, "remat full does not lower the depth-2 train_4k peak"
+    assert gdiff <= DRYRUN_GRAD_RTOL * gmax, f"remat full vs none gradients differ by {gdiff}"
+    out["peaks"] = (peak_full, peak_none)
+    del g_full, g_none
+    torch.cuda.empty_cache()
+
+    # (b) K3 at the decode probes' shapes
+    dec, lng = dryrun.INPUT_SHAPES["decode_32k"], dryrun.INPUT_SHAPES["long_500k"]
+    out["k3_probe"] = {
+        "decode_32k": time_flash_decode_probe(torch, dev, dryrun.per_device_batch(dec),
+                                              dec.seq_len, 0),
+        "long_500k": time_flash_decode_probe(torch, dev, dryrun.per_device_batch(lng),
+                                             lng.seq_len, 8192)}
+    torch.cuda.empty_cache()
+
+    # (c) the small surface on the card at phase 3's shapes
+    from repro_torch.configs import get_config
+    from repro_torch.core.diststats import swarm_distribution_matrix
+    from repro_torch.models import build_model
+    from repro_torch.utils.tree import tree_stack
+    model = build_model(get_config("squeezenet-dr"))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stacked = tree_stack([model.init(gen) for _ in range(14)])
+    feats = swarm_distribution_matrix(stacked)
+    cents = feats[torch.randperm(14, generator=gen, device=dev)[:K]].contiguous()
+    ids = kmeans.assign(feats, cents)
+    assert torch.equal(ids, ref.kmeans_assign(feats, cents)), "kmeans.assign vs its plain version"
+    assert torch.equal(kmeans.assign(feats, cents, k_active=2),
+                       ref.kmeans_assign(feats, cents, 2)), "kmeans.assign k_active 2"
+    err = 0.0
+    for leaf in _leaves(stacked):
+        m, v = ops.param_stats(leaf[0].contiguous())
+        em, ev = ref.param_stats_batched(leaf[:1])
+        err = max(err, abs(m.item() - em.item()), abs(v.item() - ev.item()))
+    assert err <= 1e-5, f"ops.param_stats vs its plain version: {err}"
+    log(f"[dryrun] kmeans.assign (14,56)x(3,56) equal to the plain version (and at k_active 2); "
+        f"ops.param_stats on each of one client's {len(_leaves(stacked))} leaves within {err:.3e} "
+        f"of the plain version")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[dryrun] phase 21 in {out['seconds']:.1f} s")
+    return out
+
+
 def _kernel_line(name, source, replaces, launches, err, times) -> dict:
     """One entry of the ``{"kernels": [...]}`` line; ``times`` is a
     timing function's (ms, plain_ms, library_ms, bound_ms, bound_by)."""
@@ -3784,6 +3978,11 @@ def main() -> int:
     # each run alone
     fl = fleet_phase(torch, dev, clients, round_s)
 
+    # --- phase 21: the production dry-run's one-card probe, K3 launches
+    # from its decode probes alone
+    torch.cuda.empty_cache()
+    dr = dryrun_phase(torch, dev, card)
+
     kernels = [
         _kernel_line("param_stats_batched", "param_stats", "src/repro/kernels/param_stats.py:92",
                      sum(n["param_stats_batched"]
@@ -3796,8 +3995,9 @@ def main() -> int:
                                    la, lb, ssm["launches"], fl["launches"])),
                      k2_err, k2),
         _kernel_line("flash_decode", "flash_decode", "src/repro/kernels/flash_decode.py:93",
-                     k3_launches + k3_lm + k3_moe + ssm["k3"] + ev["k3"],
-                     max(k3_err, ssm["k3_err"], ev["k3_err"]), k3),
+                     k3_launches + k3_lm + k3_moe + ssm["k3"] + ev["k3"] + dr["k3"],
+                     max(k3_err, ssm["k3_err"], ev["k3_err"],
+                         *(r["err"] for r in dr["k3_probe"].values())), k3),
         _kernel_line("flash_attention", "flash_attention",
                      "src/repro/kernels/flash_attention.py:89", k4_launches, k4_err, k4),
     ]
@@ -3844,10 +4044,14 @@ def main() -> int:
         f"{[round(x, 4) for x in fl['walls']]} s, coordinator {[round(x, 4) for x in fl['coord']]} "
         f"s, busy {fl['busy']:.1%} of a profiled round step, NCCL {fl['nccl_share']:.2%} of busy, "
         f"Eq. 2 {fl['eq2']} B a round, card vs CPU {fl['card_cpu_diff']:.3e}, checkpoint "
-        f"{fl['ckpt_bytes']} B; K1 and K2 launches in the kernels "
+        f"{fl['ckpt_bytes']} B; dry-run probe (phase 21, {dr['seconds']:.1f} s): train_4k "
+        f"depth-2 peaks remat full / none {dr['peaks'][0] / 1e9:.2f} / "
+        f"{dr['peaks'][1] / 1e9:.2f} GB, K3 at the decode probes "
+        f"{ {k: round(r['times'][0], 4) for k, r in dr['k3_probe'].items()} } ms; K1 and K2 "
+        f"launches in the kernels "
         f"line: phases 3, 11, 12, 13, 14 (its 4-pod fit and scaling axis), 15, 18 and 20 (the fleet's "
         f"runs (a)-(c)); K3: phases "
-        f"6, 16, 17, 18 and 19; K3's max_abs_err over phases 5, 18 and 19")
+        f"6, 16, 17, 18, 19 and 21; K3's max_abs_err over phases 5, 18, 19 and 21")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

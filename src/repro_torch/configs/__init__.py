@@ -5,9 +5,12 @@ llama4-maverick-400b-a17b), its ssm LM (mamba2-370m), its hybrid LM
 (zamba2-1.2b), its encoder-decoder (whisper-base) and its vlm
 (internvl2-26b): every architecture the reference assigns."""
 from repro_torch.configs.base import (  # noqa: F401
+    INPUT_SHAPES,
     REGISTRY,
     ModelConfig,
     OptimizerConfig,
+    RunConfig,
+    ShapeConfig,
     SwarmConfig,
     get_config,
     register,
@@ -16,3 +19,16 @@ from repro_torch.configs import (command_r_35b, deepseek_7b, deepseek_67b,  # no
                                  granite_3_2b, internvl2_26b, kimi_k2_1t_a32b,
                                  llama4_maverick_400b_a17b, mamba2_370m, paper_cnns,
                                  whisper_base, zamba2_1p2b)
+
+ASSIGNED_ARCHS = [
+    "granite-3-2b",
+    "command-r-35b",
+    "zamba2-1.2b",
+    "deepseek-67b",
+    "kimi-k2-1t-a32b",
+    "whisper-base",
+    "llama4-maverick-400b-a17b",
+    "mamba2-370m",
+    "internvl2-26b",
+    "deepseek-7b",
+]

@@ -12,14 +12,22 @@ the rest is carried for that round trip:
 - ``scan_layers`` picks the parameter layout (stacked ``"layers"`` or a
   ``"blocks"`` list), as in the reference; the port loops over the
   stacked layer index in Python.
-- ``remat``, ``microbatch_override`` and ``fsdp_over_pod`` steer the
-  reference's compiler and sharding, neither of which is ported.
+- ``remat`` is honoured: ``"full"`` keeps only each block's inputs for
+  backward and ``"dots"`` also the outputs of its weight products
+  (``models/transformer._maybe_remat``, the reference's
+  ``jax.checkpoint`` and its ``checkpoint_dots_with_no_batch_dims``).
+- ``microbatch_override`` and ``fsdp_over_pod`` are read by the dry-run
+  (``launch/dryrun.microbatches_for`` and ``rules_for``).
   ``moe_grouped_dispatch`` and ``moe_groups`` pick the MoE's grouped
   dispatch, which is ported (``models/moe.py``).
+
+:class:`ShapeConfig` and :data:`INPUT_SHAPES` are the reference's four
+input shapes, and :class:`RunConfig` its (model, shape, optimizer,
+swarm) bundle.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 from typing import Callable, Dict, Optional
 
 
@@ -171,6 +179,32 @@ class SwarmConfig:
     local_steps: Optional[int] = None
     rounds: int = 10
     kmeans_iters: int = 20
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+
+INPUT_SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k":    ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k":   ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    shape: ShapeConfig
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    swarm: SwarmConfig = field(default_factory=SwarmConfig)
+    microbatch: int = 0              # 0 => no gradient accumulation
+    seed: int = 0
 
 
 REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}

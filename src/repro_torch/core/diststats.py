@@ -53,6 +53,14 @@ def swarm_distribution_matrix_loop(stacked_params, n_clients: int) -> torch.Tens
     return torch.stack(rows)
 
 
+def tensor_stats(x: torch.Tensor):
+    """(mean, var) of one tensor in fp32, the plain two-pass form (the
+    reference's ``jnp.mean`` / ``jnp.var``)."""
+    xf = x.float().reshape(-1)
+    mean = torch.mean(xf)
+    return mean, torch.mean(torch.square(xf - mean))
+
+
 def param_distribution(params) -> torch.Tensor:
     """One client's feature vector (2*T,): row 0 of the swarm matrix of
     a singleton-stacked tree."""

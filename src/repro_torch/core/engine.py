@@ -1204,12 +1204,13 @@ def _stack_metrics(ms) -> RoundMetrics:
 
 def run_rounds(state: SwarmState, data, cfg: EngineConfig, rounds: int,
                method=None, steps: int = None, churn: ChurnParams = None,
-               hier: HierParams = None):
+               hier: HierParams = None, draws=None):
     """``rounds`` calls of :func:`swarm_round` (on the method or grid row
     ``method``, if given; ``steps`` as there); metrics gain a leading
     (rounds,) axis. ``churn`` (or the grid row's own) goes to every
     round; a (rounds, N) mask schedule gives round r its row r. ``hier``
-    puts every round on the two-tier coordinator."""
+    puts every round on the two-tier coordinator. ``draws``, a list of
+    :class:`RoundDraws`, injects round r's random inputs as ``draws[r]``."""
     if churn is None and isinstance(method, GridPoint):
         churn = method.churn
     schedule = None
@@ -1223,7 +1224,8 @@ def run_rounds(state: SwarmState, data, cfg: EngineConfig, rounds: int,
     for r in range(rounds):
         if schedule is not None:
             churn = churn._replace(mask=schedule[r])
-        state, m = swarm_round(state, data, cfg, method, steps=steps, churn=churn, hier=hier)
+        state, m = swarm_round(state, data, cfg, method, steps=steps, churn=churn, hier=hier,
+                               draws=None if draws is None else draws[r])
         ms.append(m)
     return state, _stack_metrics(ms)
 

@@ -50,6 +50,16 @@ def _pairwise_sq_dists(X, C):
     return torch.clamp(x2 + c2 - 2.0 * X @ C.T, min=0.0)
 
 
+def assign(X, C, k_active=None) -> torch.Tensor:
+    """(N,) int32 nearest-centroid ids of X (N, F) against C (K, F), ties
+    to the first; with ``k_active`` (an int or a () integer tensor) only
+    centroids ``< k_active`` are eligible. A CUDA tensor takes the
+    ``kmeans_assign`` kernel, a CPU tensor its plain version."""
+    if k_active is not None and not isinstance(k_active, torch.Tensor):
+        k_active = torch.tensor(int(k_active), dtype=torch.int32, device=X.device)
+    return ops.kmeans_assign(X.float(), C.float(), k_active)
+
+
 def _point_weights(X, mask, weights):
     """(wf, pos): the float scale of distances and means and the bool
     eligibility of seeds and reseed targets, from the participation

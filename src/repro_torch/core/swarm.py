@@ -19,7 +19,8 @@ from repro_torch.configs.base import OptimizerConfig, SwarmConfig
 from repro_torch.core.engine import (EngineConfig, RoundDraws, RoundMetrics,
                                      SwarmState, make_batch, make_client_eval,
                                      make_swarm_data, make_swarm_state, pad_eval_split,
-                                     resolve_local_steps, stack_eval_split, swarm_round)
+                                     resolve_local_steps, run_rounds, stack_eval_split,
+                                     swarm_round)
 from repro_torch.models.model import Model
 from repro_torch.optim.optimizers import make_optimizer
 from repro_torch.utils.device import resolve_device
@@ -123,4 +124,17 @@ class SwarmTrainer:
                 print(f"[{self.aggregation}] round {log.round:3d} "
                       f"val_acc={log.mean_val_acc:.4f} loss={log.train_loss:.4f} "
                       + ("; ".join(log.events) if log.events else ""))
+        return self.history
+
+    def fit_scanned(self, rounds: Optional[int] = None, draws=None):
+        """The same rounds as :meth:`fit` as one :func:`engine.run_rounds`
+        call (``draws``: a list of :class:`RoundDraws`, one a round),
+        appending the same history. The rounds still run one after
+        another; the reference scans them into one device program."""
+        rounds = rounds or self.swarm.rounds
+        self.state, ms = run_rounds(self.state, self.swarm_data, self.engine_cfg, rounds,
+                                    draws=draws)
+        start = len(self.history)
+        for i in range(rounds):
+            self.history.append(_round_log(start + i, RoundMetrics(*(f[i] for f in ms))))
         return self.history

@@ -6,7 +6,8 @@ clinic x grade sample counts of the paper's Table I (3,657 images,
 fundus images, split 80/10/10 per clinic (§IV.A). For the same seed
 and table it yields bitwise the arrays the reference yields, so both
 packages train on the same clinics. :func:`bucket_clients` (the size
-buckets of the ragged layout) is copied too.
+buckets of the ragged layout) and :func:`batch_iterator` are copied
+too.
 """
 from __future__ import annotations
 
@@ -177,3 +178,15 @@ def make_dr_swarm_data(image_size: int = 32, seed: int = 0,
                 splits[k] = (X[-2:], y[-2:])
         clinics.append({**splits, "n_train": len(splits["train"][1])})
     return clinics
+
+
+def batch_iterator(X: np.ndarray, y: np.ndarray, batch: int, rng: np.random.Generator):
+    """Shuffled minibatches of one epoch; the last one is filled up from
+    the start of the permutation, so every batch has ``batch`` rows."""
+    n = len(y)
+    idx = rng.permutation(n)
+    for start in range(0, n, batch):
+        take = idx[start:start + batch]
+        if len(take) < batch:
+            take = np.concatenate([take, idx[: batch - len(take)]])
+        yield X[take], y[take]

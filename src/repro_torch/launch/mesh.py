@@ -10,11 +10,16 @@ function takes its process group from the :class:`FleetMesh` it is
 given, so one process can hold a fleet on an NCCL group and another on
 a gloo group beside it.
 
-Not ported (ROADMAP A14): ``make_production_mesh`` and the TPU
-constants of the reference's module.
+:func:`make_production_mesh` gives the reference's production layouts,
+16x16 ``("data", "model")`` and 2x16x16 ``("pod", "data", "model")``,
+as a shape-only mesh or, over a process group of their size (a real one
+or the dry-run's fake one), as a ``DeviceMesh``. The roofline constants
+are one NVIDIA H100's (SXM part at its 700 W limit, dense rates), in
+place of the reference's TPU v5e ones.
 """
 from __future__ import annotations
 
+import math
 import os
 import tempfile
 from dataclasses import dataclass, field
@@ -24,6 +29,50 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from repro_torch.utils.device import resolve_device
+
+# per-card constants of the roofline: NVIDIA H100 SXM at 700 W, dense rates
+PEAK_FLOPS_BF16 = 989e12          # FLOP/s on the tensor cores
+HBM_BW = 3.35e12                  # B/s
+NVLINK_BW = 450e9                 # B/s each way (900 GB/s both ways)
+
+
+@dataclass(frozen=True)
+class ShapeMesh:
+    """A mesh of named axis sizes and no devices: enough for the
+    placement table's specs (``sharding.spec_for`` reads ``.shape``)."""
+    shape: dict
+
+    @property
+    def axis_names(self) -> tuple:
+        return tuple(self.shape)
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for v in self.shape.values():
+            n *= v
+        return n
+
+
+def make_production_mesh(*, multi_pod: bool = False, group=None):
+    """16x16 ``("data", "model")``, or 2x16x16 ``("pod", "data",
+    "model")`` with ``multi_pod``: ``pod`` the swarm-client / outer
+    data-parallel axis, ``data`` the batch and FSDP axis, ``model`` the
+    tensor / expert axis. Without ``group`` a :class:`ShapeMesh`; with
+    the default (world) process group of 256 or 512 ranks a
+    ``DeviceMesh`` over it, on CUDA for NCCL and on the CPU otherwise
+    (gloo, or the dry-run's fake backend)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if group is None:
+        return ShapeMesh(dict(zip(names, shape)))
+    from torch.distributed.device_mesh import init_device_mesh
+    world = dist.get_world_size(group)
+    if group is not dist.group.WORLD or world != math.prod(shape):
+        raise ValueError(f"the {'x'.join(map(str, shape))} mesh needs the default process "
+                         f"group of {math.prod(shape)} ranks, got a group of {world}")
+    device_type = "cuda" if dist.get_backend(group) == "nccl" else "cpu"
+    return init_device_mesh(device_type, shape, mesh_dim_names=names)
 
 
 @dataclass

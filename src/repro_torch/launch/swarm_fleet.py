@@ -9,9 +9,13 @@ computed in the round (the ``param_stats`` kernel on the card), and the
 coordinator stays on rank 0 between rounds (``repro_torch.launch
 .fleet_driver``).
 
-Not ported (ROADMAP A14): ``spmd="auto"`` (placement by a partitioner
-with inner FSDP / TP rules), ``fleet_inner_rules``, the LM dry-run
-``lower_fleet_round`` and ``force_host_device_count``. The reference's
+The placement table it would build on is ported
+(``repro_torch.sharding``, with ``launch.mesh.make_production_mesh``
+and the dry-run census ``launch.dryrun``). Not ported yet (ROADMAP
+A14): ``spmd="auto"`` (the fleet placed by that table on a
+``DeviceMesh``, with ``fleet_inner_rules``), the LM fleet dry-run
+``lower_fleet_round`` on the census, and ``force_host_device_count``,
+which has no counterpart. The reference's
 ``use_pallas_stats`` switch has no counterpart: a CUDA tensor takes the
 kernel and a CPU tensor its plain version.
 """

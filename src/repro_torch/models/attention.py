@@ -34,6 +34,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, dense_init, dtype_of
+from repro_torch.sharding import shard_act
+from repro_torch.sharding.rules import places, sharding_active
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, d_model: Optional[int] = None,
@@ -62,7 +64,27 @@ def _project_qkv(p, x, x_kv, cfg: ModelConfig):
     v = x_kv @ p["wv"].to(dt)
     if "bq" in p:
         q, k, v = q + p["bq"].to(dt), k + p["bk"].to(dt), v + p["bv"].to(dt)
-    return q.reshape(B, -1, H, hd), k.reshape(B, -1, KV, hd), v.reshape(B, -1, KV, hd)
+    return _heads(q, B, H, hd), _heads(k, B, KV, hd), _heads(v, B, KV, hd)
+
+
+def _merge_heads(t, B: int, S: int, width: int):
+    """(B, S, n, hd) -> (B, S, n*hd), placed under a placement context as
+    the heads are: the gradient's reshape back to heads then splits no
+    dimension over more ranks than it has heads."""
+    out = t.reshape(B, S, width)
+    if sharding_active():
+        out = shard_act(out, "batch", "seq",
+                        "act_heads" if places("act_heads", t.shape[2]) else None)
+    return out
+
+
+def _heads(t, B: int, n: int, hd: int):
+    """(B, S, n*hd) -> (B, S, n, hd). Under a placement context the flat
+    projection is first placed as its heads will be: a DTensor split over
+    more ranks than it has heads cannot be unflattened."""
+    if sharding_active():
+        t = shard_act(t, "batch", "seq", "act_heads" if places("act_heads", n) else None)
+    return t.reshape(B, -1, n, hd)
 
 
 @functools.lru_cache(maxsize=None)
@@ -81,6 +103,12 @@ def _gqa_scores(q, k):
     return torch.einsum("bskgd,btkd->bkgst", qg, k) / _root_in(hd, q.dtype)
 
 
+def _repeat_kv(t, G: int):
+    """(B,T,KV,hd) -> (B,T,KV*G,hd), kv head j at heads j*G .. j*G+G-1."""
+    idx = torch.arange(t.shape[2] * G, device=t.device) // G
+    return torch.index_select(t, 2, idx)
+
+
 def _gqa_out(probs, v, B, S, H, hd):
     return torch.einsum("bkgst,btkd->bskgd", probs, v).reshape(B, S, H, hd)
 
@@ -92,6 +120,12 @@ CHUNK_Q = 1024
 
 
 def _attention_math(q, k, v, positions, kv_positions, causal, sliding_window, B, S, H, hd):
+    KV = k.shape[2]
+    if sharding_active() and not places("act_heads", KV) and places("act_heads", H):
+        # the (KV, G) view cannot split heads that split while kv heads do
+        # not; each query head gets its own copy of its kv head (G = 1)
+        k, v = (shard_act(_repeat_kv(t, H // KV), "batch", "seq", "act_heads", None)
+                for t in (k, v))
     scores = _gqa_scores(q, k).float()                     # (B,KV,G,S,T)
     if causal or sliding_window > 0:
         qpos = positions[:, None, None, :, None]
@@ -120,6 +154,9 @@ def attend_full(p, x, cfg: ModelConfig, *, positions=None, causal=True, x_kv=Non
     q, k, v = _project_qkv(p, x, x_kv, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, kv_positions, cfg.rope_theta)
+    q = shard_act(q, "batch", "seq", "act_heads", None)
+    k = shard_act(k, "batch", "seq", "act_heads", None)
+    v = shard_act(v, "batch", "seq", "act_heads", None)
 
     chunk_q = cfg.attn_chunk_q or CHUNK_Q
     if S > CHUNK_THRESHOLD and S % chunk_q == 0:
@@ -131,7 +168,8 @@ def attend_full(p, x, cfg: ModelConfig, *, positions=None, causal=True, x_kv=Non
     else:
         out = _attention_math(q, k, v, positions, kv_positions, causal, sliding_window,
                               B, S, H, hd)
-    out = out.reshape(B, S, H * hd) @ p["wo"].to(x.dtype)
+    out = shard_act(out, "batch", "seq", "act_heads", None)
+    out = _merge_heads(out, B, S, H * hd) @ p["wo"].to(x.dtype)
     if "bo" in p:
         out = out + p["bo"].to(x.dtype)
     return out
@@ -181,9 +219,15 @@ def _write_cache_rows(cache, new, write_pos):
     """Per-row write in place: cache (B,Smax,KV,hd), new (B,1,KV,hd),
     write_pos (B,) — row b at its own position, clamped into range as
     ``dynamic_update_slice`` clamps it."""
+    write_pos = write_pos.clamp(0, cache.shape[1] - 1)
+    if sharding_active():
+        # an indexed write into a cache split over rows and positions has
+        # no placement rule; a select over the positions splits with it
+        at = torch.arange(cache.shape[1], device=cache.device)[None, :] == write_pos[:, None]
+        cache.copy_(torch.where(at[..., None, None], to_cache_dtype(new, cache.dtype), cache))
+        return cache
     rows = torch.arange(cache.shape[0], device=cache.device)
-    raw_view(cache)[rows, write_pos.clamp(0, cache.shape[1] - 1)] = raw_view(
-        to_cache_dtype(new[:, 0], cache.dtype))
+    raw_view(cache)[rows, write_pos] = raw_view(to_cache_dtype(new[:, 0], cache.dtype))
     return cache
 
 
@@ -209,6 +253,8 @@ def attend_decode(p, x, cache, pos, cfg: ModelConfig, *, sliding_window: int = 0
         write_pos = (posb[:, 0] % Smax) if ring else posb[:, 0]
         _write_cache_rows(k, k_new, write_pos)
         _write_cache_rows(v, v_new, write_pos)
+    k = shard_act(k, "batch", "cache_seq", "act_heads", None)
+    v = shard_act(v, "batch", "cache_seq", "act_heads", None)
     # the kernel reads the (B,Smax,KV,hd) cache through strides as
     # (B,KV,Smax,hd); a ring cache's window is structural (window=0)
     o = ops.flash_decode(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), pos,

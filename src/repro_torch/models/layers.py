@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding import shard_act
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -129,6 +130,7 @@ def apply_mlp(p, x, cfg: ModelConfig):
         h = F.silu(x @ p["wg"].to(dt)) * h
     else:
         h = F.gelu(h, approximate="tanh")            # jax.nn.gelu's default
+    h = shard_act(h, *(("batch",) + ("seq",) * (h.dim() - 2) + ("act_mlp",)))
     out = h @ p["wo"].to(dt)
     if "bo" in p:
         out = out + p["bo"].to(dt)

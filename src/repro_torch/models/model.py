@@ -22,10 +22,12 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import cnn as cnn_lib
 from repro_torch.models import transformer as tf_lib
-from repro_torch.utils.tree import tree_leaves
+from repro_torch.models.layers import dtype_of
+from repro_torch.sharding.rules import sharding_active
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 
 def cross_entropy(logits, labels):
@@ -34,15 +36,33 @@ def cross_entropy(logits, labels):
     lse = torch.logsumexp(logits, dim=-1)
     mask = labels >= 0
     safe = torch.where(mask, labels, 0).long()
-    label_logit = torch.gather(logits, -1, safe[..., None])[..., 0]
+    if sharding_active():
+        # a gather over vocab shards has no clean placement rule; the
+        # select sums each shard's part (the reference's form, equal to
+        # the gather: one term of the sum is not 0)
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        label_logit = torch.sum(torch.where(vocab == safe[..., None], logits, 0.0), dim=-1)
+    else:
+        label_logit = torch.gather(logits, -1, safe[..., None])[..., 0]
     nll = torch.where(mask, lse - label_logit, 0.0)
     return nll.sum() / torch.clamp(mask.sum(), min=1)
+
+
+def argmax_last(logits):
+    """``torch.argmax`` over the last axis; under a placement context two
+    reductions (the first index of the maximum, argmax's tie rule), which
+    split over vocab shards where DTensor's argmax does not."""
+    if not sharding_active():
+        return torch.argmax(logits, dim=-1)
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    top = torch.amax(logits, dim=-1, keepdim=True)
+    return torch.amin(torch.where(logits == top, vocab, logits.shape[-1]), dim=-1)
 
 
 def accuracy(logits, labels):
     """Share of unmasked rows (labels >= 0) whose argmax is the label."""
     mask = labels >= 0
-    hit = (torch.argmax(logits, dim=-1) == labels) & mask
+    hit = (argmax_last(logits) == labels) & mask
     return hit.sum() / torch.clamp(mask.sum(), min=1)
 
 
@@ -111,3 +131,50 @@ def build_model(cfg: ModelConfig) -> Model:
         prefill=(lambda p, t, c, pos0: tf_lib.lm_prefill(p, t, c, pos0, cfg))
         if cfg.family in ("dense", "moe") else None,
     )
+
+
+# ---------------------------------------------------------------------------
+# abstract inputs for the dry-run: ``meta`` tensors, nothing allocated
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """``meta`` stand-ins of one (arch x input shape) pair's inputs, the
+    reference's shapes and dtypes: a whole batch for the train step or
+    the forward, ``{"tokens": (B,1), "pos": ()}`` for the decode step
+    (its cache is :func:`cache_specs`). encdec's text is ``min(448, S)``
+    tokens beside S audio frames; vlm's is ``S - n_vision_tokens``."""
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+
+    def sd(dims, dtype):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    if cfg.family == "cnn":
+        return {"images": sd((B, 32, 32, 3), torch.float32), "labels": sd((B,), i32)}
+    act = dtype_of(cfg.dtype)
+    if shape.kind in ("train", "prefill"):
+        if cfg.family == "encdec":
+            S_dec = min(448, S)
+            return {"audio_embed": sd((B, S, cfg.d_model), act),
+                    "tokens": sd((B, S_dec), i32), "labels": sd((B, S_dec), i32)}
+        if cfg.family == "vlm":
+            S_text = S - cfg.n_vision_tokens
+            return {"vision_embed": sd((B, cfg.n_vision_tokens, cfg.d_model), act),
+                    "tokens": sd((B, S_text), i32), "labels": sd((B, S_text), i32)}
+        return {"tokens": sd((B, S), i32), "labels": sd((B, S), i32)}
+    return {"tokens": sd((B, 1), i32), "pos": sd((), i32)}
+
+
+def cache_specs(cfg: ModelConfig, shape: ShapeConfig):
+    """The decode cache tree of ``shape`` (batch, seq_len) on ``meta``."""
+    return build_model(cfg).init_cache(shape.global_batch, shape.seq_len, torch.device("meta"))
+
+
+def abstract_params(cfg: ModelConfig):
+    """The parameter tree as ``meta`` tensors of the init's shapes and
+    dtypes (the counterpart of ``jax.eval_shape(model.init)``): the init
+    runs under ``FakeTensorMode``, so a full-size model never allocates."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        fake = build_model(cfg).init(torch.Generator().manual_seed(0))
+    return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), fake)

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import apply_mlp, dense_init, dtype_of, init_mlp
+from repro_torch.sharding import shard_act
 
 EXPERT_INIT_SLICE = 8                  # experts drawn at a time in fp32
 
@@ -109,11 +110,13 @@ def _dispatch_compute_combine(p, xt, gate, expert_idx, C: int, cfg: ModelConfig)
     src = torch.where(keep[..., None], src, 0).to(dt)
     buf = torch.zeros((E * G * C, d), dtype=dt, device=dev).index_add(
         0, slot.reshape(-1), src.reshape(-1, d)).view(E, G * C, d)
+    buf = shard_act(buf, "act_experts", None, None)
 
     ex = p["experts"]
     h = torch.bmm(buf, ex["wi"].to(dt))
     g = torch.bmm(buf, ex["wg"].to(dt))
-    out_buf = torch.bmm(F.silu(g) * h, ex["wo"].to(dt)).view(E * G * C, d)
+    out_buf = shard_act(torch.bmm(F.silu(g) * h, ex["wo"].to(dt)), "act_experts", None, None)
+    out_buf = out_buf.view(E * G * C, d)
 
     gathered = out_buf.index_select(0, slot.reshape(-1)).view(G, T * K, d)
     gathered = torch.where(keep[..., None], gathered, 0)
@@ -137,7 +140,8 @@ def apply_moe(p, x, cfg: ModelConfig):
     G = cfg.moe_groups
     if cfg.moe_grouped_dispatch and T % G == 0 and T >= G * cfg.n_experts:
         Cg = max(8, ((C // G + 7) // 8) * 8)
-        y = _dispatch_compute_combine(p, xt.reshape(G, T // G, d), gate.reshape(G, T // G, -1),
+        xg = shard_act(xt.reshape(G, T // G, d), "batch", None, None)   # groups ride "data"
+        y = _dispatch_compute_combine(p, xg, gate.reshape(G, T // G, -1),
                                       expert_idx.reshape(G, T // G, -1), Cg, cfg)
     else:
         y = _dispatch_compute_combine(p, xt[None], gate[None], expert_idx[None], C, cfg)

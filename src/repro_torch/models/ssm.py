@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import dense_init, dtype_of
+from repro_torch.sharding import shard_act
 
 # group count of the B/C projections (1 in the small mamba2 models)
 G = 1
@@ -151,7 +152,7 @@ def apply_ssm(p, x, cfg: ModelConfig, initial_state=None, initial_conv=None,
     y_inter = torch.einsum("bclgn,bchpn->bclhp", C_c, prev_states) * torch.exp(cum)[..., None]
     y = (y_intra + y_inter).reshape(Bsz, S, H, P)
     y = y + xs.to(f32) * p["D"].to(f32)[None, None, :, None]
-    y = _gated_norm(p, y.reshape(Bsz, S, d_inner), z, cfg)
+    y = shard_act(_gated_norm(p, y.reshape(Bsz, S, d_inner), z, cfg), "batch", "seq", "act_heads")
     out = y.to(dt_) @ p["out_proj"].to(dt_)
     if return_carry:
         return out, (state, final_conv)

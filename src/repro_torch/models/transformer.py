@@ -48,7 +48,8 @@ from repro_torch.models.layers import (
     sinusoidal_positions,
 )
 from repro_torch.models.moe import apply_moe, init_moe
-from repro_torch.utils.tree import tree_map
+from repro_torch.sharding import shard_act
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 
 def layer_kinds(cfg: ModelConfig):
@@ -218,14 +219,154 @@ def init_lm_cache(cfg: ModelConfig, batch: int, max_seq: int, device):
 
 def _readout(params, x, cfg: ModelConfig):
     if cfg.tie_embeddings:
-        return logits_from_embedding(params["embedding"], apply_norm(params["final_norm"], x, cfg))
-    return _head(params, x, cfg)
+        logits = logits_from_embedding(params["embedding"],
+                                       apply_norm(params["final_norm"], x, cfg))
+    else:
+        logits = _head(params, x, cfg)
+    return shard_act(logits, *(("batch",) + ("seq",) * (logits.dim() - 2) + ("act_mlp",)))
 
 
 def _head(params, x, cfg: ModelConfig):
     """The final norm, then the untied ``lm_head``."""
     x = apply_norm(params["final_norm"], x, cfg)
     return x @ params["lm_head"]["w"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rematerialisation (the reference's ``jax.checkpoint`` around a block)
+
+
+def _rebuild(tree, leaves):
+    """``tree``'s structure with ``leaves`` (an iterator, in
+    ``tree_leaves`` order: sorted dict keys, list indices) at its leaves."""
+    if isinstance(tree, dict):
+        return {k: _rebuild(tree[k], leaves) for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [_rebuild(t, leaves) for t in tree]
+    return next(leaves)
+
+
+_MATMULS = {torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__}
+
+
+def _is_weight_product(func, args) -> bool:
+    """A product with no batch dims: ``x @ w`` with a 2-D right operand,
+    what ``checkpoint_dots_with_no_batch_dims`` saves (the attention
+    einsums and the experts' bmm have batch dims and are recomputed)."""
+    return func in _MATMULS and len(args) == 2 and args[1].dim() == 2 and args[0].dim() >= 2
+
+
+class _RecordProducts(torch.overrides.TorchFunctionMode):
+    """Keeps the output of every weight product, in call order."""
+
+    def __init__(self):
+        super().__init__()
+        self.outputs = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if _is_weight_product(func, args):
+            self.outputs.append(out)
+        return out
+
+
+class _ReplayProducts(torch.overrides.TorchFunctionMode):
+    """Gives the i-th weight product its saved output, with the product's
+    gradient, instead of computing it again."""
+
+    def __init__(self, saved):
+        super().__init__()
+        self.saved = iter(saved)
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if _is_weight_product(func, args):
+            return _SavedProduct.apply(args[0], args[1], next(self.saved))
+        return func(*args, **(kwargs or {}))
+
+
+class _SavedProduct(torch.autograd.Function):
+    """``x @ w`` whose value was kept: returns it, and in backward gives
+    ``g @ w.T`` and ``x.T @ g``."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, w, saved):
+        return saved.view_as(saved)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, _ = inputs
+        ctx.save_for_backward(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = g @ w.T
+        gw = x.reshape(-1, x.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+        return gx, gw, None
+
+
+class _Remat(torch.autograd.Function):
+    """``run(*consts, *tensors) -> (x, aux)`` keeping only its inputs
+    (and, with ``save_products``, the outputs of its weight products) for
+    backward, which runs it again through ``torch.func.vjp`` over
+    ``tensors``. ``consts`` (the positions) get no gradient; they are
+    inputs, not closure captures, because a generated vmap rule cannot
+    see captured tensors. Written for ``torch.func`` (``setup_context``,
+    a generated vmap rule): the port's train step takes gradients with
+    ``grad_and_value``, under which ``torch.utils.checkpoint`` does not
+    run."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(run, save_products, n_const, *tensors):
+        if not save_products:
+            return run(*tensors)
+        with _RecordProducts() as rec:
+            out = run(*tensors)
+        return (*out, *rec.outputs)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        run, save_products, n_const, *tensors = inputs
+        ctx.run, ctx.n_const, ctx.n_in = run, n_const, len(tensors)
+        ctx.save_for_backward(*tensors, *output[2:])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        saved = ctx.saved_tensors
+        consts, tensors = saved[:ctx.n_const], saved[ctx.n_const:ctx.n_in]
+        products = saved[ctx.n_in:]
+
+        def run(*t):
+            if not products:
+                return ctx.run(*consts, *t)
+            with _ReplayProducts(products):
+                return ctx.run(*consts, *t)
+        _, vjp_fn = torch.func.vjp(run, *tensors)
+        # vjp's gradients are differentiable and would keep the recomputed
+        # block's graph, and so its activations, alive to the end of the
+        # backward pass
+        g_in = [None if g is None else g.detach() for g in vjp_fn(tuple(grads[:2]))]
+        return (None, None, None, *([None] * ctx.n_const), *g_in)
+
+
+def _maybe_remat(fn, cfg: ModelConfig):
+    """``fn(p, x, positions) -> (x, aux)`` under ``cfg.remat``: ``"none"``
+    as it is, ``"full"`` keeping only the block's inputs for backward (the
+    reference's ``jax.checkpoint``), ``"dots"`` keeping also the outputs
+    of its weight products (``checkpoint_dots_with_no_batch_dims``)."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"remat must be none, full or dots, got {cfg.remat!r}")
+
+    def rematted(p, x, positions):
+        def run(positions_, x_, *leaves):
+            return fn(_rebuild(p, iter(leaves)), x_, positions_)
+        out = _Remat.apply(run, cfg.remat == "dots", 1, positions, x, *tree_leaves(p))
+        return out[0], out[1]
+    return rematted
 
 
 def lm_forward(params, batch, cfg: ModelConfig):
@@ -239,10 +380,14 @@ def lm_forward(params, batch, cfg: ModelConfig):
         x = torch.cat([batch["vision_embed"].to(x.dtype), x], dim=1)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    x = shard_act(x, "batch", "seq", "embed")
     aux_total = torch.zeros((), device=x.device)
     for kind, p, _ in _each_layer(params, None, cfg):
-        x, _, aux = apply_block(p, x, cfg, kind, positions=positions,
-                                sliding_window=cfg.sliding_window)
+        def block(p_, x_, positions_, kind=kind):
+            y, _, aux_ = apply_block(p_, x_, cfg, kind, positions=positions_,
+                                     sliding_window=cfg.sliding_window)
+            return y, aux_
+        x, aux = _maybe_remat(block, cfg)(p, x, positions)
         aux_total = aux_total + aux
     logits = _readout(params, x, cfg)
     if cfg.family == "vlm":
@@ -253,7 +398,7 @@ def lm_forward(params, batch, cfg: ModelConfig):
 def lm_decode_step(params, tokens, caches, pos, cfg: ModelConfig):
     """tokens (B,1) int; pos a scalar or (B,) per-row positions.
     Returns (logits (B,1,V), caches), the caches written in place."""
-    x = apply_embedding(params["embedding"], tokens, cfg)
+    x = shard_act(apply_embedding(params["embedding"], tokens, cfg), "batch", "seq", "embed")
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     for kind, p, cache in _each_layer(params, caches, cfg):
         x, _, _ = apply_block(p, x, cfg, kind, cache=cache, pos=pos,
@@ -284,7 +429,7 @@ def lm_prefill(params, tokens, caches, pos0: int, cfg: ModelConfig):
     the stack writing each layer's k, v into the cache (in place).
     Returns (logits (B,C,V), caches); the caller picks the row of each
     request's last real prompt token."""
-    x = apply_embedding(params["embedding"], tokens, cfg)
+    x = shard_act(apply_embedding(params["embedding"], tokens, cfg), "batch", "seq", "embed")
     for kind, p, cache in _each_layer(params, caches, cfg):
         x, _ = _prefill_block(p, x, cache, pos0, cfg, kind)
     return _readout(params, x, cfg), caches

@@ -12,8 +12,9 @@ from __future__ import annotations
 import torch
 from torch.func import grad_and_value
 
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, argmax_last
 from repro_torch.optim.optimizers import Optimizer
+from repro_torch.sharding import shard_act
 from repro_torch.utils.tree import tree_map
 
 
@@ -30,7 +31,7 @@ def make_train_step(model: Model, opt: Optimizer, *, microbatches: int = 0):
         n = microbatches
         g_sum = m_sum = None
         for i in range(n):
-            mb = tree_map(lambda x: _split(x, n)[i], batch)
+            mb = tree_map(lambda x: _microbatch(x, n, i), batch)
             grads, (_, metrics) = grad_fn(params, mb)
             if g_sum is None:
                 g_sum, m_sum = grads, metrics
@@ -50,11 +51,14 @@ def make_train_step(model: Model, opt: Optimizer, *, microbatches: int = 0):
     return train_step
 
 
-def _split(x: torch.Tensor, n: int) -> torch.Tensor:
-    """(B, ...) -> (n, B/n, ...)."""
+def _microbatch(x: torch.Tensor, n: int, i: int) -> torch.Tensor:
+    """Rows ``i*B/n .. (i+1)*B/n - 1`` of (B, ...): the i-th of n equal
+    microbatches (a view), placed on the batch axis under a placement
+    context."""
     if x.shape[0] % n:
         raise ValueError(f"a batch of {x.shape[0]} rows does not split into {n} microbatches")
-    return x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))
+    m = x.shape[0] // n
+    return shard_act(x.narrow(0, i * m, m), "batch", *([None] * (x.dim() - 1)))
 
 
 def make_eval_step(model: Model):
@@ -72,7 +76,7 @@ def make_serve_step(model: Model):
     def serve_step(params, tokens, cache, pos):
         with torch.no_grad():
             logits, cache = model.decode_step(params, tokens, cache, pos)
-        return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32), logits, cache
+        return argmax_last(logits[:, -1, :]).to(torch.int32), logits, cache
     return serve_step
 
 

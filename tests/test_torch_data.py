@@ -41,3 +41,19 @@ def test_make_dr_swarm_data_is_bitwise_the_reference(seed, size, scale):
             for x, y in zip(a[split], b[split]):
                 assert x.dtype == y.dtype
                 np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("n,batch", [(10, 4), (12, 4), (3, 8)])
+def test_batch_iterator_is_bitwise_the_references(n, batch):
+    """``batch_iterator``: one shuffled epoch, the tail filled from the
+    start of the permutation (a split smaller than the batch fills only
+    up to twice its size, as the reference does), bitwise the
+    reference's on the same seed."""
+    X = np.arange(n * 3, dtype=np.float32).reshape(n, 3)
+    y = np.arange(n, dtype=np.int32)
+    got = list(dr.batch_iterator(X, y, batch, np.random.default_rng(5)))
+    want = list(jax_dr.batch_iterator(X, y, batch, np.random.default_rng(5)))
+    assert len(got) == len(want) == -(-n // batch)
+    for (a, b), (c, d) in zip(got, want):
+        assert a.shape == (min(batch, 2 * n), 3)
+        assert np.array_equal(a, c) and np.array_equal(b, d)

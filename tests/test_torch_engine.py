@@ -225,3 +225,26 @@ def test_trainer_without_device_raises_where_cuda_is_absent(clients, monkeypatch
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SwarmTrainer(build_model(get_config(ARCH)), clients, SwarmConfig(local_steps=1),
                      OptimizerConfig(name="adam", lr=LR))
+
+
+def test_fit_scanned_appends_fits_history_bitwise(clients):
+    """``SwarmTrainer.fit_scanned`` runs ``fit``'s rounds through
+    ``engine.run_rounds``: from one seed, the same history (round ids,
+    accuracies, assignments, centers, events, losses) and params,
+    bitwise; a second call continues the round count."""
+    def trainer():
+        return SwarmTrainer(build_model(get_config(ARCH)), clients,
+                            SwarmConfig(local_steps=1, rounds=1),
+                            OptimizerConfig(name="adam", lr=LR), seed=0, batch_size=BATCH,
+                            device="cpu")
+    a, b = trainer(), trainer()
+    ha, hb = a.fit(), b.fit_scanned()
+    assert len(ha) == len(hb) == 1
+    for x, y in zip(ha, hb):
+        assert (x.round, x.mean_val_acc, x.events, x.train_loss) == \
+            (y.round, y.mean_val_acc, y.events, y.train_loss)
+        assert np.array_equal(x.assignments, y.assignments)
+        assert np.array_equal(x.centers, y.centers)
+    for p, q in zip(tree_leaves(a.params), tree_leaves(b.params)):
+        assert torch.equal(p, q)
+    assert [h.round for h in b.fit_scanned(1)] == [0, 1]

@@ -255,9 +255,12 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
             k_decode.flash_decode.launches) == before
 
 
-def test_other_devices_go_to_the_kernels_which_refuse_them():
+def test_other_devices_go_to_the_kernels_which_refuse_them(monkeypatch):
     """No quiet fallback: a tensor that is not on the CPU reaches the
-    kernel wrapper, which raises unless it is on a CUDA device."""
+    kernel wrapper, which raises unless it is on a CUDA device. The
+    attention kernels are dispatcher ops, which give a ``meta`` tensor
+    its output's shape (the dry-run's shape propagation) without running
+    the plain version or the kernel."""
     with pytest.raises(ValueError, match="CUDA"):
         ops.param_stats_batched(torch.empty((2, 3), device="meta"))
     with pytest.raises(ValueError, match="CUDA"):
@@ -270,9 +273,15 @@ def test_other_devices_go_to_the_kernels_which_refuse_them():
         ops.kmeans_assign(torch.empty((2, 3), device="meta"), torch.empty((1, 3), device="meta"),
                           torch.empty((), dtype=torch.int32, device="meta"))
     meta = torch.empty((2, 4, 1, 64), device="meta")
-    with pytest.raises(ValueError, match="CUDA"):
-        ops.flash_decode(meta, torch.empty((2, 2, 8, 64), device="meta"),
-                         torch.empty((2, 2, 8, 64), device="meta"), 3)
+
+    def refuse(*a, **k):
+        raise AssertionError("a meta tensor reached the plain version")
+    monkeypatch.setattr(ref, "decode_attention", refuse)
+    before = k_decode.flash_decode.launches
+    out = ops.flash_decode(meta, torch.empty((2, 2, 8, 64), device="meta"),
+                           torch.empty((2, 2, 8, 64), device="meta"), 3)
+    assert out.device.type == "meta" and out.shape == meta.shape
+    assert k_decode.flash_decode.launches == before
     with pytest.raises(ValueError, match="CUDA"):
         k_decode.flash_decode(torch.zeros(2, 4, 1, 64), torch.zeros(2, 2, 8, 64),
                               torch.zeros(2, 2, 8, 64), 3)
@@ -404,3 +413,39 @@ def test_library_path_names_source_hash():
     p = _build.library_path("param_stats")
     assert p.parent == _build.BUILD_DIR and p.name.startswith("libparam_stats-")
     assert p.suffix == ".so" and p != _build.library_path("kmeans_assign")
+
+
+@pytest.mark.parametrize("shape", [(7,), (33, 65), (3, 5, 17)])
+def test_param_stats_one_tensor_matches_the_reference(shape):
+    """``ops.param_stats`` (K1 at N = 1) against the reference's
+    ``ops.param_stats`` (its Pallas kernel in interpret mode) and
+    ``diststats.tensor_stats``, and the port's ``tensor_stats`` against
+    the reference's, fp32 within 1e-6."""
+    from repro.core import diststats as jax_diststats
+    from repro_torch.core import diststats
+    x = np.random.default_rng(len(shape)).normal(1.0, 2.0, size=shape).astype(np.float32)
+    m, v = ops.param_stats(torch.from_numpy(x))
+    jm, jv = jax_ops.param_stats(jnp.asarray(x))
+    tm, tv = diststats.tensor_stats(torch.from_numpy(x))
+    rm, rv = jax_diststats.tensor_stats(jnp.asarray(x))
+    assert m.shape == v.shape == ()
+    for got, want in ((m, jm), (v, jv), (tm, rm), (tv, rv), (m, rm), (v, rv)):
+        np.testing.assert_allclose(float(got), float(np.asarray(want).reshape(())), rtol=1e-6,
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("k_active", [None, 2, 0])
+def test_kmeans_assign_matches_the_references(k_active):
+    """``core.kmeans.assign`` (K2's plain version on a CPU tensor) against
+    the reference's ``core.kmeans.assign``, with and without
+    ``k_active``: equal ids."""
+    import importlib
+    jax_kmeans = importlib.import_module("repro.core.kmeans")
+    kmeans = importlib.import_module("repro_torch.core.kmeans")
+    rng = np.random.default_rng(7)
+    X = rng.normal(size=(40, 12)).astype(np.float32)
+    C = X[[3, 17, 29, 31]] + 0.01
+    got = kmeans.assign(torch.from_numpy(X), torch.from_numpy(C), k_active)
+    want = jax_kmeans.assign(jnp.asarray(X), jnp.asarray(C), k_active)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
