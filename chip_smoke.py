@@ -214,7 +214,20 @@ exits non-zero and prints no result. It imports nothing of JAX. Phases:
    shapes against its plain version, timed beside it and SDPA, with its
    bound in the bytes of the keys the mask keeps; (c) ``kmeans.assign``
    and ``ops.param_stats`` against their plain versions at phase 3's
-   shapes.
+   shapes;
+22. the LM fleet placed by the table (``swarm_fleet.fleet_setup(spmd=
+   "auto")`` on a (1,1,1) ``("pod", "data", "model")`` mesh, one NCCL
+   rank): granite-3-2b at full width cut to 2 layers with phase 15's
+   settings; (d) first, the census of one plain round step on ``meta``
+   under a fake world of one; (a) 3 rounds with ``host_coordinator``
+   after each, K1 = 3 and K2 = 63 launches asserted, seconds a round
+   step, peak memory; (b) the same rounds, inputs and decisions through
+   ``spmd="shard_map"``: max |param diff| printed under adam and
+   asserted within 1e-6 under sgd at the same lr; (c) the stat upload's
+   shard merge on the card, each leaf cut into 2 even and 3 uneven
+   shards, against the plain stats of the whole leaf; (d) a plain round
+   step's FLOPs on the card asserted equal to the census; (e) a profiled
+   round step's busy share and the Eq. 2 census.
 
 ``python3 chip_smoke.py --ssm-depth-probe 36 37 38 39`` runs only phase
 18 (e)'s mamba2 round at each depth, alone, and prints each peak up to
@@ -3687,6 +3700,285 @@ def dryrun_phase(torch, dev, card: str) -> dict:
     return out
 
 
+# --- phase 22: the LM fleet placed by the table (fleet_setup(spmd="auto"))
+
+
+PLACED_ROUNDS = 3
+PLACED_TOL = 1e-6                 # auto against shard_map, max |param diff| under sgd
+PLACED_MERGE_RTOL = 1e-5          # the shard merge against the whole leaf's plain stats
+PLACED_SPLITS = ((0.5,), (0.2, 0.5))   # cut points of a leaf's row: 2 even, 3 uneven shards
+
+
+def _placed_state(torch, model, opt, dev, place=None):
+    """A thunk of phase 22's fresh client stack: ``LM_CLIENTS`` models
+    from one generator seeded 0 on the card and adam's zero state, each
+    passed through ``place`` if given."""
+    from repro_torch.core.engine import init_opt_state
+    from repro_torch.utils.tree import tree_stack
+
+    def state():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        sp = tree_stack([model.init(gen) for _ in range(LM_CLIENTS)])
+        so = init_opt_state(opt, sp)
+        return (sp, so) if place is None else (place(sp), place(so))
+
+    return state
+
+
+def _placed_rounds(torch, prog, state, batches, w, decisions=None, coordinate=False):
+    """``PLACED_ROUNDS`` fleet rounds of ``prog`` (its val stack bound)
+    from ``state()``'s fresh (params, optimizer state), which nothing
+    else holds: round r applies ``decisions[r]`` (singletons first), or
+    with ``coordinate`` the host coordinator's decision from round r-1's
+    stats. Returns (sp, so, decisions, stats a round, seconds a round)."""
+    import numpy as np
+
+    from repro_torch.launch import fleet_driver as fd
+    dev = w.device
+    sp, so = state()
+    decisions = list(decisions or [np.arange(LM_CLIENTS, dtype=np.int32)])
+    stats, secs = [], []
+    for r in range(PLACED_ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sp, so, out = prog.step(sp, so, batches[r], LM_LR,
+                                torch.as_tensor(decisions[r], device=dev), w)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        stats.append(out.stats.cpu())
+        assert math.isfinite(float(out.train_loss)), "placed fleet loss is not finite"
+        if coordinate:
+            a, _, _ = fd.host_coordinator(out.stats, out.val_acc, k=LM_CLUSTERS, p1=0.9, p2=0.8,
+                                          kmeans_iters=KMEANS_ITERS, seed=FLEET_SEED,
+                                          round_idx=r)
+            decisions.append(a)
+    return sp, so, decisions, stats, secs
+
+
+def _whole(tree):
+    from repro_torch.sharding.rules import is_placed
+    from repro_torch.utils.tree import tree_map
+    return tree_map(lambda x: x.full_tensor() if is_placed(x) else x, tree)
+
+
+def check_shard_merge(torch, leaves) -> float:
+    """Phase 22 (c): each leaf's row cut by hand into 2 even and 3 uneven
+    shards, K1 over each shard set on the card (one call a set),
+    ``diststats.merge_shard_stats``, against the plain version over the
+    whole leaves: |mean gap| within ``PLACED_MERGE_RTOL`` of the row's
+    scale (|mean| + std), |var gap| within it of the var. Returns the
+    largest gap so scaled."""
+    from repro_torch.core.diststats import merge_shard_stats
+    from repro_torch.kernels import ops, param_stats, ref
+    flat = [x.reshape(x.shape[0], -1) for x in leaves]
+    want = ref.param_stats_leaves(flat)
+    worst = 0.0
+    for cuts in PLACED_SPLITS:
+        parts, counts = [], []
+        for x in flat:
+            n = x.shape[1]
+            edges = [0] + [int(n * c) for c in cuts] + [n]
+            parts.append([x[:, a:b].contiguous() for a, b in zip(edges, edges[1:])])
+            counts.append([b - a for a, b in zip(edges, edges[1:])])
+        before = param_stats.param_stats_leaves.launches
+        stats = torch.stack([ops.param_stats_leaves([p[i] for p in parts])
+                             for i in range(len(cuts) + 1)])
+        assert param_stats.param_stats_leaves.launches - before == len(cuts) + 1, \
+            "the shard merge's K1 calls did not launch the kernel"
+        cnt = torch.tensor(counts, device=stats.device).T[:, None, :].expand(-1, stats.shape[1], -1)
+        got = merge_shard_stats(stats, cnt)
+        torch.cuda.synchronize()
+        scale = want[..., 0].abs() + want[..., 1].clamp_min(0).sqrt()
+        gm = ((got[..., 0] - want[..., 0]).abs() / scale.clamp_min(1e-30)).max().item()
+        gv = ((got[..., 1] - want[..., 1]).abs()
+              / want[..., 1].clamp_min(1e-30)).max().item()
+        log(f"[placed c] {len(cuts) + 1} shards a leaf (cuts {cuts}) over {len(flat)} leaves x "
+            f"{flat[0].shape[0]} clients: mean gap {gm:.3e} of |mean| + std, var gap {gv:.3e} "
+            f"relative")
+        assert gm <= PLACED_MERGE_RTOL and gv <= PLACED_MERGE_RTOL, \
+            f"shard merge vs the whole leaf: {gm}, {gv}"
+        worst = max(worst, gm, gv)
+    return worst
+
+
+def placed_fleet_phase(torch, dev, lm_data, card: str) -> dict:
+    """Phase 22: the LM fleet placed by the table on one NCCL rank, a
+    (1,1,1) pod mesh, granite-3-2b at full width cut to ``LM_LAYERS``
+    layers with phase 15's settings (``LM_CLIENTS`` token clients, k
+    ``LM_CLUSTERS``, adam lr ``LM_LR``, batch ``LM_BATCH``,
+    ``LM_LOCAL_STEPS`` local steps, ids below ``LM_DATA_VOCAB``).
+    (d)'s census first, on ``meta`` under a fake world of one (a process
+    group is process-wide); then (a) ``PLACED_ROUNDS`` rounds of
+    ``fleet_setup(spmd="auto")`` with ``host_coordinator`` after each:
+    K1 = 1 and K2 = ``KMEANS_ITERS + 1`` launches a round asserted, ms a
+    round step and peak memory; (b) the same rounds, inputs and
+    decisions through ``spmd="shard_map"``: max |param diff| printed
+    under adam, and asserted within ``PLACED_TOL`` under sgd at the same
+    lr, both layouts run again (the per-client step's GEMMs and the
+    vmapped step's round bf16 differently, and adam's first steps, lr *
+    sign(g), turn that into moves of up to lr: PERF.md §6); (c)
+    the upload's shard merge on the card (:func:`check_shard_merge`);
+    (d) a plain round step's FLOPs on the card (``launch.dryrun.Census``)
+    equal to the census; (e) a profiled round step's busy share and the
+    Eq. 2 census. Returns the launches of (a) and the numbers printed."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import OptimizerConfig
+    from repro_torch.core.engine import stack_eval_split
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import fleet_driver as fd
+    from repro_torch.launch.mesh import make_fleet_mesh, make_pod_mesh
+    from repro_torch.launch.swarm_fleet import fleet_round_census, fleet_setup
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.utils.collectives import CENSUS
+
+    t0 = time.perf_counter()
+    cfg = _lm_config()
+    model = build_model(cfg)
+    rows = LM_LOCAL_STEPS * LM_BATCH
+
+    def opt_cfg(name="adam"):
+        return OptimizerConfig(name=name, lr=LM_LR)
+
+    # (d) the census of one plain round step on meta, at world 1
+    t1 = time.perf_counter()
+    with dryrun.fake_world(1):
+        rec = fleet_round_census(cfg, opt_cfg(), make_pod_mesh((1, 1, 1)),
+                                 n_clients=LM_CLIENTS, per_client_batch=rows, seq=LM_SEQ_LEN,
+                                 k=LM_CLIENTS, n_local_steps=LM_LOCAL_STEPS)
+    log(f"[placed d] census on meta at world 1: {rec['flops']:.6e} FLOPs, {rec['bytes']:.4e} op "
+        f"bytes, tags {rec['tags']}, by axis {json.dumps(rec['by_axis'])}, argument bytes "
+        f"{rec['memory']['argument_bytes']:,} ({time.perf_counter() - t1:.1f} s)")
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    fm = make_fleet_mesh(LM_CLIENTS, device=dev)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    assert fm.backend == backend and fm.world == 1, f"fleet mesh {fm.backend} x {fm.world}"
+    dm = make_pod_mesh((1, 1, 1))
+    val = stack_eval_split(cfg, lm_data, "val", batch=LM_BATCH, device=dev)
+    w = torch.as_tensor([float(c["n_train"]) for c in lm_data], device=dev)
+    batches = [fd._sample_round_batch(cfg, lm_data, rows, FLEET_SEED, r, device=dev)
+               for r in range(PLACED_ROUNDS)]
+    out = {}
+
+    def auto(name):
+        return fleet_setup(model, make_optimizer(opt_cfg(name)), dm, k=LM_CLIENTS,
+                           n_local_steps=LM_LOCAL_STEPS, with_eval=True, spmd="auto")
+
+    def with_val(prog):
+        step = prog.step
+        return prog._replace(step=lambda sp, so, b, lr, c, ww: step(sp, so, b, val, lr, c, ww))
+
+    # (a) three coordinated rounds, launch counts from them alone
+    prog = auto("adam")
+    torch.cuda.reset_peak_memory_stats()
+    _zero_coordinator_counts()
+    mark = CENSUS.mark()
+    sp, so, decisions, stats_a, secs = _placed_rounds(
+        torch, with_val(prog), _placed_state(torch, model, make_optimizer(opt_cfg()), dev,
+                                             prog.place), batches, w, coordinate=True)
+    launches = _coordinator_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"param_stats_batched": PLACED_ROUNDS, "kmeans_assign": PLACED_ROUNDS *
+            (KMEANS_ITERS + 1), "kmeans_assign with k_active": 0}
+    entries = CENSUS.since(mark)
+    eq2 = [e for e in entries if e.tag == "eq2"]
+    n_leaves = len(_leaves(sp))
+    log(f"[placed a] {cfg.arch_id} at {cfg.n_layers} layers, {LM_CLIENTS} clients on a (1,1,1) "
+        f"pod mesh over {fm.backend}: round steps {[round(x, 4) for x in secs]} s, peak "
+        f"{peak / 1e9:.2f} GB, decisions {[list(map(int, d)) for d in decisions]}, launches "
+        f"{launches} (expected {want}); {card}")
+    assert launches == want, f"placed fleet launch counts {launches} != {want}"
+    assert len(eq2) == PLACED_ROUNDS * (1 + n_leaves), f"{len(eq2)} Eq. 2 all-reduces"
+    final_a = [x.cpu() for x in _leaves(_whole(sp))]
+    out.update(secs=secs, peak=peak, launches=launches,
+               eq2_count=len(eq2) // PLACED_ROUNDS,
+               eq2_bytes=sum(e.nbytes for e in eq2) // PLACED_ROUNDS,
+               merge=[e for e in entries if e.tag == "stats_merge"][:1])
+
+    # (d) one plain round step on the card under the census, FLOPs equal
+    plain = fleet_setup(model, make_optimizer(opt_cfg()), dm, k=LM_CLIENTS,
+                        n_local_steps=LM_LOCAL_STEPS, spmd="auto")
+    census = dryrun.Census()
+    with census:
+        plain.step(sp, so, batches[0], LM_LR, torch.as_tensor(decisions[-1], device=dev), w)
+    torch.cuda.synchronize()
+    log(f"[placed d] a plain round step on the card: {census.flops:.6e} FLOPs (census on meta "
+        f"{rec['flops']:.6e}), {census.bytes:.4e} op bytes (meta {rec['bytes']:.4e})")
+    assert census.flops == rec["flops"], f"card FLOPs {census.flops} != meta {rec['flops']}"
+    out["flops"] = census.flops
+
+    # (e) a profiled round step and the Eq. 2 census
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        with_val(prog).step(sp, so, batches[0], LM_LR,
+                            torch.as_tensor(decisions[-1], device=dev), w)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    busy_us, spans = device_busy_us(prof)
+    out["busy"], out["profiled_ms"] = busy_us / 1e3 / wall_ms, wall_ms
+    log(f"[placed e] profiled round step {wall_ms:.1f} ms wall: {len(spans)} device events, busy "
+        f"{busy_us / 1e3:.1f} ms ({out['busy']:.1%}); Eq. 2 census {out['eq2_count']} "
+        f"all-reduces of {out['eq2_bytes']:,} B a round (world 1: counted, no byte moves), "
+        f"stat merge {out['merge']}")
+    for line in prof.key_averages().table(sort_by="self_device_time_total",
+                                          row_limit=10).splitlines():
+        log(f"[placed e] {line}")
+    del sp, so, prof
+    torch.cuda.empty_cache()
+
+    # (c) the shard merge over the first round's upload shapes
+    fresh = _placed_state(torch, model, make_optimizer(opt_cfg()), dev)()[0]
+    out["merge_err"] = check_shard_merge(torch, [x for x in _leaves(fresh)
+                                                 if x.is_floating_point()])
+    del fresh
+    torch.cuda.empty_cache()
+
+    # (b) the same rounds and decisions through shard_map
+    def shard_map_rounds(name):
+        opt = make_optimizer(opt_cfg(name))
+        prog_b = fleet_setup(model, opt, fm, k=LM_CLIENTS, n_local_steps=LM_LOCAL_STEPS,
+                             with_eval=True)
+        sp, so, _, stats, secs = _placed_rounds(torch, with_val(prog_b),
+                                                _placed_state(torch, model, opt, dev), batches,
+                                                w, decisions=decisions)
+        del so
+        return [x.cpu() for x in _leaves(sp)], stats, secs
+
+    def max_diff(a, b):
+        return max((x.float() - y.float()).abs().max().item() for x, y in zip(a, b))
+
+    final_b, stats_b, secs_b = shard_map_rounds("adam")
+    diff_adam = max_diff(final_a, final_b)
+    sdiff = max((x - y).abs().max().item() for x, y in zip(stats_a, stats_b))
+    log(f"[placed b] shard_map round steps {[round(x, 4) for x in secs_b]} s; adam (phase 15's "
+        f"settings): max |param diff| auto vs shard_map {diff_adam:.3e}, max |stats diff| "
+        f"{sdiff:.3e} (not asserted: adam's lr * sign(g) steps amplify bf16 GEMM rounding)")
+    del final_a, final_b
+    prog_sgd = auto("sgd")
+    sp, so, _, _, _ = _placed_rounds(
+        torch, with_val(prog_sgd), _placed_state(torch, model, make_optimizer(opt_cfg("sgd")),
+                                                 dev, prog_sgd.place),
+        batches, w, decisions=decisions)
+    final_a = [x.cpu() for x in _leaves(_whole(sp))]
+    del sp, so
+    torch.cuda.empty_cache()
+    final_b, _, _ = shard_map_rounds("sgd")
+    diff_sgd = max_diff(final_a, final_b)
+    log(f"[placed b] sgd at lr {LM_LR}, the same rounds and decisions: max |param diff| auto vs "
+        f"shard_map {diff_sgd:.3e} (tol {PLACED_TOL})")
+    assert diff_sgd <= PLACED_TOL, f"placed and shard_map fleets differ by {diff_sgd}"
+    out.update(diff_adam=diff_adam, diff_sgd=diff_sgd, shard_map_secs=secs_b)
+    fm.close()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[placed] phase 22 in {out['phase_s']:.1f} s, launches {out['launches']}")
+    return out
+
+
 def _kernel_line(name, source, replaces, launches, err, times) -> dict:
     """One entry of the ``{"kernels": [...]}`` line; ``times`` is a
     timing function's (ms, plain_ms, library_ms, bound_ms, bound_by)."""
@@ -3983,16 +4275,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     dr = dryrun_phase(torch, dev, card)
 
+    # --- phase 22: the LM fleet placed by the table, launch counts from
+    # its coordinated rounds alone
+    torch.cuda.empty_cache()
+    pf = placed_fleet_phase(torch, dev, lm_data, card)
+
     kernels = [
         _kernel_line("param_stats_batched", "param_stats", "src/repro/kernels/param_stats.py:92",
                      sum(n["param_stats_batched"]
                          for n in (launches, g_launches, c_launches, b_launches, h_launches,
-                                   la, lb, ssm["launches"], fl["launches"])),
+                                   la, lb, ssm["launches"], fl["launches"], pf["launches"])),
                      max(k1_err, fl["k1_err"]), k1),
         _kernel_line("kmeans_assign", "kmeans_assign", "src/repro/kernels/kmeans_assign.py:44",
                      sum(n["kmeans_assign"]
                          for n in (launches, g_launches, c_launches, b_launches, h_launches,
-                                   la, lb, ssm["launches"], fl["launches"])),
+                                   la, lb, ssm["launches"], fl["launches"], pf["launches"])),
                      k2_err, k2),
         _kernel_line("flash_decode", "flash_decode", "src/repro/kernels/flash_decode.py:93",
                      k3_launches + k3_lm + k3_moe + ssm["k3"] + ev["k3"] + dr["k3"],
@@ -4047,10 +4344,13 @@ def main() -> int:
         f"{fl['ckpt_bytes']} B; dry-run probe (phase 21, {dr['seconds']:.1f} s): train_4k "
         f"depth-2 peaks remat full / none {dr['peaks'][0] / 1e9:.2f} / "
         f"{dr['peaks'][1] / 1e9:.2f} GB, K3 at the decode probes "
-        f"{ {k: round(r['times'][0], 4) for k, r in dr['k3_probe'].items()} } ms; K1 and K2 "
+        f"{ {k: round(r['times'][0], 4) for k, r in dr['k3_probe'].items()} } ms; "
+        f"placed fleet (phase 22, {pf['phase_s']:.1f} s): round steps {[round(x, 4) for x in pf['secs']]} s, peak "
+        f"{pf['peak'] / 1e9:.2f} GB, busy {pf['busy']:.1%} of a profiled round step, auto vs "
+        f"shard_map {pf['diff_adam']:.3e} under adam, {pf['diff_sgd']:.3e} under sgd; K1 and K2 "
         f"launches in the kernels "
-        f"line: phases 3, 11, 12, 13, 14 (its 4-pod fit and scaling axis), 15, 18 and 20 (the fleet's "
-        f"runs (a)-(c)); K3: phases "
+        f"line: phases 3, 11, 12, 13, 14 (its 4-pod fit and scaling axis), 15, 18, 20 (the fleet's "
+        f"runs (a)-(c)) and 22 (a); K3: phases "
         f"6, 16, 17, 18, 19 and 21; K3's max_abs_err over phases 5, 18, 19 and 21")
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -27,6 +27,7 @@ swarm) bundle.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field, replace
 from typing import Callable, Dict, Optional
 
@@ -220,3 +221,7 @@ def get_config(arch_id: str) -> ModelConfig:
     if arch_id not in REGISTRY:
         raise KeyError(f"unknown arch '{arch_id}'; known: {sorted(REGISTRY)}")
     return REGISTRY[arch_id]()
+
+
+def asdict(cfg) -> dict:
+    return dataclasses.asdict(cfg)

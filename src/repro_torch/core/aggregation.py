@@ -15,11 +15,17 @@ rank). ``group`` stands where the reference takes ``axis_name``. An
 Eq. 2 is then 1 + #leaves collectives, as the reference's one psum a
 leaf, each recorded in :data:`repro_torch.utils.collectives.CENSUS`
 under the tag ``"eq2"``.
+
+A placed leaf (a DTensor whose client axis is whole, the fleet's
+``spmd="auto"`` layout) is summed on this rank's shard and placed back
+as it was: each rank all-reduces its own shard's sums over ``group``
+(the pod group), and no leaf is gathered.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.sharding.rules import on_shard
 from repro_torch.utils.collectives import all_reduce_sum
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_weighted_sum
 
@@ -52,7 +58,7 @@ def _eq2(stacked_params, a, w, k: int, take=None, group=None):
         # receive = participated and the cluster aggregated something
         take = take & (cluster_tot[a] > 0.0)
 
-    def agg_leaf(leaf):
+    def agg_shard(leaf):
         lf = leaf.float()
         weighted = lf * wn.reshape((-1,) + (1,) * (lf.dim() - 1))
         sums = torch.zeros((k,) + lf.shape[1:], dtype=torch.float32,
@@ -64,7 +70,9 @@ def _eq2(stacked_params, a, w, k: int, take=None, group=None):
             return agg
         return torch.where(take.reshape((-1,) + (1,) * (leaf.dim() - 1)), agg, leaf)
 
-    return tree_map(agg_leaf, stacked_params)
+    # a placed leaf's client axis is whole on every rank, so its segment
+    # sums are this rank's shard of the whole leaf's
+    return tree_map(lambda leaf: on_shard(agg_shard, leaf), stacked_params)
 
 
 def cluster_fedavg(stacked_params, assignments, n_samples, k: int, group=None):

@@ -96,10 +96,12 @@ from repro_torch.core.kmeans import kmeans
 from repro_torch.data.dr import bucket_clients
 from repro_torch.models.model import Model
 from repro_torch.optim.optimizers import Optimizer
+from repro_torch.sharding.rules import (client_view, is_placed, on_shard, place_batch,
+                                        use_sharding, write_client)
 from repro_torch.train.steps import make_eval_step, make_train_step
 from repro_torch.utils.collectives import mean_over_ranks
 from repro_torch.utils.device import resolve_device
-from repro_torch.utils.tree import tree_map, tree_stack
+from repro_torch.utils.tree import tree_leaves, tree_map, tree_stack
 
 # --------------------------------------------------------------------- state
 
@@ -817,6 +819,74 @@ def local_phase(step, params, opt_state, lr, batches, n_active=None, present=Non
     return params, opt_state, torch.stack(losses)
 
 
+def _full(x):
+    """A DTensor's whole value as a plain tensor; a plain tensor as is."""
+    return x.full_tensor() if is_placed(x) else x
+
+
+def local_phase_placed(step, params, opt_state, lr, batches, mesh, rules, present=None):
+    """:func:`local_phase` on a placed stack (DTensor leaves on ``mesh``
+    whose client axis is whole, the fleet's ``spmd="auto"`` layout): the
+    unvmapped train step on each client in turn, its params and optimizer
+    state placed by the table, its batch (plain, whole on every rank)
+    split on its batch axis by ``rules``. ``torch.func.vmap`` does not
+    keep a DTensor's placements through the model (its batching rules
+    fold the client axis into split axes). Each client's result is
+    written into one new stack placed as the input (a copy of it under
+    ``present``, where an absent client's slot keeps its value), which
+    later steps read and write in place: a client's slot is read only by
+    its own step, and one client's transients live at a time. The loss
+    and the ``present`` selection are :func:`local_phase`'s."""
+    n = tree_leaves(params)[0].shape[0]
+    if present is not None:
+        pf = present.float()
+        scale = pf.shape[0] / torch.clamp(torch.sum(pf), min=1.0)
+    fresh = torch.empty_like if present is None else torch.clone
+    out_p = tree_map(lambda x: on_shard(fresh, x), params)
+    out_o = tree_map(lambda x: on_shard(fresh, x), opt_state)
+    src_p, src_o = params, opt_state
+    losses = []
+    for batch in batches:
+        loss_c = []
+        for c in range(n):
+            keep = None if present is None else present[c]
+            pc, oc, m = step(tree_map(lambda x: client_view(x, c), src_p),
+                             tree_map(lambda x: client_view(x, c), src_o),
+                             place_batch({k: v[c] for k, v in batch.items()}, mesh, rules), lr)
+            tree_map(lambda dst, x: write_client(dst, c, x, keep), out_p, pc)
+            tree_map(lambda dst, x: write_client(dst, c, x, keep), out_o, oc)
+            loss_c.append(_full(m["loss"]).detach())
+            del pc, oc, m
+        src_p, src_o = out_p, out_o
+        loss = torch.stack(loss_c)
+        losses.append(torch.mean(loss) if present is None else torch.mean(loss * pf) * scale)
+    return out_p, out_o, torch.stack(losses)
+
+
+def make_client_eval_placed(model: Model, mesh, rules):
+    """:func:`make_client_eval` on a placed stack: one client and one
+    microbatch at a time, its batch split on its batch axis as
+    :func:`local_phase_placed` splits a train batch."""
+    eval_step = make_eval_step(model)
+
+    def client_eval(params, batches):
+        n, n_batches = batches["labels"].shape[:2]
+        accs = []
+        for c in range(n):
+            pc = tree_map(lambda x: client_view(x, c), params)
+            hits = tot = 0.0
+            for j in range(n_batches):
+                bt = {k: v[c, j] for k, v in batches.items()}
+                acc = _full(eval_step(pc, place_batch(bt, mesh, rules))["acc"])
+                valid = torch.sum(bt["labels"] >= 0).float()
+                hits = hits + acc * valid
+                tot = tot + valid
+            accs.append(hits / torch.clamp(tot, min=1.0))
+        return torch.stack(accs)
+
+    return client_eval
+
+
 def make_client_eval(model: Model):
     """Per-client masked accuracy over stacked (N, n_batches, batch, ...)
     eval data: one vmapped eval per microbatch, adding acc * valid so a
@@ -1345,7 +1415,7 @@ def _seed_kw(seeds, p: int) -> dict:
 def make_fleet_round(model: Model, opt: Optimizer, k: int, n_local_steps: int = 1, *,
                      with_eval: bool = False, with_loss: bool = False, group=None,
                      with_churn: bool = False, hier_k_local: int = 0, hier_pods: int = 0,
-                     hier_kmeans_iters: int = 20):
+                     hier_kmeans_iters: int = 20, inner=None, rules=None):
     """The fleet round (counterpart of the reference's
     ``make_fleet_round``): the sim round's pieces reordered so that a
     driver closes the coordinator loop between calls. First Eq. 2 applies
@@ -1391,13 +1461,46 @@ def make_fleet_round(model: Model, opt: Optimizer, k: int, n_local_steps: int = 
       reference's key ``kmkey``). With ``group`` this rank is one pod,
       pod index = rank; with ``group=None`` the stack is ``hier_pods``
       equal contiguous pods.
+
+    ``inner`` (a ``DeviceMesh`` of the ranks that hold the same clients,
+    with the placement table's ``rules``) is the placed layout of
+    ``swarm_fleet.fleet_setup(spmd="auto")``: ``sparams`` and ``sopt``
+    are DTensors on ``inner`` whose client axis is whole
+    (``sharding.rules.distribute_stacked``), every other operand is plain
+    and whole on each rank of ``inner``. Eq. 2 sums each rank's shards
+    and all-reduces them over ``group``; the local phase and the eval run
+    one client at a time (:func:`local_phase_placed`), each client's batch
+    split over ``inner`` by ``rules``; the stat upload merges the shards'
+    statistics over ``inner``. The round runs under ``use_sharding(inner,
+    rules)``.
     """
     if with_eval and with_loss:
         raise ValueError("with_eval and with_loss are exclusive round surfaces")
     step = make_train_step(model, opt)
+    placed = inner is not None
 
     def pmean(x):
         return x if group is None else mean_over_ranks(x, group)
+
+    def run_local(sparams, sopt, lr, batches, present):
+        if placed:
+            return local_phase_placed(step, sparams, sopt, lr, batches, inner, rules,
+                                      present=present)
+        return local_phase(step, sparams, sopt, lr, batches, present=present)
+
+    def eval_fn():
+        return make_client_eval_placed(model, inner, rules) if placed else make_client_eval(model)
+
+    def surface(fn):
+        if not placed:
+            return fn
+
+        def round_step(*args):
+            from torch.distributed.tensor.experimental import implicit_replication
+            with implicit_replication(), use_sharding(inner, rules):
+                return fn(*args)
+
+        return round_step
 
     def body(sparams, sopt, batch, lr, clusters, weights, present=None, agg_present=None):
         # Eq. 2 on the incoming (previous-round) coordinator decision
@@ -1412,7 +1515,7 @@ def make_fleet_round(model: Model, opt: Optimizer, k: int, n_local_steps: int = 
         starts = [min(i * mb, n_b - mb) for i in range(n_local_steps)]
         batches = ({key: v[:, s:s + mb].contiguous() for key, v in batch.items()}
                    for s in starts)
-        sparams, sopt, losses = local_phase(step, sparams, sopt, lr, batches, present=present)
+        sparams, sopt, losses = run_local(sparams, sopt, lr, batches, present)
         return sparams, sopt, swarm_distribution_matrix(sparams), losses
 
     def churn_kw(masks):
@@ -1425,7 +1528,7 @@ def make_fleet_round(model: Model, opt: Optimizer, k: int, n_local_steps: int = 
             raise ValueError("hier_k_local selects its own eval surface — drop "
                              "with_eval/with_loss")
         kl = int(hier_k_local)
-        client_eval = make_client_eval(model)
+        client_eval = eval_fn()
 
         def pod_summary(stats, val_acc, weights, report, seed_kw, pod_idx):
             C, a = kmeans(stats, kl, hier_kmeans_iters, mask=report, **seed_kw)
@@ -1467,10 +1570,10 @@ def make_fleet_round(model: Model, opt: Optimizer, k: int, n_local_steps: int = 
                                                valsums=valsums, a_local=pc.to(torch.int32),
                                                mean_val=mean_val, train_loss=loss)
 
-        return round_step_hier
+        return surface(round_step_hier)
 
     if with_eval:
-        client_eval = make_client_eval(model)
+        client_eval = eval_fn()
 
         def round_step_eval(sparams, sopt, batch, val, lr, clusters, weights, *masks):
             sparams, sopt, stats, losses = body(sparams, sopt, batch, lr, clusters, weights,
@@ -1479,7 +1582,7 @@ def make_fleet_round(model: Model, opt: Optimizer, k: int, n_local_steps: int = 
             return sparams, sopt, FleetRoundOut(stats=stats, val_acc=val_acc,
                                                 train_loss=pmean(losses[-1]))
 
-        return round_step_eval
+        return surface(round_step_eval)
 
     if with_loss:
 
@@ -1488,11 +1591,11 @@ def make_fleet_round(model: Model, opt: Optimizer, k: int, n_local_steps: int = 
                                                 **churn_kw(masks))
             return sparams, sopt, stats, pmean(losses[-1])
 
-        return round_step_loss
+        return surface(round_step_loss)
 
     def round_step(sparams, sopt, batch, lr, clusters, weights, *masks):
         sparams, sopt, stats, _ = body(sparams, sopt, batch, lr, clusters, weights,
                                        **churn_kw(masks))
         return sparams, sopt, stats
 
-    return round_step
+    return surface(round_step)

@@ -44,10 +44,12 @@ def param_stats(x: torch.Tensor):
 
 def param_stats_leaves(leaves) -> torch.Tensor:
     """(N, T, 2) fp32 per-client [mean, var] of T client-stacked leaves
-    of one client axis: a list on the CPU takes the plain version, any
+    of one client axis: a list on the CPU takes the plain version, a list
+    on ``meta`` (the dry-run's) gets its output's shape from it, any
     other list the kernel (which refuses all but one CUDA device)."""
     leaves = list(leaves)
-    if leaves and all(x.device.type == "cpu" for x in leaves):
+    if leaves and (all(x.device.type == "cpu" for x in leaves)
+                   or all(x.device.type == "meta" for x in leaves)):
         return ref.param_stats_leaves(leaves)
     return _stats.param_stats_leaves(leaves)
 

@@ -196,13 +196,15 @@ class Census(TorchDispatchMode):
     tensor bytes of each op that is neither a view nor an allocation (an
     unfused count); ops on fake tensors, DTensor's own shape
     propagation, are not counted; ``collectives``
-    maps op -> {"count", "bytes"}, bytes of the collective's output."""
+    maps op -> {"count", "bytes"}, bytes of the collective's output, and
+    ``by_group`` process-group name -> op -> {"count", "bytes"}."""
 
     def __init__(self):
         super().__init__()
         self.flops = 0
         self.bytes = 0
         self.collectives = defaultdict(lambda: {"count": 0, "bytes": 0})
+        self.by_group = defaultdict(lambda: defaultdict(lambda: {"count": 0, "bytes": 0}))
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch._subclasses.fake_tensor import FakeTensor
@@ -217,9 +219,10 @@ class Census(TorchDispatchMode):
         name = str(packet)
         if "c10d" in name:
             if "wait" not in name and "wrap" not in name:
-                c = self.collectives[name.split(".")[-1]]
-                c["count"] += 1
-                c["bytes"] += _nbytes(out)
+                op = name.split(".")[-1]
+                for c in (self.collectives[op], self.by_group[_group_name(args)][op]):
+                    c["count"] += 1
+                    c["bytes"] += _nbytes(out)
             return out
         if packet in flop_registry:
             self.flops += int(flop_registry[packet](*args, **kwargs, out_val=out))
@@ -229,8 +232,25 @@ class Census(TorchDispatchMode):
 
     def record(self) -> dict:
         coll = {k: dict(v) for k, v in sorted(self.collectives.items())}
+        groups = {g: {k: dict(v) for k, v in sorted(ops_.items())}
+                  for g, ops_ in sorted(self.by_group.items())}
         return {"flops": float(self.flops), "bytes": float(self.bytes),
-                "coll": float(sum(v["bytes"] for v in coll.values())), "collectives": coll}
+                "coll": float(sum(v["bytes"] for v in coll.values())), "collectives": coll,
+                "by_group": groups}
+
+
+def _group_name(args) -> str:
+    """The process group a collective's arguments name: a functional
+    collective's last string argument, a ``c10d`` op's ProcessGroup."""
+    import torch.distributed as dist
+    for a in args:
+        if isinstance(a, torch.ScriptObject):
+            try:
+                return dist.ProcessGroup.unbox(a).group_name
+            except RuntimeError:
+                continue
+    names = [a for a in args if isinstance(a, str)]
+    return names[-1] if names else ""
 
 
 # ops that only allocate: no bytes move

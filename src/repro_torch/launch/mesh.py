@@ -13,7 +13,9 @@ a gloo group beside it.
 :func:`make_production_mesh` gives the reference's production layouts,
 16x16 ``("data", "model")`` and 2x16x16 ``("pod", "data", "model")``,
 as a shape-only mesh or, over a process group of their size (a real one
-or the dry-run's fake one), as a ``DeviceMesh``. The roofline constants
+or the dry-run's fake one), as a ``DeviceMesh``; :func:`make_pod_mesh`
+gives a ``("pod", "data", "model")`` ``DeviceMesh`` of any shape whose
+product is the world, the placed fleet's mesh. The roofline constants
 are one NVIDIA H100's (SXM part at its 700 W limit, dense rates), in
 place of the reference's TPU v5e ones.
 """
@@ -73,6 +75,35 @@ def make_production_mesh(*, multi_pod: bool = False, group=None):
                          f"group of {math.prod(shape)} ranks, got a group of {world}")
     device_type = "cuda" if dist.get_backend(group) == "nccl" else "cpu"
     return init_device_mesh(device_type, shape, mesh_dim_names=names)
+
+
+POD_MESH_AXES = ("pod", "data", "model")
+
+
+def make_pod_mesh(shape):
+    """A ``("pod", "data", "model")`` ``DeviceMesh`` of ``shape`` over the
+    default process group, whose world must be the product of ``shape``
+    (the counterpart of the reference's ``make_fleet_mesh``, which builds
+    ``(n_pod, 1, 1)``): ``pod`` the swarm-client axis of
+    ``swarm_fleet.fleet_setup(spmd="auto")``, ``data`` and ``model`` a
+    client's FSDP and tensor axes. On CUDA for NCCL, on the CPU
+    otherwise (gloo, or the dry-run's fake backend). The process group
+    comes first: :func:`make_fleet_mesh` sets up a world of one,
+    :func:`spawn_cpu_ranks` a gloo world, ``launch.dryrun.fake_world`` a
+    fake one."""
+    from torch.distributed.device_mesh import init_device_mesh
+    shape = tuple(int(s) for s in shape)
+    if len(shape) != 3 or min(shape) < 1:
+        raise ValueError(f"a pod mesh has three positive sizes (pod, data, model), got {shape}")
+    if not dist.is_initialized():
+        raise RuntimeError("make_pod_mesh needs a process group (make_fleet_mesh, "
+                           "spawn_cpu_ranks or launch.dryrun.fake_world sets one up)")
+    world = dist.get_world_size()
+    if world != math.prod(shape):
+        raise ValueError(f"a {'x'.join(map(str, shape))} pod mesh needs a world of "
+                         f"{math.prod(shape)} ranks, got {world}")
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(device_type, shape, mesh_dim_names=POD_MESH_AXES)
 
 
 @dataclass

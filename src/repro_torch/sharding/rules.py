@@ -30,6 +30,7 @@ Physical mesh axes:
 from __future__ import annotations
 
 import contextlib
+import math
 import re
 import threading
 from dataclasses import dataclass, field
@@ -251,8 +252,10 @@ def _map_with_paths(fn, tree, prefix: str = ""):
 def placements_for(spec: tuple, mesh) -> tuple:
     """One placement a dimension of ``mesh`` (a ``DeviceMesh`` or a
     :class:`MeshView`): ``Shard(d)`` where the spec puts that dimension's
-    axes on tensor dimension ``d``, else ``Replicate()``. Raises where a
-    spec names only some of a flattened dimension's axes."""
+    axes on tensor dimension ``d``, else ``Replicate()``; a mesh dimension
+    of one rank is ``Replicate()`` either way (the same layout, and DTensor
+    then plans no redistribution over it). Raises where a spec names only
+    some of a flattened dimension's axes."""
     from torch.distributed.tensor import Replicate, Shard
     view = view_of(mesh)
     placements = [Replicate()] * len(view.dims)
@@ -260,7 +263,8 @@ def placements_for(spec: tuple, mesh) -> tuple:
         axes = set(() if part is None else (part,) if isinstance(part, str) else part)
         for i, dim_axes in enumerate(view.dims):
             if set(dim_axes) <= axes:
-                placements[i] = Shard(d)
+                if math.prod(view.shape[a] for a in dim_axes) > 1:
+                    placements[i] = Shard(d)
                 axes -= set(dim_axes)
             elif set(dim_axes) & axes:
                 raise ValueError(f"spec {spec} splits dimension {d} over {sorted(axes)}, "
@@ -283,6 +287,106 @@ def distribute(params, mesh, rules: AxisRules = DEFAULT_RULES):
     placements = build_param_placements(params, view, rules)
     return tree_map(lambda t, pl: distribute_tensor(t, view.device_mesh, pl), params,
                     placements)
+
+
+# ---------------------------------------------------------------------------
+# client-stacked trees: the fleet's placed leaves
+
+
+def _shifted(placements, by: int) -> tuple:
+    """``placements`` with each ``Shard(d)`` moved to ``Shard(d + by)``:
+    between a client-stacked leaf and one client's."""
+    from torch.distributed.tensor import Shard
+    return tuple(Shard(p.dim + by) if isinstance(p, Shard) else p for p in placements)
+
+
+def local_chunk(t: torch.Tensor, device_mesh, placements) -> torch.Tensor:
+    """This rank's shard of ``t`` under ``placements``: each ``Shard(d)``
+    takes this rank's chunk of dimension ``d``, mesh dimensions in
+    order (DTensor's layout)."""
+    from torch.distributed.tensor import Shard
+    coord = device_mesh.get_coordinate()
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            t = t.chunk(device_mesh.size(i), dim=p.dim)[coord[i]]
+    return t
+
+
+def place_local(t: torch.Tensor, mesh, placements):
+    """``t``, whole on every rank, as a DTensor on ``mesh`` (a
+    ``DeviceMesh`` or a :class:`MeshView`) with ``placements``: each
+    rank keeps its own chunk, so no collective runs."""
+    from torch.distributed.tensor import DTensor
+    dm = view_of(mesh).device_mesh
+    return DTensor.from_local(local_chunk(t, dm, placements), dm, placements, run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
+def distribute_stacked(tree, mesh, rules: AxisRules = DEFAULT_RULES):
+    """A client-stacked tree ((N, ...) leaves), whole on every rank of
+    ``mesh``, as DTensors (no collective): each leaf placed by the table
+    as one client's leaf would be, the client axis never split."""
+    one = tree_map(lambda x: torch.empty(tuple(x.shape[1:]), dtype=x.dtype, device="meta"),
+                   tree)
+    return tree_map(lambda t, pl: place_local(t, mesh, _shifted(pl, 1)), tree,
+                    build_param_placements(one, mesh, rules))
+
+
+def place_batch(batch: dict, mesh, rules: AxisRules = DEFAULT_RULES) -> dict:
+    """One client's batch leaves, whole on every rank, split on their
+    batch axis (axis 0) by the table (no collective)."""
+    out = {}
+    for k, t in batch.items():
+        spec = spec_for(("batch",) + (None,) * (t.dim() - 1), mesh, t.shape, rules)
+        out[k] = place_local(t.contiguous(), mesh, placements_for(spec, mesh))
+    return out
+
+
+def is_placed(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def on_shard(fn, x, *rest):
+    """``fn`` over this rank's shards of ``x`` and ``rest``, placed back
+    as ``x`` is (no collective); plain tensors go to ``fn`` as they are."""
+    if not is_placed(x):
+        return fn(x, *rest)
+    from torch.distributed.tensor import DTensor
+    out = fn(x.to_local(), *(r.to_local() if is_placed(r) else r for r in rest))
+    return DTensor.from_local(out, x.device_mesh, x.placements, run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+def client_view(x, c: int):
+    """Client ``c`` of a stacked DTensor (its client axis never split),
+    as a DTensor of one client's shape (no collective)."""
+    from torch.distributed.tensor import DTensor
+    shape = tuple(x.shape[1:])
+    return DTensor.from_local(x.to_local()[c], x.device_mesh, _shifted(x.placements, -1),
+                              run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+def write_client(dst, c: int, x, keep=None) -> None:
+    """Client ``c`` of the stacked DTensor ``dst`` set to the one-client
+    DTensor ``x`` in place (where the () bool tensor ``keep`` is true,
+    if given); ``x`` placed otherwise than a client of ``dst`` (a partial
+    sum, a replicated gradient step) is redistributed first."""
+    pl = _shifted(dst.placements, -1)
+    if tuple(x.placements) != pl:
+        x = x.redistribute(x.device_mesh, pl)
+    slot = dst.to_local()[c]
+    src = x.to_local()
+    slot.copy_(src if keep is None else torch.where(keep, src, slot))
+
+
+def mesh_group(device_mesh):
+    """One process group over every rank of ``device_mesh``: its own on
+    one dimension, else the group of its flattened view."""
+    if device_mesh.ndim == 1:
+        return device_mesh.get_group()
+    return device_mesh._flatten("_".join(device_mesh.mesh_dim_names)).get_group()
 
 
 def local_shape(shape, spec: tuple, mesh) -> tuple:

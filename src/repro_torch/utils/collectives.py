@@ -1,7 +1,8 @@
 """The fleet's collectives, each recorded in a census.
 
 Every collective the fleet regime issues goes through this module: an
-all-reduce (Eq. 2's segment sums, the round's means), a gather to rank 0
+all-reduce (Eq. 2's segment sums, the round's means), an all-gather
+(the merge of a placed leaf's shard statistics), a gather to rank 0
 (the stat upload) or a broadcast from rank 0 (the coordinator's
 decision). Each call records ``(op, bytes, tag)`` in :data:`CENSUS`, the
 bytes of the tensor that this rank hands to the collective. The census
@@ -21,9 +22,9 @@ import torch.distributed as dist
 
 
 class Collective(NamedTuple):
-    op: str          # all_reduce | gather | broadcast
+    op: str          # all_reduce | all_gather | gather | broadcast
     nbytes: int      # bytes this rank hands to the collective
-    tag: str         # what it carries: eq2 | round | upload | decision | export
+    tag: str         # what it carries: eq2 | round | stats_merge | upload | decision | export
 
 
 class Census:
@@ -58,6 +59,16 @@ def mean_over_ranks(x: torch.Tensor, group) -> torch.Tensor:
     t = x.detach().float().reshape(1).clone()
     all_reduce_sum(t, group, "round")
     return (t / dist.get_world_size(group))[0]
+
+
+def all_gather_stack(t: torch.Tensor, group, tag: str) -> torch.Tensor:
+    """``t`` of every rank of ``group`` stacked on a new dim 0, in rank
+    order, on every rank (equal shapes on every rank)."""
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t, group=group)
+    CENSUS.record("all_gather", t, tag)
+    return torch.stack(parts)
 
 
 def gather_to_root(t: torch.Tensor, group, tag: str = "upload"):

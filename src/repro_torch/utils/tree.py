@@ -65,3 +65,41 @@ def tree_weighted_sum(trees, weights):
 def tree_stack(trees):
     """Stack identical-structure trees along a new leading client axis."""
     return tree_map(lambda *xs: torch.stack(xs, dim=0), trees[0], *trees[1:])
+
+
+def tree_zeros_like(tree):
+    return tree_map(torch.zeros_like, tree)
+
+
+def tree_add(a, b):
+    return tree_map(torch.add, a, b)
+
+
+def tree_sub(a, b):
+    return tree_map(torch.sub, a, b)
+
+
+def tree_scale(tree, s):
+    return tree_map(lambda x: x * s, tree)
+
+
+def tree_unstack(tree, n: int):
+    """Inverse of :func:`tree_stack`: ``n`` trees, one a client."""
+    return [tree_index(tree, i) for i in range(n)]
+
+
+def tree_index(tree, i):
+    return tree_map(lambda x: x[i], tree)
+
+
+def tree_cast(tree, dtype):
+    """Floating leaves cast to ``dtype``; the others as they are."""
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x, tree)
+
+
+def tree_num_params(tree) -> int:
+    return sum(x.numel() for x in tree_leaves(tree))
+
+
+def tree_size_bytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))

@@ -471,7 +471,7 @@ def HierRoundOut_fields():
 
 
 def test_fleet_setup_surfaces_and_refusals(mesh, model):
-    with pytest.raises(ValueError, match="A14"):
+    with pytest.raises(ValueError, match="DeviceMesh"):
         fleet_setup(model, _opt(), mesh, k=N, spmd="auto")
     with pytest.raises(ValueError, match="exclusive"):
         fleet_setup(model, _opt(), mesh, k=N, with_eval=True, with_loss=True)

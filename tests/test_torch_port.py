@@ -156,3 +156,116 @@ def test_build_log_is_empty_until_a_library_is_built(monkeypatch, tmp_path):
     assert _build.build_log("flash_decode") == ""
     _build.library_path("flash_decode").with_suffix(".log").write_text("ptxas info")
     assert _build.build_log("flash_decode") == "ptxas info"
+
+
+# ------------------------------------------------------------ the public surface
+
+import ast  # noqa: E402
+
+REF = SRC / "repro"
+PORT = SRC / "repro_torch"
+# a reference name that the port module of the same path does not define:
+# its port name as "module path:name", or why the port has none
+SURFACE_MAP = {
+    "core/bso.py": {"brain_storm_jax": "core/bso.py:brain_storm"},
+    "kernels/ref.py": {"ref_attention": "kernels/ref.py:attention",
+                       "ref_decode_attention": "kernels/ref.py:decode_attention",
+                       "ref_kmeans_assign": "kernels/ref.py:kmeans_assign",
+                       "ref_param_stats": "kernels/ops.py:param_stats",
+                       "ref_param_stats_batched": "kernels/ref.py:param_stats_batched"},
+    "kernels/param_stats.py": {"param_stats": "kernels/ops.py:param_stats"},
+    "kernels/ops.py": {"auto_interpret": "none: Pallas's interpret mode; a CPU tensor takes "
+                                         "the plain version"},
+    "launch/dryrun.py": {"build_lowered": "launch/dryrun.py:build_census"},
+    "launch/comm.py": {"collective_bytes": "none: an HLO parser; the port counts collectives "
+                                           "in launch.dryrun.Census and utils.collectives.CENSUS"},
+    "launch/mesh.py": {"make_host_mesh": "none: JAX's host-device mesh; make_fleet_mesh and "
+                                         "spawn_cpu_ranks make CPU ranks"},
+    "launch/swarm_fleet.py": {"force_host_device_count": "none: launch.dryrun.fake_world's "
+                                                         "fake process group takes its place"},
+    "sharding/rules.py": {"build_param_shardings": "sharding/rules.py:build_param_placements"},
+}
+
+
+def _public_defs(path: Path) -> set:
+    tree = ast.parse(path.read_text())
+    return {n.name for n in tree.body
+            if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef))
+            and not n.name.startswith("_")}
+
+
+def _defined(path: Path) -> set:
+    """Every name a module binds at its top level."""
+    out = set()
+    for n in ast.parse(path.read_text()).body:
+        if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            out.add(n.name)
+        elif isinstance(n, ast.Assign):
+            out.update(t.id for t in n.targets if isinstance(t, ast.Name))
+        elif isinstance(n, ast.AnnAssign) and isinstance(n.target, ast.Name):
+            out.add(n.target.id)
+        elif isinstance(n, ast.ImportFrom):
+            out.update(a.asname or a.name for a in n.names)
+    return out
+
+
+@pytest.mark.parametrize("module", sorted(str(p.relative_to(REF)) for p in REF.rglob("*.py")))
+def test_port_covers_every_public_name_of_the_reference(module):
+    """Every public def / class of ``src/repro/<module>`` (read with
+    ``ast``) is defined by ``src/repro_torch/<module>`` or named in
+    :data:`SURFACE_MAP`, with a port name that exists or the reason it
+    has none."""
+    port = PORT / module
+    assert port.is_file(), f"{module} has no port module"
+    have = _defined(port)
+    mapped = SURFACE_MAP.get(module, {})
+    missing = sorted(_public_defs(REF / module) - have - set(mapped))
+    assert not missing, f"{module}: {missing} neither ported nor mapped"
+    for name, where in mapped.items():
+        assert name not in have, f"{module}: {name} is ported; drop it from SURFACE_MAP"
+        if where.startswith("none: "):
+            continue
+        mod, port_name = where.split(":")
+        assert port_name in _defined(PORT / mod), f"{module}: {name} -> {where} does not exist"
+
+
+_TREE = {"a": np.arange(6, dtype=np.float32).reshape(2, 3),
+         "b": [np.ones((2, 2), np.float32) * 0.5, np.arange(2, dtype=np.int32)]}
+_TREE2 = {"a": np.full((2, 3), 1.5, np.float32),
+          "b": [np.arange(4, dtype=np.float32).reshape(2, 2), np.array([7, 9], np.int32)]}
+
+
+@pytest.mark.parametrize("name", ["tree_zeros_like", "tree_add", "tree_sub", "tree_scale",
+                                  "tree_unstack", "tree_index", "tree_cast", "tree_num_params",
+                                  "tree_size_bytes"])
+def test_tree_helpers_match_reference(name):
+    """Each of the reference's nine tree helpers against the port's on
+    the same tree through the bridge: the same leaves (values and dtypes)
+    or the same count; the reference's exports from ``repro.utils`` are
+    the port's from ``repro_torch.utils``."""
+    import jax.numpy as jnp
+
+    import repro.utils as jutils
+    import repro.utils.tree as jt
+    import repro_torch.utils as tutils
+    import repro_torch.utils.tree as tt
+    args = {"tree_zeros_like": (_TREE,), "tree_add": (_TREE, _TREE2),
+            "tree_sub": (_TREE, _TREE2), "tree_scale": (_TREE, 3.0),
+            "tree_unstack": (_TREE, 2), "tree_index": (_TREE, 1),
+            "tree_cast": (_TREE,), "tree_num_params": (_TREE,), "tree_size_bytes": (_TREE,)}[name]
+    extra_j = (jnp.bfloat16,) if name == "tree_cast" else ()
+    extra_t = (torch.bfloat16,) if name == "tree_cast" else ()
+    jargs = tuple(jax.tree.map(jnp.asarray, a) if isinstance(a, dict) else a for a in args)
+    targs = tuple(bridge.tree_from_numpy(a) if isinstance(a, dict) else a for a in args)
+    want = getattr(jt, name)(*jargs, *extra_j)
+    got = getattr(tt, name)(*targs, *extra_t)
+    if isinstance(want, int):
+        assert got == want
+    else:
+        for w, g in zip(want if isinstance(want, list) else [want],
+                        got if isinstance(got, list) else [got]):
+            for (p, a), (q, b) in zip(jax_paths(w), tree_paths_and_leaves(bridge.tree_to_numpy(g))):
+                assert p == q and np.asarray(a).dtype == b.dtype, (p, np.asarray(a).dtype, b.dtype)
+                np.testing.assert_array_equal(np.asarray(a), b)
+    exported = {n for n in dir(jutils) if n.startswith("tree_")}
+    assert exported <= {n for n in dir(tutils) if n.startswith("tree_")}

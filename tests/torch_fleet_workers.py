@@ -124,3 +124,90 @@ def three_ranks(rank, in_path, out_dir):
                               torch.as_tensor(d["assignments"][rank]), k=3, group=group)
     result["one_client"] = bridge.tree_to_numpy(got)
     _dump(out_dir, rank, result)
+
+
+def _full_numpy(tree):
+    from repro_torch.sharding.rules import is_placed
+    from repro_torch.utils.tree import tree_map
+    return bridge.tree_to_numpy(tree_map(lambda x: x.full_tensor() if is_placed(x) else x, tree))
+
+
+def placed_fleet(rank, in_path, out_dir):
+    """The placed fleet (``fleet_setup(spmd="auto")``) on a 4-rank world,
+    for each pod mesh shape of the inputs: the rounds on this rank's pod
+    slice with the injected decisions, each round's params, optimizer
+    state and stats (whole, ``full_tensor``) and its census. On the first
+    shape also: the churn surface with all-ones masks from the initial
+    state, the two-tier surface (one pod a pod group), and the
+    ``shard_map`` path over the pod group (world 2) on the same rounds."""
+    from repro_torch.configs import OptimizerConfig, get_config
+    from repro_torch.launch.mesh import FleetMesh, make_pod_mesh
+    from repro_torch.launch.swarm_fleet import fleet_setup
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizers import make_optimizer
+    from repro_torch.utils.collectives import CENSUS
+
+    d = _load(in_path)
+    model = build_model(get_config(d["arch"]).smoke())
+    opt = make_optimizer(OptimizerConfig(name="adam", lr=d["lr"], eps=d["eps"]))
+    n, k, steps = d["weights"].shape[0], d["k"], d["local_steps"]
+    result = {}
+    for si, shape in enumerate(d["shapes"]):
+        dm = make_pod_mesh(shape)
+        pod = int(dm.get_coordinate()[0])
+        sl = slice(pod * n // shape[0], (pod + 1) * n // shape[0])
+        w = torch.as_tensor(d["weights"][sl])
+
+        def state():
+            return (bridge.params_from_numpy(_slice(d["params"], sl)),
+                    bridge.opt_state_from_numpy(_slice(d["opt"], sl)))
+
+        def batch(r):
+            return bridge.tree_from_numpy(_slice(d["batches"][r], sl))
+
+        prog = fleet_setup(model, opt, dm, k=k, n_local_steps=steps, spmd="auto")
+        sp, so = (prog.place(t) for t in state())
+        rounds = []
+        for r, clusters in enumerate(d["clusters"]):
+            mark = CENSUS.mark()
+            sp, so, stats = prog.step(sp, so, batch(r), d["lr"],
+                                      torch.as_tensor(clusters[sl]), w)
+            rounds.append({"params": _full_numpy(sp), "opt": _full_numpy(so),
+                           "stats": stats.numpy(), "local": [tuple(x.to_local().shape) for x in
+                                                            _leaves_of(sp)],
+                           "census": [tuple(e) for e in CENSUS.since(mark)]})
+        out = {"pod": pod, "coord": [int(c) for c in dm.get_coordinate()], "rounds": rounds}
+        if si == 0:
+            ones = torch.ones(sl.stop - sl.start, dtype=torch.bool)
+            churn = fleet_setup(model, opt, dm, k=k, n_local_steps=steps, spmd="auto",
+                                with_churn=True)
+            cp, _, cstats = churn.step(*(churn.place(t) for t in state()), batch(0), d["lr"],
+                                       torch.as_tensor(d["clusters"][0][sl]), w * 1.0, ones, ones)
+            out["churn"] = {"params": _full_numpy(cp), "stats": cstats.numpy()}
+            h = d["hier"]
+            hier = fleet_setup(model, opt, dm, k=k, n_local_steps=steps, spmd="auto",
+                               hier_k_local=h["k_local"])
+            hp, _, ho = hier.step(*(hier.place(t) for t in state()), batch(0),
+                                  bridge.tree_from_numpy(_slice(h["val"], sl)), d["lr"],
+                                  torch.as_tensor(h["g"]), torch.tensor(True),
+                                  torch.arange(sl.start, sl.stop, dtype=torch.int32),
+                                  torch.as_tensor(h["a_prev"][sl]),
+                                  torch.as_tensor(h["pod_init_idx"][pod:pod + 1]), w)
+            out["hier"] = {"params": _full_numpy(hp),
+                           "out": {f: np.asarray(getattr(ho, f)) for f in ho._fields}}
+            fm = FleetMesh(group=dm.get_group("pod"), rank=pod, world=shape[0],
+                           device=torch.device("cpu"))
+            flat = fleet_setup(model, opt, fm, k=k, n_local_steps=steps).step
+            fp, fo = state()
+            sm = []
+            for r, clusters in enumerate(d["clusters"]):
+                fp, fo, fstats = flat(fp, fo, batch(r), d["lr"], torch.as_tensor(clusters[sl]), w)
+                sm.append({"params": bridge.tree_to_numpy(fp), "stats": fstats.numpy()})
+            out["shard_map"] = sm
+        result[tuple(shape)] = out
+    _dump(out_dir, rank, result)
+
+
+def _leaves_of(tree):
+    from repro_torch.utils.tree import tree_leaves
+    return tree_leaves(tree)
