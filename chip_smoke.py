@@ -52,8 +52,12 @@ exits non-zero and prints no result. It imports nothing of JAX. Phases:
    bucket asserted), with the flash_decode launch count read from that
    run alone; then profile one decode tick and time the next;
 7. serve the same prompts on the card and on the CPU from the same
-   weights (granite's widths cut to 2 layers so that the CPU finishes in
-   time) and compare tokens and logits;
+   weights (granite's widths cut to 2 layers, prompts padded to 24, so
+   that the CPU finishes in time) and compare tokens, in fp32, bf16 and
+   fp16 (asserted equal in fp32 and fp16), and logits in fp32 and bf16
+   (the CPU's fp16 matmuls ran at ~0.6 GFLOP/s on the card's host), and
+   the card's fp16 logits on an e5m2 cache against an fp16 cache (within
+   0.2 of max |logit|);
 8. hold the flash_attention kernel against its plain version (the
    reference's FLASH_CASES in fp32 and bf16, rows with no valid key, a
    prefill chunk at q_offset 1536, strided (B,S,H,D) input, bf16 at D 32
@@ -227,7 +231,23 @@ exits non-zero and prints no result. It imports nothing of JAX. Phases:
    shard merge on the card, each leaf cut into 2 even and 3 uneven
    shards, against the plain stats of the whole leaf; (d) a plain round
    step's FLOPs on the card asserted equal to the census; (e) a profiled
-   round step's busy share and the Eq. 2 census.
+   round step's busy share and the Eq. 2 census;
+23. the kernels' whole input contract: (a) granite-3-2b as registered
+   with fp16 activations on an fp8 e5m2 KV cache through phase 6's
+   engine, buckets and workload (K3 = 40 launches a decode call, every
+   logit of the first decode call finite; tok/s, ms a tick, TTFT p50);
+   (b) phase 15 (a)'s LM swarm with fp16 params, 2 rounds (K1 = 2, K2 =
+   42; the round-0 upload through K1 on the fp16 leaves against its
+   plain version first; a loss that is not finite printed, not
+   asserted); (c) each kernel on inputs its Pallas kernel takes and only
+   this slice admits, against its plain version and timed beside its
+   library call and bound: K1 on (b)'s fp16 and e4m3 leaves and a
+   (70,000, 56) stack; K2 on bf16 (4,096, 4,096) against (16, 4,096)
+   with and without k_active; K3 at D 80 and 96, MQA G 64, G 48 on an
+   e5m2 cache with a (B,) pos and window 1,024, a bf16 q on an fp16
+   cache, and three graph replays of the G 48 call; K4 in fp16, bf16 at
+   D 96 and 256, q bf16 on fp16 k and v, fp32 at D 80 ragged with
+   q_offset.
 
 ``python3 chip_smoke.py --ssm-depth-probe 36 37 38 39`` runs only phase
 18 (e)'s mamba2 round at each depth, alone, and prints each peak up to
@@ -266,6 +286,7 @@ SERVE_MAX_SEQ = 2048
 SERVE_REQUESTS = 24
 SERVE_NEW_TOKENS = 32
 PREFILL_CHUNK = 512
+SERVE_CPU_PROMPT_PAD = 24         # phase 7's prefill width: its longest prompt (23) padded
 DECODE_LAUNCHES_PER_CALL = 1      # one wrapper call per layer per decode call
 
 # the moe family served (phase 17): kimi-k2 at full width cut to the
@@ -775,6 +796,7 @@ def check_kmeans_assign(torch, dev, X, C):
 
     cases = [("path", X, C),
              ("wide", rand(1000, 260), rand(37, 260)),
+             ("K=64, F=260: C in 8 tiles", rand(4, 260), rand(64, 260)),
              ("K=64, F=191", rand(500, 191), rand(64, 191)),
              ("F=1", rand(300, 1), rand(5, 1)),
              ("F=33", rand(300, 33), rand(7, 33)),
@@ -789,14 +811,8 @@ def check_kmeans_assign(torch, dev, X, C):
         if not torch.equal(got, expect):
             bad = int((got != expect).sum())
             raise AssertionError(f"kmeans_assign {name}: {bad} of {got.numel()} ids differ")
-    refused = False
-    try:                                 # K = 64 at F = 260: 66,816 B of shared memory
-        kmeans_assign.kmeans_assign(rand(4, 260), rand(64, 260))
-    except ValueError:
-        refused = True
-    assert refused, "kmeans_assign took C past its 48 KB of shared memory"
-    log(f"[kernels] kmeans_assign: {len(cases)} cases equal to the plain version; K=64 at "
-        f"F=260 refused (shared memory)")
+    log(f"[kernels] kmeans_assign: {len(cases)} cases equal to the plain version (K=37 and "
+        f"K=64 past one C tile)")
     return 0.0
 
 
@@ -1051,10 +1067,12 @@ def check_flash_decode(torch, dev):
     for its kernel against its oracle: 2e-5 in fp32, 2e-2 in bf16/fp16
     (and for a bf16 q on an fp8 cache, which the plain version reads
     upcast as the kernel does). Returns the max abs error over the path's
-    cases (bf16, per-row pos; granite's and kimi-k2's shapes)."""
+    cases (per-row pos; granite's and kimi-k2's shapes in bf16, and
+    granite's fp16 q on an e5m2 cache, phase 23 (a)'s)."""
     from repro_torch.kernels import flash_decode, ref
     gen = torch.Generator(device=dev).manual_seed(3)
     bf16, f32, fp8 = torch.bfloat16, torch.float32, torch.float8_e4m3fn
+    f16, e5m2 = torch.float16, torch.float8_e5m2
     rows = torch.randint(1, 1023, (2,), generator=gen, device=dev).tolist()
 
     def vec(*p):
@@ -1088,6 +1106,13 @@ def check_flash_decode(torch, dev):
         ("fp8 kimi S=2048", (4, 64, 8, 2048, 112), (bf16, fp8), vec(2047, 1535, 1023, 511), 0,
          True),
         ("fp8 kimi window 256", (4, 64, 8, 2048, 112), (bf16, fp8), vec(2047, 3, 700, 255), 256,
+         True),
+        # phase 23 (a)'s: an fp16 q on an e5m2 cache at granite's shapes
+        ("path fp16 on e5m2 S=2048", (4, 32, 8, 2048, 64), (f16, e5m2),
+         vec(2047, 0, *[2 * r for r in rows]), 0, True),
+        ("path fp16 on e5m2 window 256", (4, 32, 8, 2048, 64), (f16, e5m2),
+         vec(2047, 3, 700, 255), 256, True),
+        ("path fp16 on e5m2 S=1024", (4, 32, 8, 1024, 64), (f16, e5m2), vec(0, 1023, *rows), 0,
          True),
     ]
     path_err = 0.0
@@ -1193,7 +1218,7 @@ def time_flash_decode(torch, dev, H: int = 32, D: int = 64, cache=None, label: s
     # per valid column and query head: D multiply-adds for the score, D
     # for the output, and the softmax's few operations
     n_ops = valid_cols * H * (4 * D + 5)
-    b, by = bound_ms(n_bytes, n_ops)
+    b, by = bound_ms(n_bytes, n_ops, BF16_TENSOR_FLOPS)
     log(f"[kernels] {name} bound: {n_bytes} bytes of valid K/V columns, q and output "
         f"-> {b:.5f} ms ({by}); the whole cache is {full_bytes} bytes "
         f"-> {full_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms")
@@ -1215,17 +1240,22 @@ def _pct(xs, p):
     return float(np.percentile(np.asarray(xs, np.float64), p))
 
 
-def serve_path(torch, dev):
-    """Phase 6: granite-3-2b at full width through the engine. Returns
-    (flash_decode launches in the drain, the engine)."""
+def serve_path(torch, dev, cfg=None, tag: str = "serve"):
+    """Phase 6 (and 23 (a) with its ``cfg``): granite-3-2b at full width
+    through the engine. Every logit of the engine's first decode call (the
+    eager step before a bucket's capture) is held finite. Returns
+    (flash_decode launches in the drain, the engine, a dict of the drain's
+    tok/s, TTFT p50 ms, ms a decode call, the profiled tick's busy share
+    and the next tick's ms)."""
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_decode
     from repro_torch.models import build_model
     from repro_torch.serve import BucketSpec, Request, make_engine
+    from repro_torch.utils.tree import tree_leaves
 
-    cfg = get_config(SERVE_ARCH)
+    cfg = cfg or get_config(SERVE_ARCH)
     model = build_model(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1233,15 +1263,26 @@ def serve_path(torch, dev):
     n_params = model.param_count(params)
     eng = make_engine(model, params, buckets=tuple(BucketSpec(b, s) for b, s in SERVE_BUCKETS),
                       prefill_chunk=PREFILL_CHUNK, device=dev)
-    del params                                   # the engine keeps its bf16 copy
+    del params                                   # the engine keeps its serving copy
     torch.cuda.synchronize()
-    log(f"[serve] {cfg.arch_id}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, {n_params:,} params (fp32 init + bf16 copy) "
-        f"in {time.perf_counter() - t0:.2f} s; buckets {SERVE_BUCKETS}, prefill chunk "
-        f"{PREFILL_CHUNK}")
+    cache_types = sorted({str(t.dtype)[6:] for t in tree_leaves(eng.state[0].cache)})
+    log(f"[{tag}] {cfg.arch_id}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, {n_params:,} params (fp32 init + {cfg.dtype} "
+        f"copy) in {time.perf_counter() - t0:.2f} s; KV cache {cache_types}; buckets "
+        f"{SERVE_BUCKETS}, prefill chunk {PREFILL_CHUNK}")
 
     prefill_s, decode_s = [], []
-    prefill_fn, decode_fn = eng._prefill, eng._decode
+    prefill_fn, decode_fn, step_fn = eng._prefill, eng._decode, eng._decode_step
+    first = {}
+
+    def first_step(bs, tok, pos):
+        # the engine's first decode call, eager: its logits held finite
+        if first:
+            return step_fn(bs, tok, pos)
+        logits, bs.cache = eng.model.decode_step(eng.params, tok, bs.cache, pos)
+        first.update(finite=bool(torch.isfinite(logits).all()), shape=tuple(logits.shape),
+                     dtype=str(logits.dtype)[6:])
+        return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
 
     def timed_prefill(*a):
         before = flash_decode.flash_decode.launches
@@ -1257,7 +1298,7 @@ def serve_path(torch, dev):
         decode_s.append(time.perf_counter() - t)
         return out
 
-    eng._prefill, eng._decode = timed_prefill, timed_decode
+    eng._prefill, eng._decode, eng._decode_step = timed_prefill, timed_decode, first_step
     # warm-up (cuBLAS set-up, first launches): one request in each bucket
     for rid, n in ((-1, 8), (-2, 1000)):
         eng.submit(Request(rid=rid, prompt=np.arange(n, dtype=np.int32) % cfg.vocab_size,
@@ -1266,6 +1307,9 @@ def serve_path(torch, dev):
     eng.n_prefill_calls = eng.n_decode_calls = 0
     prefill_s.clear()
     decode_s.clear()
+    log(f"[{tag}] the first decode call's logits {first['shape']} {first['dtype']}: all finite "
+        f"{first['finite']}")
+    assert first["finite"], f"{tag}: a logit of the first decode call is not finite"
 
     prompts = _serve_workload(cfg.vocab_size)
     flash_decode.flash_decode.launches = 0
@@ -1283,36 +1327,38 @@ def serve_path(torch, dev):
         assert len(r.tokens) == SERVE_NEW_TOKENS, f"request {r.rid}: {len(r.tokens)} tokens"
         assert all(0 <= t < cfg.padded_vocab for t in r.tokens), f"request {r.rid}: bad token"
     want = cfg.n_layers * eng.n_decode_calls * DECODE_LAUNCHES_PER_CALL
-    log(f"[serve] drained {SERVE_REQUESTS} requests ({sum(len(p) for p in prompts)} prompt "
+    log(f"[{tag}] drained {SERVE_REQUESTS} requests ({sum(len(p) for p in prompts)} prompt "
         f"tokens, buckets {[r.bucket for r in res]}) in {wall:.3f} s: "
         f"{eng.n_prefill_calls} prefill calls, {eng.n_decode_calls} decode calls; flash_decode "
         f"launches {launches}, expected {cfg.n_layers} x {eng.n_decode_calls} x "
         f"{DECODE_LAUNCHES_PER_CALL} = {want}")
     assert launches == want and launches > 0, f"flash_decode launches {launches} != {want}"
     counts = eng.compile_counts()
-    log(f"[serve] compile_counts() {counts}: one prefill chunk shape and one decode graph a "
+    log(f"[{tag}] compile_counts() {counts}: one prefill chunk shape and one decode graph a "
         f"bucket")
     assert all(c == {"prefill": 1, "decode": 1} for c in counts.values()), counts
     n_tok = sum(len(r.tokens) for r in res)
     ttft = [r.ttft for r in res]
     lat = [r.latency for r in res]
-    log(f"[serve] generated {n_tok} tokens: {n_tok / wall:.2f} tok/s; "
+    log(f"[{tag}] generated {n_tok} tokens: {n_tok / wall:.2f} tok/s; "
         f"TTFT p50 {_pct(ttft, 50) * 1e3:.1f} ms, p95 {_pct(ttft, 95) * 1e3:.1f} ms; "
         f"latency p50 {_pct(lat, 50) * 1e3:.1f} ms, p95 {_pct(lat, 95) * 1e3:.1f} ms; "
         f"mean {statistics.mean(decode_s) * 1e3:.2f} ms per decode call, "
         f"{statistics.mean(prefill_s) * 1e3:.2f} ms per prefill call; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    log(f"[serve] sample tokens of request 0: {res[0].tokens[:12]}")
-    profile_decode_tick(torch, eng)
-    return launches, eng
+    log(f"[{tag}] sample tokens of request 0: {res[0].tokens[:12]}")
+    busy, tick_ms = profile_decode_tick(torch, eng)
+    return launches, eng, {"tok_s": n_tok / wall, "ttft_p50_ms": _pct(ttft, 50) * 1e3,
+                           "decode_ms": statistics.mean(decode_s) * 1e3, "busy": busy,
+                           "tick_ms": tick_ms}
 
 
-def profile_decode_tick(torch, eng) -> float:
+def profile_decode_tick(torch, eng):
     """One engine tick in which both buckets decode and none prefills,
     under ``torch.profiler``: device busy share, top device ops, K3's
     share of the device time; then one more such tick unprofiled, its
     device span between CUDA events beside its wall time. Returns the
-    profiled tick's busy share."""
+    profiled tick's busy share and the unprofiled tick's wall ms."""
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1365,14 +1411,18 @@ def profile_decode_tick(torch, eng) -> float:
     for line in table.splitlines():
         log(f"[profile] {line}")
     eng.run_until_drained()
-    return busy_us / 1e3 / wall_ms
+    return busy_us / 1e3 / wall_ms, wall2_ms
 
 
-def card_vs_cpu_serve(torch, dev, dtype: str):
+def card_vs_cpu_serve(torch, dev, dtype: str, fp8_cache: str = "", logits: bool = True):
     """Phase 7: the same prompts served on the card and on the CPU from
-    the same weights, granite's widths cut to 2 layers so that the CPU
-    finishes in time. Returns (tokens equal, max |logit diff| over a
-    prefill and 8 decode steps fed the same tokens, max |logit|)."""
+    the same weights, granite's widths cut to 2 layers and the prompts
+    padded to SERVE_CPU_PROMPT_PAD so that the CPU finishes in time.
+    Returns (tokens equal, max |logit diff| over a prefill and 8 decode
+    steps fed the same tokens, max |logit|), the two logit numbers None
+    without ``logits``; with ``fp8_cache``, also the card's logits on a
+    cache of that type against its logits on a ``dtype`` cache
+    (:func:`_fp8_vs_bf16`)."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -1386,33 +1436,52 @@ def card_vs_cpu_serve(torch, dev, dtype: str):
     params_card = tree_map(lambda t: t.to(dev), params_cpu)
     rng = np.random.default_rng(7)
     prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (5, 23)]
-    kw = dict(max_new_tokens=8, buckets=(BucketSpec(2, 64),))
+    kw = dict(max_new_tokens=8,
+              buckets=(BucketSpec(2, 64, prompt_ceiling=SERVE_CPU_PROMPT_PAD),))
+    t0 = time.perf_counter()
     toks_card = [r.tokens for r in generate(model, params_card, prompts, device=dev, **kw)]
+    t1 = time.perf_counter()
     toks_cpu = [r.tokens for r in generate(model, params_cpu, prompts, device="cpu", **kw)]
+    secs = {"card generate": t1 - t0, "cpu generate": time.perf_counter() - t1}
 
     from repro_torch.serve.engine import serving_params
-    padded = np.zeros((2, 64), np.int32)
-    for i, p in enumerate(prompts):
-        padded[i, :len(p)] = p
-    logits = {}
-    with torch.no_grad():
-        for name, params, d in (("card", params_card, dev), ("cpu", params_cpu, "cpu")):
-            sp = serving_params(params, getattr(torch, dtype))
-            cache = model.init_cache(2, 64, d)
-            out, cache = model.prefill(sp, torch.as_tensor(padded, device=d), cache, 0)
-            steps = [out.float().cpu()]
-            pos = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device=d)
-            for i in range(8):
-                tok = torch.tensor([[t[i]] for t in toks_cpu], device=d)
-                out, cache = model.decode_step(sp, tok, cache, pos + i)
-                steps.append(out.float().cpu())
-            logits[name] = steps
-    diff = max((a - b).abs().max().item() for a, b in zip(logits["card"], logits["cpu"]))
-    scale = max(b.abs().max().item() for b in logits["cpu"])
+    diff = scale = None
+    said = "logits not compared"
+    if logits:
+        padded = np.zeros((2, SERVE_CPU_PROMPT_PAD), np.int32)
+        for i, p in enumerate(prompts):
+            padded[i, :len(p)] = p
+        steps = {}
+        with torch.no_grad():
+            for name, params, d in (("card", params_card, dev), ("cpu", params_cpu, "cpu")):
+                t0 = time.perf_counter()
+                sp = serving_params(params, getattr(torch, dtype))
+                cache = model.init_cache(2, 64, d)
+                out, cache = model.prefill(sp, torch.as_tensor(padded, device=d), cache, 0)
+                steps[name] = [out.float().cpu()]
+                pos = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device=d)
+                for i in range(8):
+                    tok = torch.tensor([[t[i]] for t in toks_cpu], device=d)
+                    out, cache = model.decode_step(sp, tok, cache, pos + i)
+                    steps[name].append(out.float().cpu())
+                secs[f"{name} logits"] = time.perf_counter() - t0
+        diff = max((a - b).abs().max().item() for a, b in zip(steps["card"], steps["cpu"]))
+        scale = max(b.abs().max().item() for b in steps["cpu"])
+        said = (f"max |logit diff| {diff:.3e} over a prefill and 8 decode steps (max |logit| "
+                f"{scale:.3f})")
     log(f"[card-vs-cpu serve] {cfg.arch_id} widths, 2 layers, {dtype}: tokens card "
-        f"{toks_card} / cpu {toks_cpu}; max |logit diff| {diff:.3e} over a prefill and 8 decode "
-        f"steps (max |logit| {scale:.3f})")
-    return toks_card == toks_cpu, diff, scale
+        f"{toks_card} / cpu {toks_cpu}; {said}; seconds "
+        f"{ {k: round(v, 2) for k, v in secs.items()} }")
+    if not fp8_cache:
+        return toks_card == toks_cpu, diff, scale
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        rel = _fp8_vs_bf16(torch, model, serving_params(params_card, getattr(torch, dtype)), dev,
+                           cache=fp8_cache)
+    log(f"[card-vs-cpu serve] {dtype} on the card, a {fp8_cache} cache against a {dtype} one, "
+        f"{MOE_FP8_STEPS} decode steps after a 64-token prefill: max |logit diff| / max |logit| "
+        f"{rel:.4f} (bound {MOE_FP8_RTOL}) in {time.perf_counter() - t0:.2f} s")
+    return toks_card == toks_cpu, diff, scale, rel
 
 
 # ---------------------------------------------------------------- phase 17
@@ -1494,14 +1563,15 @@ def _graph_vs_eager(torch, eng, model, dev):
     return all(np.array_equal(a, b) for a, b in zip(eager, graphed)), graphed
 
 
-def _fp8_vs_bf16(torch, model, params, dev):
-    """Phase 17 (b): one prefill of 4 prompts of 64 tokens into a bf16
-    and an fp8 cache, then MOE_FP8_STEPS decode steps on the same
-    (greedy bf16) tokens. Returns max |logit diff| / max |logit| over the
-    decode steps."""
+def _fp8_vs_bf16(torch, model, params, dev, cache: str = "float8_e4m3fn"):
+    """Phase 17 (b) (and phase 7's e5m2 against fp16): one prefill of 4
+    prompts of 64 tokens into a cache of the model's activation type and
+    one of the fp8 type ``cache``, then MOE_FP8_STEPS decode steps on the
+    same (greedy, from the first cache) tokens. Returns max |logit diff| /
+    max |logit| over the decode steps."""
     from repro_torch.models import build_model
 
-    m8 = build_model(replace(model.cfg, cache_dtype="float8_e4m3fn"))
+    m8 = build_model(replace(model.cfg, cache_dtype=cache))
     gen = torch.Generator(device=dev).manual_seed(5)
     toks = torch.randint(0, model.cfg.vocab_size, (4, 64), generator=gen, device=dev)
     c16, c8 = model.init_cache(4, 128, dev), m8.init_cache(4, 128, dev)
@@ -1515,7 +1585,8 @@ def _fp8_vs_bf16(torch, model, params, dev):
             l8, c8 = m8.decode_step(params, tok, c8, 64 + step)
             diff = max(diff, (l16.float() - l8.float()).abs().max().item())
             scale = max(scale, l16.float().abs().max().item())
-    assert c8["prefix"][0]["k"].dtype == torch.float8_e4m3fn
+    from repro_torch.utils.tree import tree_leaves
+    assert {t.dtype for t in tree_leaves(c8)} == {getattr(torch, cache)}
     return diff / scale
 
 
@@ -1594,7 +1665,7 @@ def moe_serve_path(torch, dev):
         f"{len(decode_s)}); a decode call reads >= {tick_bytes / 1e9:.2f} GB of weights -> "
         f"{tick_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; "
         f"peak device memory {info['peak_gb']:.2f} GB")
-    info["busy"] = profile_decode_tick(torch, eng)
+    info["busy"], _ = profile_decode_tick(torch, eng)
 
     rel = _fp8_vs_bf16(torch, model, eng.params, dev)
     log(f"[moe] (b) fp8 cache against the bf16 cache, {MOE_FP8_STEPS} decode steps after a "
@@ -3036,7 +3107,8 @@ def check_lm_coordinator(torch, dev, stacks):
 def time_lm_param_stats(torch, name, leaves):
     """K1 at an LM fit's upload: the wrapper, the device alone (a graph
     of one call), a call of a graph of ``GRAPH_CALLS``, the plain
-    version and one ``torch.var_mean`` a leaf, beside the bound."""
+    version and one ``torch.var_mean`` a leaf (None on fp8 leaves, which
+    ``var_mean`` does not take), beside the bound."""
     from repro_torch.kernels import param_stats, ref
 
     def kernel():
@@ -3048,7 +3120,8 @@ def time_lm_param_stats(torch, name, leaves):
 
     ms = cuda_ms(torch, kernel, reps=10, trials=5)
     plain_ms = cuda_ms(torch, lambda: ref.param_stats_leaves(leaves), reps=5, trials=3)
-    lib_ms = cuda_ms(torch, library, reps=10, trials=5)
+    lib_ms = None if any(x.element_size() == 1 for x in leaves) else \
+        cuda_ms(torch, library, reps=10, trials=5)
     one = graph_ms(torch, kernel, reps=10)
     many = graph_ms(torch, kernel, GRAPH_CALLS, reps=3)
     n_el = sum(x.numel() for x in leaves)
@@ -3059,7 +3132,7 @@ def time_lm_param_stats(torch, name, leaves):
         f"launch(es), {n_bytes / 1e9:.3f} GB): wrapper {ms:.4f} ms, device alone {one:.4f} ms, "
         f"a call of a graph of {GRAPH_CALLS} {many:.4f} ms, bound {b:.4f} ms ({by}; "
         f"{n_bytes / (many * 1e-3) / 1e12:.2f} TB/s achieved); plain {plain_ms:.4f} ms; "
-        f"var_mean x {len(leaves)} {lib_ms:.4f} ms")
+        f"var_mean x {len(leaves)} {_fmt_ms(lib_ms)}")
     return ms, one, many, plain_ms, lib_ms, b, by
 
 
@@ -3085,13 +3158,14 @@ def lm_trainer(dev, cfg, clients, rounds: int):
                         seed=0, batch_size=LM_BATCH, device=dev)
 
 
-def lm_fit(torch, dev, cfg, clients, rounds: int, label: str):
+def lm_fit(torch, dev, cfg, clients, rounds: int, label: str, finite_loss: bool = True):
     """Phase 15 (a) / (b): ``SwarmTrainer`` over the LM ``cfg`` at
     test_swarm_is_model_agnostic_lm's settings for ``rounds`` rounds,
     with the coordinator's launch counts read from these rounds alone
     (1 K1 pass a round, a launch for every ``MAX_LEAVES`` leaves, and
-    ``KMEANS_ITERS + 1`` K2 assigns). Returns (trainer, launches, round
-    seconds, peak device bytes)."""
+    ``KMEANS_ITERS + 1`` K2 assigns); each round's loss is asserted
+    finite unless ``finite_loss`` is False (then it is printed). Returns
+    (trainer, launches, round seconds, peak device bytes)."""
     torch.cuda.reset_peak_memory_stats()
     tr = lm_trainer(dev, cfg, clients, rounds)
     model = tr.model
@@ -3099,7 +3173,8 @@ def lm_fit(torch, dev, cfg, clients, rounds: int, label: str):
     log(f"[lm {label}] {cfg.arch_id}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
         f"{model.param_count(tr.params) // LM_CLIENTS:,} params and {n_leaves} leaves a client "
-        f"(F = {2 * n_leaves}), {LM_CLIENTS} clients, activations {cfg.dtype}")
+        f"(F = {2 * n_leaves}), {LM_CLIENTS} clients, activations {cfg.dtype}, params "
+        f"{cfg.param_dtype}")
     _zero_coordinator_counts()
     round_s = []
     for _ in range(rounds):
@@ -3110,7 +3185,7 @@ def lm_fit(torch, dev, cfg, clients, rounds: int, label: str):
         log(f"[lm {label}] round {lg.round}: {round_s[-1]:.3f} s  val_acc={lg.mean_val_acc:.4f} "
             f"loss={lg.train_loss:.4f} assignments={lg.assignments.tolist()} "
             f"centers={lg.centers.tolist()} events={lg.events}")
-        assert math.isfinite(lg.train_loss), "LM train loss is not finite"
+        assert math.isfinite(lg.train_loss) or not finite_loss, "LM train loss is not finite"
         assert set(lg.assignments.tolist()) <= set(range(LM_CLUSTERS)), "assignment out of range"
         assert 0.0 <= lg.mean_val_acc <= 1.0, "LM val accuracy outside [0, 1]"
     launches = _coordinator_counts()
@@ -3605,7 +3680,7 @@ def time_flash_decode_probe(torch, dev, B: int, S: int, window: int) -> dict:
     es = k.element_size()
     n_bytes = B * keys * KV * D * 2 * es + 2 * q.numel() * q.element_size() + 4
     full_ms = B * S * KV * D * 2 * es / HBM_BYTES_PER_S * 1e3
-    b, by = bound_ms(n_bytes, B * keys * H * (4 * D + 5))
+    b, by = bound_ms(n_bytes, B * keys * H * (4 * D + 5), BF16_TENSOR_FLOPS)
     name = (f"flash_decode probe (B {B}) (B,32,1,64) vs (B,{S},8,64) bf16, pos {S - 1}, "
             f"window {window}")
     log(f"[kernels] {name}: max abs err {err:.3e} (tol {2e-2 * scale:.3e}); kernel {ms:.4f} ms, "
@@ -3979,6 +4054,343 @@ def placed_fleet_phase(torch, dev, lm_data, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 23
+
+CONTRACT_DTYPE = "float16"        # (a)'s activations and (b)'s params
+CONTRACT_CACHE = "float8_e5m2"    # (a)'s KV cache
+CONTRACT_K1_CLIENTS = 70_000      # (c): a stack past the old 65,535-client limit
+HALF_RTOL = 2e-2                  # of max |out|: K3 / K4 with a half q, as phases 5 and 8
+
+
+def contract_serve(torch, dev) -> dict:
+    """Phase 23 (a): granite-3-2b as registered with fp16 activations and
+    an e5m2 KV cache, through phase 6's engine, buckets and workload; K3
+    launches 40 a decode call and finite first-call logits asserted."""
+    from repro_torch.configs import get_config
+    cfg = replace(get_config(SERVE_ARCH), dtype=CONTRACT_DTYPE, cache_dtype=CONTRACT_CACHE)
+    launches, eng, info = serve_path(torch, dev, cfg, tag="contract a")
+    del eng
+    torch.cuda.empty_cache()
+    log(f"[contract a] {cfg.arch_id} {cfg.dtype} on a {cfg.cache_dtype} cache: "
+        f"{info['tok_s']:.2f} tok/s, {info['tick_ms']:.2f} ms a decode tick (both buckets), "
+        f"{info['decode_ms']:.2f} ms a decode call, TTFT p50 {info['ttft_p50_ms']:.1f} ms, "
+        f"busy {info['busy']:.1%} of a profiled tick; K3 launches {launches}")
+    return {**info, "k3": launches}
+
+
+def contract_swarm(torch, dev, lm_data) -> dict:
+    """Phase 23 (b): phase 15 (a)'s LM swarm with ``param_dtype`` fp16
+    for LM_ROUNDS rounds, K1 = 2 and K2 = 42 asserted; first the round-0
+    upload (the trainer's initial client stack) through K1 on the fp16
+    leaves against its plain version, as :func:`check_lm_coordinator`
+    holds the fp32 one. A loss that is not finite is printed, not
+    asserted (the reference's fp16 params would give it too). Returns
+    the launches, round seconds, peak, K1's error and the fp16 leaves."""
+    from repro_torch.models import build_model
+    from repro_torch.utils.tree import tree_stack
+    cfg = replace(_lm_config(), param_dtype=CONTRACT_DTYPE)
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stacked = tree_stack([model.init(gen) for _ in range(LM_CLIENTS)])
+    k1_err, _ = check_lm_coordinator(torch, dev, {"granite fp16": (cfg, stacked)})
+    leaves = [x.contiguous() for x in _leaves(stacked)]
+    del stacked
+    tr, launches, secs, peak = lm_fit(torch, dev, cfg, lm_data, LM_ROUNDS, "contract b",
+                                      finite_loss=False)
+    del tr
+    torch.cuda.empty_cache()
+    log(f"[contract b] {cfg.arch_id} at {cfg.n_layers} layers, params {cfg.param_dtype}: round "
+        f"seconds {[round(x, 4) for x in secs]}, peak {peak / 1e9:.2f} GB, launches {launches}, "
+        f"K1 on the round-0 upload max abs err {k1_err:.3e}")
+    return {"launches": launches, "secs": secs, "peak": peak, "k1_err": k1_err,
+            "leaves": leaves}
+
+
+def _fmt_ms(ms) -> str:
+    return "none" if ms is None else f"{ms:.4f} ms"
+
+
+def _time_line(name, ms, one, plain_ms, lib_ms, lib_name, b, by, card):
+    log(f"[contract c] {name}: wrapper {ms:.4f} ms, device alone {one:.4f} ms, bound {b:.5f} ms "
+        f"({by}), plain {plain_ms:.4f} ms, {lib_name} {_fmt_ms(lib_ms)}; {card}")
+
+
+def contract_k1(torch, dev, leaves, card) -> float:
+    """Phase 23 (c), K1: (b)'s fp16 leaves and the same in e4m3, each as
+    one call against the plain version (K1's tolerance) and timed as
+    :func:`time_lm_param_stats`; then a (70,000, 56) fp32 stack against
+    the plain version, timed beside ``torch.var_mean``. Returns the max
+    abs error."""
+    from repro_torch.kernels import param_stats, ref
+    err = 0.0
+    for name, ls in (("fp16", leaves), ("e4m3", [x.to(torch.float8_e4m3fn) for x in leaves])):
+        got, expect = param_stats.param_stats_leaves(ls), ref.param_stats_leaves(ls)
+        torch.cuda.synchronize()
+        _assert_stats_close(torch, got, expect, f"contract K1 {name}")
+        err = max(err, (got - expect).abs().max().item())
+        ms, one, many, plain_ms, lib_ms, b, by = time_lm_param_stats(
+            torch, f"granite {name} (phase 23)", ls)
+        _time_line(f"K1 over the {len(ls)} {name} leaves of {LM_CLIENTS} clients "
+                   f"({sum(x.numel() for x in ls):,} elements), max abs err "
+                   f"{(got - expect).abs().max().item():.3e}", ms, one, plain_ms, lib_ms,
+                   f"var_mean x {len(ls)}", b, by, card)
+        del ls, got, expect
+    gen = torch.Generator(device=dev).manual_seed(23)
+    wide = torch.randn((CONTRACT_K1_CLIENTS, 56), generator=gen, device=dev) * 0.1 + 0.3
+    m, v = param_stats.param_stats_batched(wide)
+    rm, rv = ref.param_stats_batched(wide)
+    got, expect = torch.stack([m, v], 1), torch.stack([rm, rv], 1)
+    _assert_stats_close(torch, got, expect, f"contract K1 ({CONTRACT_K1_CLIENTS}, 56)")
+    err = max(err, (got - expect).abs().max().item())
+
+    def kernel():
+        param_stats.param_stats_batched(wide)
+
+    def plain():
+        ref.param_stats_batched(wide)
+
+    def library():
+        torch.var_mean(wide, 1, correction=0)
+
+    n_bytes = wide.numel() * 4 + 2 * CONTRACT_K1_CLIENTS * 4
+    b, by = bound_ms(n_bytes, 4 * wide.numel())
+    _time_line(f"K1 over a ({CONTRACT_K1_CLIENTS}, 56) fp32 stack ({CONTRACT_K1_CLIENTS} CTAs), "
+               f"max abs err {(got - expect).abs().max().item():.3e}", cuda_ms(torch, kernel),
+               graph_ms(torch, kernel), cuda_ms(torch, plain), cuda_ms(torch, library),
+               "var_mean", b, by, card)
+    return err
+
+
+def contract_k2(torch, dev, card) -> None:
+    """Phase 23 (c), K2: bf16 X (4,096, 4,096) against bf16 C (16, 4,096)
+    (K*F 5.3x one C tile: 2 centroid blocks of 4 feature chunks), with
+    and without k_active 11, ids equal to the plain version, timed beside
+    ``cdist + argmin`` on the upcast operands and the bound."""
+    from repro_torch.kernels import kmeans_assign, ref
+    gen = torch.Generator(device=dev).manual_seed(24)
+    X = torch.randn((4096, 4096), generator=gen, device=dev).to(torch.bfloat16)
+    C = torch.randn((16, 4096), generator=gen, device=dev).to(torch.bfloat16)
+    ka = torch.tensor(11, dtype=torch.int32, device=dev)
+    for label, k in (("without k_active", None), ("k_active 11", ka)):
+        got, expect = kmeans_assign.kmeans_assign(X, C, k), ref.kmeans_assign(X, C, k)
+        torch.cuda.synchronize()
+        bad = int((got != expect).sum())
+        assert bad == 0, f"contract K2 {label}: {bad} of {got.numel()} ids differ"
+        Ck = C if k is None else C[:11]
+
+        def kernel(k=k):
+            kmeans_assign.kmeans_assign(X, C, k)
+
+        def plain(k=k):
+            ref.kmeans_assign(X, C, k)
+
+        def library(Ck=Ck):
+            torch.cdist(X.float(), Ck.float()).argmin(1)
+
+        N, F = X.shape
+        Kc = Ck.shape[0]
+        n_bytes = (N * F + C.shape[0] * F) * 2 + N * 4
+        n_ops = 2 * N * Kc * F + 2 * N * F + 2 * Kc * F + 3 * N * Kc
+        b, by = bound_ms(n_bytes, n_ops)
+        _time_line(f"K2 bf16 (4096,4096) x (16,4096) {label}, c_tiles "
+                   f"{kmeans_assign.c_tiles(16, 4096)}, ids equal", cuda_ms(torch, kernel),
+                   graph_ms(torch, kernel), cuda_ms(torch, plain), cuda_ms(torch, library),
+                   "cdist+argmin (fp32)", b, by, card)
+
+
+def _decode_valid_cols(torch, S, pos, window):
+    cols = torch.arange(S, device=pos.device)[None, :]
+    p = pos.reshape(-1)[:, None]
+    mask = cols <= p
+    if window > 0:
+        mask = mask & (cols > p - window)
+    return mask
+
+
+def contract_k3_case(torch, dev, gen, label, B, H, KV, S, D, dts, pos, window, card):
+    """One K3 case of phase 23 (c): q (B,H,1,D) against a cache stored
+    (B,S,KV,D), q / k / v of the types ``dts``, against the plain version
+    (fp32 2e-5, else HALF_RTOL of max |out|), then timed: the wrapper,
+    the device alone, the plain version, SDPA (``enable_gqa``, the cache
+    cast to q's type first where it is another), and the bound: the
+    bytes of the columns the mask keeps, or their operations at the
+    tensor-core rate for a half q, the fp32 rate for fp32, as
+    :func:`contract_k4_case`. Returns the max abs error."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_decode, ref
+    q = torch.randn((B, H, 1, D), generator=gen, device=dev).to(dts[0])
+    k = torch.randn((B, S, KV, D), generator=gen, device=dev).to(dts[1]).transpose(1, 2)
+    v = torch.randn((B, S, KV, D), generator=gen, device=dev).to(dts[2]).transpose(1, 2)
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=dev)
+    before = flash_decode.flash_decode.launches
+    got = flash_decode.flash_decode(q, k, v, pos, window)
+    assert flash_decode.flash_decode.launches == before + 1
+    expect = ref.decode_attention(q, k, v, pos, window).float()
+    torch.cuda.synchronize()
+    err = (got.float() - expect).abs().max().item()
+    tol = 2e-5 if dts == (torch.float32,) * 3 else HALF_RTOL * expect.abs().max().item()
+    assert err <= tol, f"contract K3 {label}: max abs err {err} > {tol}"
+    mask = _decode_valid_cols(torch, S, pos.expand(B), window)        # (B, S)
+    valid = int(mask.sum())
+
+    def kernel():
+        flash_decode.flash_decode(q, k, v, pos, window)
+
+    def plain():
+        ref.decode_attention(q, k, v, pos, window)
+
+    def library():
+        return F.scaled_dot_product_attention(q, k.to(q.dtype), v.to(q.dtype),
+                                              attn_mask=mask[:, None, None, :], enable_gqa=True)
+
+    n_bytes = valid * KV * D * (k.element_size() + v.element_size()) \
+        + 2 * q.numel() * q.element_size() + pos.numel() * 4
+    peak = FP32_FLOPS if dts[0] == torch.float32 else BF16_TENSOR_FLOPS
+    b, by = bound_ms(n_bytes, valid * H * (4 * D + 5), peak)
+    chunks = flash_decode.query_chunks(H // KV)
+    _time_line(f"K3 {label}: q {tuple(q.shape)} {str(dts[0])[6:]}, k {str(dts[1])[6:]}, v "
+               f"{str(dts[2])[6:]} ({B},{S},{KV},{D}), pos {pos.tolist()}, window {window}, "
+               f"D on {flash_decode.padded_dims(D)}, query chunks {chunks}, max abs err "
+               f"{err:.3e} (tol {tol:.3e})", cuda_ms(torch, kernel, reps=200),
+               graph_ms(torch, kernel), cuda_ms(torch, plain, reps=20), cuda_ms(torch, library),
+               "sdpa", b, by, card)
+    return err
+
+
+def contract_k3_graph(torch, dev, gen) -> None:
+    """Three replays of one captured G 48 call on an e5m2 cache (6 query
+    chunks) on new inputs, each against the plain version: the (row,
+    chunk) merge counters are back at 0 after every launch."""
+    from repro_torch.kernels import flash_decode, ref
+    B, H, KV, S, D, W = 4, 48, 1, 4096, 192, 1024
+    q = torch.randn((B, H, 1, D), generator=gen, device=dev).to(torch.float16)
+    k, v = (torch.randn((B, S, KV, D), generator=gen, device=dev).to(torch.float8_e5m2)
+            .transpose(1, 2) for _ in range(2))
+    pos = torch.tensor([4095, 3000, 2047, 1023], dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flash_decode.flash_decode(q, k, v, pos, W)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_decode.flash_decode(q, k, v, pos, W)
+    for rep in range(3):
+        q.copy_(torch.randn(q.shape, generator=gen, device=dev))
+        k.copy_(torch.randn(k.shape, generator=gen, device=dev))
+        v.copy_(torch.randn(v.shape, generator=gen, device=dev))
+        pos.copy_(torch.randint(0, S, (B,), generator=gen, device=dev, dtype=torch.int32))
+        graph.replay()
+        expect = ref.decode_attention(q, k, v, pos, W).float()
+        torch.cuda.synchronize()
+        err = (out.float() - expect).abs().max().item()
+        tol = HALF_RTOL * expect.abs().max().item()
+        assert err <= tol, f"contract K3 graph replay {rep}: {err} > {tol}"
+        log(f"[contract c] K3 graph replay {rep} (G 48 in 6 chunks, e5m2, pos {pos.tolist()}): "
+            f"max abs err {err:.3e} (tol {tol:.3e})")
+
+
+def contract_k4_case(torch, dev, gen, label, B, H, KV, Sq, Sk, D, dts, causal, window, q_offset,
+                     card):
+    """One K4 case of phase 23 (c) against the plain version (an all-fp32
+    call 2e-5, else 2e-2, phase 8's), timed beside SDPA (on k, v cast to
+    q's type where they are of another) and the bound: the operations on
+    the pairs the mask keeps at the tensor-core rate for half types, the
+    fp32 rate for fp32. Returns the max abs error."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention, ops, ref
+    q = torch.randn((B, H, Sq, D), generator=gen, device=dev).to(dts[0])
+    k = torch.randn((B, KV, Sk, D), generator=gen, device=dev).to(dts[1])
+    v = torch.randn((B, KV, Sk, D), generator=gen, device=dev).to(dts[2])
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    kernel_name = flash_attention.kernel_for(*dts, D=D)
+    got = flash_attention.flash_attention(q, k, v, block_q=Sq, block_k=Sk, **kw)
+    expect = ref.attention(q, k, v, **kw).float()
+    torch.cuda.synchronize()
+    err = (got.float() - expect).abs().max().item()
+    tol = 2e-5 if dts == (torch.float32,) * 3 else 2e-2
+    assert err <= tol, f"contract K4 {label}: max abs err {err} > {tol}"
+    rows = q_offset + torch.arange(Sq, device=dev)[:, None]
+    cols = torch.arange(Sk, device=dev)[None, :]
+    mask = cols <= rows if causal else torch.ones((Sq, Sk), dtype=torch.bool, device=dev)
+    if window > 0:
+        mask = mask & (cols > rows - window)
+
+    def kernel():
+        flash_attention.flash_attention(q, k, v, block_q=Sq, block_k=Sk, **kw)
+
+    def plain():
+        ref.attention(q, k, v, **kw)
+
+    # SDPA's causal form where the mask is its (a square causal tile from
+    # position 0), else the mask itself
+    plain_causal = causal and window == 0 and q_offset == 0 and Sq == Sk
+
+    def library():
+        F.scaled_dot_product_attention(q, k.to(q.dtype), v.to(q.dtype),
+                                       attn_mask=None if plain_causal else mask,
+                                       is_causal=plain_causal, enable_gqa=True)
+
+    n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v)) + q.numel() * q.element_size()
+    n_ops = 4 * B * H * D * ops.valid_pairs(Sq, Sk, causal, window, q_offset)
+    peak = FP32_FLOPS if dts[0] == torch.float32 else BF16_TENSOR_FLOPS
+    b, by = bound_ms(n_bytes, n_ops, peak)
+    _time_line(f"K4 {label}: q ({B},{H},{Sq},{D}) {str(dts[0])[6:]}, k {str(dts[1])[6:]}, v "
+               f"{str(dts[2])[6:]} ({B},{KV},{Sk},{D}), causal {causal}, window {window}, "
+               f"q_offset {q_offset}, kernel {kernel_name}, max abs err {err:.3e} (tol {tol:g})",
+               cuda_ms(torch, kernel, reps=10), graph_ms(torch, kernel, reps=10),
+               cuda_ms(torch, plain, reps=3, trials=3), cuda_ms(torch, library, reps=10),
+               "sdpa", b, by, card)
+    return err
+
+
+def contract_phase(torch, dev, lm_data, card: str) -> dict:
+    """Phase 23: the kernels' whole input contract. (a) fp16 serving on
+    an e5m2 cache, (b) the fp16-param LM swarm, each with launch counts
+    read from that run alone; (c) each kernel's newly admitted inputs
+    against its plain version, timed."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    a = contract_serve(torch, dev)
+    b = contract_swarm(torch, dev, lm_data)
+    t_c = time.perf_counter()
+    err = {"k1": max(b["k1_err"], contract_k1(torch, dev, b.pop("leaves"), card))}
+    torch.cuda.empty_cache()
+    contract_k2(torch, dev, card)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    f16, bf16, f32 = torch.float16, torch.bfloat16, torch.float32
+    e5m2 = torch.float8_e5m2
+    k3_cases = [  # label, B, H, KV, S, D, (q, k, v types), pos, window
+        ("D 80", 4, 32, 8, 4096, 80, (f16,) * 3, [4095, 3071, 2047, 1023], 0),
+        ("D 96", 4, 32, 8, 2048, 96, (f16,) * 3, [2047, 1535, 1023, 511], 0),
+        ("MQA G 64", 2, 64, 1, 8192, 128, (bf16,) * 3, [8191, 6143], 0),
+        ("G 48 e5m2 window 1024", 4, 48, 1, 4096, 192, (f16, e5m2, e5m2),
+         [4095, 3000, 2047, 1023], 1024),
+        ("bf16 q on an fp16 cache", 4, 32, 8, 2048, 64, (bf16, f16, f16),
+         [2047, 1535, 1023, 511], 0),
+    ]
+    err["k3"] = max(contract_k3_case(torch, dev, gen, *c, card) for c in k3_cases)
+    contract_k3_graph(torch, dev, gen)
+    B, H, KV, S, D = ATTN_SHAPE
+    k4_cases = [  # label, B, H, KV, Sq, Sk, D, types, causal, window, q_offset
+        ("fp16 granite prefill", B, H, KV, S, S, D, (f16,) * 3, True, 0, 0),
+        ("bf16 D 96", 2, 16, 4, 2048, 2048, 96, (bf16,) * 3, True, 0, 0),
+        ("bf16 D 256", 2, 16, 4, 2048, 2048, 256, (bf16,) * 3, True, 0, 0),
+        ("q bf16, k and v fp16", B, H, KV, S, S, D, (bf16, f16, f16), True, 0, 0),
+        ("fp32 D 80 ragged, q_offset 2000", 2, 16, 4, 1000, 3000, 80, (f32,) * 3, True, 0,
+         2000),
+    ]
+    err["k4"] = max(contract_k4_case(torch, dev, gen, *c, card) for c in k4_cases)
+    torch.cuda.empty_cache()
+    out = {"a": a, "b": b, "err": err, "c_s": time.perf_counter() - t_c,
+           "phase_s": time.perf_counter() - t0}
+    log(f"[contract] phase 23 in {out['phase_s']:.1f} s ((c) {out['c_s']:.1f} s); max abs err "
+        f"K1 {err['k1']:.3e}, K3 {err['k3']:.3e}, K4 {err['k4']:.3e}; K2 ids equal")
+    return out
+
+
 def _kernel_line(name, source, replaces, launches, err, times) -> dict:
     """One entry of the ``{"kernels": [...]}`` line; ``times`` is a
     timing function's (ms, plain_ms, library_ms, bound_ms, bound_by)."""
@@ -4010,12 +4422,14 @@ def main() -> int:
     from repro_torch.kernels import _build
 
     t_all = time.perf_counter()
+    starts = {}  # phase -> its start on the host clock
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     # the plain versions and the comparisons run in full fp32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    starts[1] = time.perf_counter()
     # --- phase 1: build
     t0 = time.perf_counter()
     build_logs = _build.build()
@@ -4031,6 +4445,7 @@ def main() -> int:
     log(f"[build] {len(build_logs)} kernel libraries built in {build_s:.2f} s on {name}")
     log(card)
 
+    starts[2] = time.perf_counter()
     # --- phase 2: kernels against their plain versions, at the path's shapes
     clients = make_dr_swarm_data(image_size=32, seed=0, table=scale_table(1))
     from repro_torch.configs import get_config
@@ -4072,11 +4487,13 @@ def main() -> int:
     del lm, lm_stack
     torch.cuda.empty_cache()
 
+    starts[3] = time.perf_counter()
     # --- phase 3: the main path, with launch counts from this run alone
     tr, launches, round_s = main_path(torch, clients, dev)
 
     profile_round(torch, tr)
 
+    starts[4] = time.perf_counter()
     # --- phase 4: the same round on the card and on the CPU
     torch.backends.cudnn.deterministic = True
     diff, m_card, m_cpu = card_vs_cpu(torch, tr, clients, local_steps=2, eps=1e-6)
@@ -4093,6 +4510,7 @@ def main() -> int:
     log(f"[card-vs-cpu] main-path config (12 local steps, adam eps 1e-8), not asserted: "
         f"max |param diff| {diff12:.3e}")
 
+    starts[5] = time.perf_counter()
     # --- phase 5: flash_decode against its plain version, at the serve shapes
     k3_err = check_flash_decode(torch, dev)
     k3 = time_flash_decode(torch, dev)
@@ -4101,10 +4519,12 @@ def main() -> int:
                                (64, 112, torch.float8_e4m3fn, "kimi-k2")):
         time_flash_decode(torch, dev, H, D, cache, label)
 
+    starts[6] = time.perf_counter()
     # --- phase 6: the serve path at full width, launch counts from the drain alone
-    k3_launches, _ = serve_path(torch, dev)
+    k3_launches, _, _ = serve_path(torch, dev)
     torch.cuda.empty_cache()
 
+    starts[7] = time.perf_counter()
     # --- phase 7: the same serve on the card and on the CPU
     same, diff, _ = card_vs_cpu_serve(torch, dev, "float32")
     assert same, "card and CPU generate different tokens in fp32"
@@ -4116,7 +4536,16 @@ def main() -> int:
     same16, diff16, _ = card_vs_cpu_serve(torch, dev, "bfloat16")
     log(f"[card-vs-cpu serve] bf16, not asserted: tokens equal {same16}, "
         f"max |logit diff| {diff16:.3e}")
+    # fp16 (phase 23's serving type): tokens asserted equal; its e5m2
+    # cache's logits against its fp16 cache's within the reference's 0.2.
+    # No logit comparison: on the card's host the CPU's fp16 matmuls run
+    # at ~0.6 GFLOP/s (206 s for generate and the logits loop at 64 wide)
+    same_h, _, _, rel_e5m2 = card_vs_cpu_serve(torch, dev, CONTRACT_DTYPE, CONTRACT_CACHE,
+                                               logits=False)
+    assert same_h, "card and CPU generate different tokens in fp16"
+    assert rel_e5m2 < MOE_FP8_RTOL, f"e5m2 cache logits {rel_e5m2} off the fp16 cache's"
 
+    starts[8] = time.perf_counter()
     # --- phase 8: flash_attention against its plain version, at granite's prefill shape
     k4_err = check_flash_attention(torch, dev)
     k4 = time_flash_attention(torch, dev)
@@ -4125,6 +4554,7 @@ def main() -> int:
         f"({k4[4]})")
     torch.cuda.empty_cache()
 
+    starts[9] = time.perf_counter()
     # --- phase 9: flash_attention on its path, launch count from this phase alone
     k4_launches, attn_diff, attn_scale = attention_path(torch, dev)
     assert k4_launches == ATTN_LAUNCHES_PER_LAYER, f"flash_attention launches {k4_launches}"
@@ -4135,9 +4565,11 @@ def main() -> int:
         f"kernel composition and attend_full differ by {attn_diff} (max |out| {attn_scale})"
     torch.cuda.empty_cache()
 
+    starts[10] = time.perf_counter()
     # --- phase 10: Table II on the card, launch counts from the sweep alone
     t2_launches, accs, serial_acc, sweep_s, serial_s = table2(torch, dev)
 
+    starts[11] = time.perf_counter()
     # --- phase 11: the grid axis, launch counts from the ablation alone
     g_launches, g_results, g_states, grid_s, sched_s, g_clients, g_data = grid_path(torch, dev)
     gdiff, gm_card, gm_cpu, g_k2 = card_vs_cpu_grid(torch, g_states[1], g_clients, g_data)
@@ -4154,6 +4586,7 @@ def main() -> int:
     # atol 1e-4, as phase 4
     assert gdiff <= 1e-4, f"card and CPU grid params differ by {gdiff}"
 
+    starts[12] = time.perf_counter()
     # --- phase 12: the churn axis, launch counts from the sweep alone
     c_launches, c_results, c_states, c_specs, churn_s, c_clients, c_data = churn_path(torch, dev)
     c_row = c_specs.index({"dropout": 0.4, "stale_decay": 0.5})
@@ -4174,9 +4607,11 @@ def main() -> int:
     # atol 1e-4, as phase 4
     assert cdiff <= 1e-4, f"card and CPU churn params differ by {cdiff}"
 
+    starts[13] = time.perf_counter()
     # --- phase 13: the bucketed layout on the main path's data
     b_launches, b_secs, b_pads, b_diff = bucket_path(torch, dev, clients)
 
+    starts[14] = time.perf_counter()
     # --- phase 14: the two-tier coordinator, launch counts from the 4-pod fit alone
     t14 = [time.perf_counter()]
     h_launches, h_secs, h_state, h_cfg, h_data = hier_fit(torch, dev, clients)
@@ -4208,6 +4643,7 @@ def main() -> int:
     h_launches = {**h_launches, "kmeans_assign": h_launches["kmeans_assign"] + h_scaling_k2}
     torch.cuda.empty_cache()
 
+    starts[15] = time.perf_counter()
     # --- phase 15: the swarm over an LM, launch counts from each fit alone
     from repro_torch.data.tokens import make_token_swarm_data
     t15 = time.perf_counter()
@@ -4239,6 +4675,7 @@ def main() -> int:
     assert ldiff <= 1e-4, f"card and CPU LM params differ by {ldiff}"
     t16 = time.perf_counter()
 
+    starts[16] = time.perf_counter()
     # --- phase 16: train -> checkpoint -> serve, K3 launches from the drain alone
     k3_lm, ck = lm_checkpoint_serve(torch, dev, tr_a, lm_data)
     del tr_a
@@ -4247,6 +4684,7 @@ def main() -> int:
     log(f"[lm] phase 15 in {t16 - t15:.1f} s, phase 16 in {time.perf_counter() - t16:.1f} s")
     torch.cuda.empty_cache()
 
+    starts[17] = time.perf_counter()
     # --- phase 17: the moe family served, K3 launches from each drain alone
     t17 = time.perf_counter()
     k3_moe, moe_info = moe_serve_path(torch, dev)
@@ -4255,48 +4693,65 @@ def main() -> int:
     log(f"[moe] phase 17 in {time.perf_counter() - t17:.1f} s")
     torch.cuda.empty_cache()
 
+    starts[18] = time.perf_counter()
     # --- phase 18: the ssm and hybrid families served and trained, launch
     # counts from each run alone
     assert get_config(HYBRID_ARCH).sliding_window == SSM_WINDOW
     ssm = ssm_phase(torch, dev, lm_data, card)
 
+    starts[19] = time.perf_counter()
     # --- phase 19: the encdec and vlm families served and trained, K3
     # launches from each run alone
     assert get_config(ENCDEC_ARCH).encoder_seq == ENCDEC_CROSS_SEQ
     ev = encdec_vlm_phase(torch, dev, card)
     torch.cuda.empty_cache()
 
+    starts[20] = time.perf_counter()
     # --- phase 20: the fleet regime over one NCCL rank, launch counts from
     # each run alone
     fl = fleet_phase(torch, dev, clients, round_s)
 
+    starts[21] = time.perf_counter()
     # --- phase 21: the production dry-run's one-card probe, K3 launches
     # from its decode probes alone
     torch.cuda.empty_cache()
     dr = dryrun_phase(torch, dev, card)
 
+    starts[22] = time.perf_counter()
     # --- phase 22: the LM fleet placed by the table, launch counts from
     # its coordinated rounds alone
     torch.cuda.empty_cache()
     pf = placed_fleet_phase(torch, dev, lm_data, card)
 
+    starts[23] = time.perf_counter()
+    # --- phase 23: the kernels' whole input contract, launch counts from
+    # its serve and swarm runs alone
+    ct = contract_phase(torch, dev, lm_data, card)
+    ends = [*list(starts.values())[1:], time.perf_counter()]
+    phase_s = {n: round(e - t, 1) for (n, t), e in zip(starts.items(), ends)}
+    log(f"[phases] seconds each: {phase_s}")
+
     kernels = [
         _kernel_line("param_stats_batched", "param_stats", "src/repro/kernels/param_stats.py:92",
                      sum(n["param_stats_batched"]
                          for n in (launches, g_launches, c_launches, b_launches, h_launches,
-                                   la, lb, ssm["launches"], fl["launches"], pf["launches"])),
-                     max(k1_err, fl["k1_err"]), k1),
+                                   la, lb, ssm["launches"], fl["launches"], pf["launches"],
+                                   ct["b"]["launches"])),
+                     max(k1_err, fl["k1_err"], ct["err"]["k1"]), k1),
         _kernel_line("kmeans_assign", "kmeans_assign", "src/repro/kernels/kmeans_assign.py:44",
                      sum(n["kmeans_assign"]
                          for n in (launches, g_launches, c_launches, b_launches, h_launches,
-                                   la, lb, ssm["launches"], fl["launches"], pf["launches"])),
+                                   la, lb, ssm["launches"], fl["launches"], pf["launches"],
+                                   ct["b"]["launches"])),
                      k2_err, k2),
         _kernel_line("flash_decode", "flash_decode", "src/repro/kernels/flash_decode.py:93",
-                     k3_launches + k3_lm + k3_moe + ssm["k3"] + ev["k3"] + dr["k3"],
-                     max(k3_err, ssm["k3_err"], ev["k3_err"],
+                     k3_launches + k3_lm + k3_moe + ssm["k3"] + ev["k3"] + dr["k3"]
+                     + ct["a"]["k3"],
+                     max(k3_err, ssm["k3_err"], ev["k3_err"], ct["err"]["k3"],
                          *(r["err"] for r in dr["k3_probe"].values())), k3),
         _kernel_line("flash_attention", "flash_attention",
-                     "src/repro/kernels/flash_attention.py:89", k4_launches, k4_err, k4),
+                     "src/repro/kernels/flash_attention.py:89", k4_launches,
+                     max(k4_err, ct["err"]["k4"]), k4),
     ]
     log(f"[done] {time.perf_counter() - t_all:.1f} s in all; "
         f"round seconds {round_s}; Table II sweep {sweep_s:.3f} s, serial bso-sl "
@@ -4347,11 +4802,17 @@ def main() -> int:
         f"{ {k: round(r['times'][0], 4) for k, r in dr['k3_probe'].items()} } ms; "
         f"placed fleet (phase 22, {pf['phase_s']:.1f} s): round steps {[round(x, 4) for x in pf['secs']]} s, peak "
         f"{pf['peak'] / 1e9:.2f} GB, busy {pf['busy']:.1%} of a profiled round step, auto vs "
-        f"shard_map {pf['diff_adam']:.3e} under adam, {pf['diff_sgd']:.3e} under sgd; K1 and K2 "
-        f"launches in the kernels "
+        f"shard_map {pf['diff_adam']:.3e} under adam, {pf['diff_sgd']:.3e} under sgd; fp16 "
+        f"serving card vs CPU (phase 7): tokens equal {same_h}, e5m2 vs fp16 cache "
+        f"{rel_e5m2:.4f}; contract (phase 23, {ct['phase_s']:.1f} s): fp16 on "
+        f"e5m2 served {ct['a']['tok_s']:.2f} tok/s, {ct['a']['tick_ms']:.2f} ms a tick, TTFT p50 "
+        f"{ct['a']['ttft_p50_ms']:.1f} ms; fp16-param LM swarm round seconds "
+        f"{[round(x, 4) for x in ct['b']['secs']]}, peak {ct['b']['peak'] / 1e9:.2f} GB; K1 and "
+        f"K2 launches in the kernels "
         f"line: phases 3, 11, 12, 13, 14 (its 4-pod fit and scaling axis), 15, 18, 20 (the fleet's "
-        f"runs (a)-(c)) and 22 (a); K3: phases "
-        f"6, 16, 17, 18, 19 and 21; K3's max_abs_err over phases 5, 18, 19 and 21")
+        f"runs (a)-(c)), 22 (a) and 23 (b); K3: phases "
+        f"6, 16, 17, 18, 19, 21 and 23 (a); K3's max_abs_err over phases 5, 18, 19, 21 and 23, "
+        f"K1's and K4's also over 23")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -30,8 +30,8 @@ def _leaf_from_numpy(a, device) -> torch.Tensor:
     a = np.array(a, order="C")           # a contiguous copy; a () array stays ()
     if a.dtype.name == "bfloat16":        # ml_dtypes' bfloat16, as JAX hands it
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
-    if a.dtype.name == "float8_e4m3fn":   # an fp8 KV cache
-        return torch.from_numpy(a.view(np.uint8)).view(torch.float8_e4m3fn).to(device)
+    if a.dtype.name in ("float8_e4m3fn", "float8_e5m2"):   # an fp8 KV cache
+        return torch.from_numpy(a.view(np.uint8)).view(getattr(torch, a.dtype.name)).to(device)
     if a.dtype not in _NP_TO_TORCH:
         raise TypeError(f"no torch dtype for numpy {a.dtype}")
     return torch.from_numpy(a).to(device)
@@ -42,9 +42,9 @@ def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         import ml_dtypes
         return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
-    if t.dtype == torch.float8_e4m3fn:
+    if t.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
         import ml_dtypes
-        return t.view(torch.uint8).numpy().view(ml_dtypes.float8_e4m3fn)
+        return t.view(torch.uint8).numpy().view(getattr(ml_dtypes, str(t.dtype)[6:]))
     return t.numpy()
 
 

@@ -4,7 +4,9 @@
 // Replaces the Pallas kernel repro/kernels/param_stats.py
 // (param_stats_batched, body _stats_kernel): the paper's §III.B
 // distribution summary, fp32 (mean, var) over the trailing axes of a
-// client-stacked (N, n) leaf read at its source width (fp32 or bf16).
+// client-stacked (N, n) leaf read at its source width: fp32, bf16, fp16,
+// fp8 e4m3 or fp8 e5m2, each converted to fp32 as it is loaded (the Pallas
+// kernel's astype(float32) a block).
 //
 // Bound: bytes, far from it. Each element is read once and costs a
 // handful of fp32 operations, so the floor is the leaves' bytes over
@@ -20,7 +22,9 @@
 // parameter, so nothing is copied to the device before the launch, and a
 // captured CUDA graph replays with the pointers it captured. A CTA finds
 // its (leaf, client, slice) by a binary search over the table's first
-// CTAs.
+// CTAs; the CTAs run along grid x, so a launch takes any number of clients
+// up to 2^31 - 1 CTAs in all. The leaf's type code selects the load; each
+// thread reads 16-byte vectors of 4, 8 or 16 values.
 //   - A row of at most `chunk` elements (every row of the round) is one
 //     CTA. Its 256 threads read the row in 16-byte vectors, four in flight
 //     a thread, with scalars at an unaligned head and at the tail. Each
@@ -40,6 +44,8 @@
 // instead). Element indices are 64-bit, so rows of 2^31 elements and more
 // work.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -60,7 +66,7 @@ struct Leaf {
   int slices;     // CTAs a client
   int part0;      // first partial (slices > 1)
   int ctr0;       // first merge counter (slices > 1)
-  int dtype;      // 0 = float32, 1 = bfloat16
+  int dtype;      // 0 float32, 1 bfloat16, 2 float16, 3 fp8 e4m3, 4 fp8 e5m2
   int pad;
 };
 static_assert(sizeof(Leaf) == 40, "the wrapper's LEAF_RECORD is 40 bytes");
@@ -106,22 +112,17 @@ __device__ __forceinline__ void fold(int& n, float& mean, float& m2, const float
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 v) { return static_cast<float>(v); }
+__device__ __forceinline__ float to_f32(__nv_fp8_e5m2 v) { return static_cast<float>(v); }
 
-// A 16-byte vector as floats: 4 fp32, or 8 bf16 (a bf16 is the high half
-// of its fp32, so the widening is exact).
-__device__ __forceinline__ void unpack(const uint4& u, float (&v)[4]) {
-  v[0] = __uint_as_float(u.x);
-  v[1] = __uint_as_float(u.y);
-  v[2] = __uint_as_float(u.z);
-  v[3] = __uint_as_float(u.w);
-}
-__device__ __forceinline__ void unpack(const uint4& u, float (&v)[8]) {
-  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+// A 16-byte vector as floats: 4 fp32, 8 bf16 or fp16, or 16 fp8 values.
+// Every widening to fp32 is exact.
+template <typename T>
+__device__ __forceinline__ void unpack(const uint4& u, float (&v)[16 / sizeof(T)]) {
+  const T* x = reinterpret_cast<const T*>(&u);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    v[2 * i] = __uint_as_float(w[i] << 16);
-    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
+  for (int i = 0; i < (int)(16 / sizeof(T)); ++i) v[i] = to_f32(x[i]);
 }
 
 // Fold row[a, e) into this thread's triple: scalars up to the first
@@ -146,13 +147,13 @@ __device__ __forceinline__ void range_stats(const T* __restrict__ row, long long
 #pragma unroll
     for (int k = 0; k < kUnroll; ++k) {
       float v[V];
-      unpack(u[k], v);
+      unpack<T>(u[k], v);
       fold<V>(n, mean, m2, v);
     }
   }
   for (; j < nv; j += kThreads) {
     float v[V];
-    unpack(__ldg(vp + j), v);
+    unpack<T>(__ldg(vp + j), v);
     fold<V>(n, mean, m2, v);
   }
   const long long t0 = v0 + nv * V;
@@ -224,10 +225,23 @@ param_stats_kernel(const __grid_constant__ Table table, long long chunk, float* 
 
   int cnt = 0;
   float mean = 0.f, m2 = 0.f;
-  if (leaf.dtype == 0)
-    range_stats(static_cast<const float*>(leaf.x) + client * n, a, e, cnt, mean, m2);
-  else
-    range_stats(static_cast<const __nv_bfloat16*>(leaf.x) + client * n, a, e, cnt, mean, m2);
+  switch (leaf.dtype) {  // the same on every thread of the CTA
+    case 0:
+      range_stats(static_cast<const float*>(leaf.x) + client * n, a, e, cnt, mean, m2);
+      break;
+    case 1:
+      range_stats(static_cast<const __nv_bfloat16*>(leaf.x) + client * n, a, e, cnt, mean, m2);
+      break;
+    case 2:
+      range_stats(static_cast<const __half*>(leaf.x) + client * n, a, e, cnt, mean, m2);
+      break;
+    case 3:
+      range_stats(static_cast<const __nv_fp8_e4m3*>(leaf.x) + client * n, a, e, cnt, mean, m2);
+      break;
+    default:
+      range_stats(static_cast<const __nv_fp8_e5m2*>(leaf.x) + client * n, a, e, cnt, mean, m2);
+      break;
+  }
   block_merge(cnt, mean, m2);
   float* o = out + client * out_stride + 2 * lo;
   if (leaf.slices == 1) {

@@ -17,14 +17,33 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 KERNELS = ("param_stats", "kmeans_assign", "flash_decode", "flash_attention")
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
+# --split-compile=0 runs the optimizer over one source on every CPU (the
+# 100 template instances of flash_decode.cu take half the time)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "--split-compile=0", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# the storage types every kernel reads, by the code each csrc launcher
+# takes: what the configs can produce (models/layers.DTYPES and
+# attention.cache_dtype); each kernel converts them to fp32 on load
+STORAGE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+                 torch.float8_e4m3fn: 3, torch.float8_e5m2: 4}
 
 _loaded: dict = {}
+
+
+def storage_code(dtype: torch.dtype, what: str) -> int:
+    """The launcher's code of a storage type; any other type (fp64, an
+    integer type) raises TypeError naming ``what``."""
+    if dtype not in STORAGE_CODES:
+        raise TypeError(f"{what} must be of {', '.join(str(t)[6:] for t in STORAGE_CODES)}, "
+                        f"got {dtype}")
+    return STORAGE_CODES[dtype]
 
 
 def nvcc_path() -> str:
@@ -91,7 +110,6 @@ def build_log(name: str) -> str:
 @functools.lru_cache(maxsize=None)
 def sm_count(device_index: int) -> int:
     """Streaming multiprocessors of a card, read once per device."""
-    import torch
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 

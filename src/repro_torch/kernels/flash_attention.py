@@ -3,9 +3,14 @@ attention over a whole sequence.
 
 Wraps ``csrc/flash_attention.cu``, the port of the Pallas kernel
 ``repro/kernels/flash_attention.py`` (``flash_attention``). The source
-note there says what bounds it and how a CTA walks its K/V tiles. bf16
-runs on the tensor cores (``mma``), fp32 on the FMA units (``fma``);
-:func:`launch_plan` picks the kernel and its grid. Its plain version is
+note there says what bounds it and how a CTA walks its K/V tiles. q, k
+and v all bf16 or all fp16 at D <= 128 run on the tensor cores
+(``mma``); every other case runs on the FMA units (``fma``), each input
+converted from its own type as it is staged: fp32, mixed types, a k or
+v of an fp8 type, and D from 129 to ``MAX_HEAD_DIM``. :func:`kernel_for`
+and :func:`launch_plan` choose the kernel and its grid by the types and
+D up front. Still refused: D above ``MAX_HEAD_DIM``, and a q of an fp8
+type or of fp64. Its plain version is
 :func:`repro_torch.kernels.ref.attention`.
 """
 from __future__ import annotations
@@ -17,10 +22,12 @@ import torch
 
 from repro_torch.kernels import _build
 
-# the kernel each input type runs, and its id in the C launcher
-KERNEL_FOR_DTYPE = {torch.float32: "fma", torch.bfloat16: "mma"}
+Q_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+MMA_DTYPES = (torch.bfloat16, torch.float16)
 _KERNEL_IDS = {"fma": 0, "mma": 1}
-HEAD_DIMS = (32, 64, 128)
+LAYOUTS = (32, 64, 128, 256)          # padded dims of a row in shared memory
+MAX_HEAD_DIM = LAYOUTS[-1]
+MMA_MAX_HEAD_DIM = 128                # the tensor-core kernel's registers
 BLOCK_K = 64                          # keys a K/V tile, both kernels
 
 
@@ -28,7 +35,7 @@ def _lib():
     lib = _build.load("flash_attention")
     fn = lib.flash_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 13
                        + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -44,27 +51,47 @@ def check_blocks(Sq: int, Sk: int, block_q: int, block_k: int) -> None:
         raise ValueError(f"seq ({Sq},{Sk}) must divide blocks ({bq},{bk})")
 
 
-def kernel_for(dtype: torch.dtype) -> str:
-    """``"mma"`` (tensor cores) for bf16, ``"fma"`` (fp32 FMA units; TF32
-    would miss fp32's 2e-5) for fp32; any other type raises."""
-    if dtype not in KERNEL_FOR_DTYPE:
-        raise TypeError(f"flash_attention takes q, k, v of one type among float32 and "
-                        f"bfloat16, got {dtype}")
-    return KERNEL_FOR_DTYPE[dtype]
+def padded_dims(D: int) -> int:
+    """The dims a row holds in shared memory: the first of ``LAYOUTS`` at
+    or above D (pad dims zero). A D outside 1..``MAX_HEAD_DIM`` raises."""
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention takes a head dim D <= {MAX_HEAD_DIM}, got {D}")
+    return next(dp for dp in LAYOUTS if D <= dp)
+
+
+def kernel_for(q_dtype: torch.dtype, k_dtype: torch.dtype | None = None,
+               v_dtype: torch.dtype | None = None, D: int = 64) -> str:
+    """The kernel of a call by its types (k's and v's default to q's) and
+    head dim: ``"mma"`` (tensor cores) where q, k and v are all bf16 or
+    all fp16 and D <= ``MMA_MAX_HEAD_DIM``, ``"fma"`` (fp32 FMA units;
+    TF32 would miss fp32's 2e-5) for every other case. A q outside fp32,
+    bf16 and fp16, a k or v outside the storage types, or a D above
+    ``MAX_HEAD_DIM`` raises."""
+    k_dtype = k_dtype or q_dtype
+    v_dtype = v_dtype or q_dtype
+    if q_dtype not in Q_DTYPES:
+        raise TypeError(f"flash_attention takes q of float32, bfloat16 or float16, got {q_dtype}")
+    _build.storage_code(k_dtype, "flash_attention's k")
+    _build.storage_code(v_dtype, "flash_attention's v")
+    padded_dims(D)
+    same = q_dtype == k_dtype == v_dtype
+    return "mma" if same and q_dtype in MMA_DTYPES and D <= MMA_MAX_HEAD_DIM else "fma"
 
 
 def rows_per_cta(kernel: str, D: int) -> int:
     """Query rows a CTA: ``mma`` gives each of its 4 warps 32 rows where
-    the registers allow (D <= 64) and 16 at D 128; ``fma`` 64."""
+    the registers allow (D <= 64) and 16 above; ``fma`` 64."""
     return 128 if kernel == "mma" and D <= 64 else 64
 
 
-def launch_plan(dtype: torch.dtype, B: int, H: int, Sq: int, D: int):
-    """(kernel, rows a CTA, grid) of one call. ``mma``'s grid is (H, B,
-    n_q) and its CTA ``z`` takes q tile ``n_q - 1 - z``
-    (:func:`q_tile_order`), so the heaviest causal tiles are dispatched
-    first; ``fma`` keeps (n_q, H, B) with q tile ``x``."""
-    kernel = kernel_for(dtype)
+def launch_plan(dtypes, B: int, H: int, Sq: int, D: int):
+    """(kernel, rows a CTA, grid) of one call; ``dtypes`` is q's type or
+    (q's, k's, v's). ``mma``'s grid is (H, B, n_q) and its CTA ``z``
+    takes q tile ``n_q - 1 - z`` (:func:`q_tile_order`), so the heaviest
+    causal tiles are dispatched first; ``fma`` keeps (n_q, H, B) with q
+    tile ``x``."""
+    dtypes = dtypes if isinstance(dtypes, tuple) else (dtypes,)
+    kernel = kernel_for(*dtypes, D=D)
     bq = rows_per_cta(kernel, D)
     n_q = math.ceil(Sq / bq)
     return kernel, bq, ((H, B, n_q) if kernel == "mma" else (n_q, H, B))
@@ -97,6 +124,14 @@ def _aligned16(t: torch.Tensor) -> bool:
     return t.data_ptr() % 16 == 0 and all(s * es % 16 == 0 for s in t.stride()[:3])
 
 
+def stages_by_vectors(q, k, v) -> bool:
+    """Whether the kernels load q, k, v in 16-byte vectors: every base
+    and stride, and each row's D elements, are whole 16-byte chunks;
+    else they stage with ordinary loads."""
+    D = q.shape[3]
+    return all(_aligned16(t) and D * t.element_size() % 16 == 0 for t in (q, k, v))
+
+
 def _launch(q, k, v, out, causal: bool, window: int, q_offset: int) -> None:
     """Checks the operands and launches one kernel writing ``out``
     (B,H,Sq,D), which may be a strided view."""
@@ -104,29 +139,26 @@ def _launch(q, k, v, out, causal: bool, window: int, q_offset: int) -> None:
     if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
         raise ValueError(f"flash_attention kernel needs q, k, v on one CUDA device, got "
                          f"{q.device}, {k.device}, {v.device}")
-    if q.dtype not in KERNEL_FOR_DTYPE or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention takes q, k, v of one type among float32 and "
-                        f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention wants q (B,H,Sq,D) and k, v (B,KV,Sk,D), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     B, H, Sq, D = q.shape
     KV, Sk = k.shape[1], k.shape[2]
+    kernel, _, grid = launch_plan((q.dtype, k.dtype, v.dtype), B, H, Sq, D)
     if k.shape[0] != B or k.shape[3] != D or KV < 1 or H % KV:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit k, v "
                          f"{tuple(k.shape)} (H % KV == 0)")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention takes D in {HEAD_DIMS}, got {D}")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     if any(t.stride(3) != 1 for t in tensors):
         raise ValueError("flash_attention reads and writes with a unit stride on D")
-    vec = int(all(_aligned16(t) for t in (q, k, v)))
-    kernel, _, grid = launch_plan(q.dtype, B, H, Sq, D)
+    vec = int(stages_by_vectors(q, k, v))
+    codes = _build.STORAGE_CODES             # each checked by launch_plan
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     _KERNEL_IDS[kernel], B, H, KV, Sq, Sk, D, int(causal), window, q_offset,
+                     _KERNEL_IDS[kernel], codes[q.dtype], codes[k.dtype], codes[v.dtype], B, H,
+                     KV, Sq, Sk, D, int(causal), window, q_offset,
                      *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
                      vec, *grid, stream)
     if err != 0:
@@ -137,9 +169,9 @@ def _launch(q, k, v, out, causal: bool, window: int, q_offset: int) -> None:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
                     window: int = 0, block_q: int = 128, block_k: int = 128,
                     q_offset: int = 0) -> torch.Tensor:
-    """q (B,H,Sq,D), k and v (B,KV,Sk,D), fp32 or bf16 of one type on
-    one CUDA device, any strides with D unit-stride. Returns (B,H,Sq,D)
-    in q's type. ``block_q`` / ``block_k`` only carry the reference's
+    """q (B,H,Sq,D) fp32, bf16 or fp16, k and v (B,KV,Sk,D) each of any
+    storage type, on one CUDA device, D <= ``MAX_HEAD_DIM``, any strides
+    with D unit-stride. Returns (B,H,Sq,D) in q's type. ``block_q`` / ``block_k`` only carry the reference's
     shape rule (:func:`check_blocks`). One count per launch."""
     check_blocks(q.shape[2], k.shape[2], block_q, block_k)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)

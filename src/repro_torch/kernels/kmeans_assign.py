@@ -5,6 +5,12 @@ Wraps ``csrc/kmeans_assign.cu``, the port of the Pallas kernel
 there says what bounds it and how it is laid out. Its plain version is
 :func:`repro_torch.kernels.ref.kmeans_assign`.
 
+X and C may each be any of the storage types (``_build.STORAGE_CODES``),
+converted to fp32 as the kernel loads them, and any K >= 1 by F >= 1:
+C passes through shared memory in tiles of ``TILE_K`` centroids by
+``CHUNK_F`` features (:func:`c_tiles`), staged once a CTA where it is
+one tile, else once for each group of rows.
+
 The ``k_active`` operand (a () integer tensor on the card, or None for
 all K centroids) makes only centroids ``< k_active`` eligible: the grid
 axis's masked static-max k-means. The kernel reads it on the device, so
@@ -15,12 +21,14 @@ the buffer holds. ``launches`` counts every launch and
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from repro_torch.kernels import _build
 
-SMEM_LIMIT = 48 * 1024                # static launch limit, no opt-in
+TILE_K = 8                            # centroids a tile of C (kBlockK)
+CHUNK_F = 1024                        # features a tile of C (kChunkF)
 
 
 def _lib():
@@ -28,32 +36,38 @@ def _lib():
     fn = lib.kmeans_assign_launch
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
+def c_tiles(K: int, F: int) -> tuple:
+    """(centroid blocks, feature chunks a block) that C (K, F) takes
+    through shared memory in tiles of ``TILE_K`` centroids by ``CHUNK_F``
+    features, walked in order by every group of rows; at (1, 1) the one
+    tile is staged once a CTA."""
+    return math.ceil(K / TILE_K), math.ceil(F / CHUNK_F)
+
+
 def kmeans_assign(X: torch.Tensor, C: torch.Tensor, k_active=None) -> torch.Tensor:
-    """X (N, F) points, C (K, F) centroids, both fp32, contiguous and
-    on one CUDA device -> (N,) int32 nearest-centroid ids. ``k_active``:
-    None, or a () integer tensor on X's device (clamped to [0, K] on the
-    card; taken as int32)."""
+    """X (N, F) points and C (K, F) centroids, each of a storage type,
+    contiguous, on one CUDA device -> (N,) int32 nearest-centroid ids.
+    ``k_active``: None, or a () integer tensor on X's device (clamped to
+    [0, K] on the card; taken as int32)."""
     if X.device.type != "cuda" or C.device != X.device:
         raise ValueError(f"kmeans_assign kernel needs X and C on one CUDA device, "
                          f"got {X.device} and {C.device}")
-    if X.dtype != torch.float32 or C.dtype != torch.float32:
-        raise TypeError(f"kmeans_assign takes float32, got {X.dtype} and {C.dtype}")
-    if X.dim() != 2 or C.dim() != 2 or X.shape[1] != C.shape[1] or C.shape[0] < 1:
-        raise ValueError(f"kmeans_assign wants X (N,F) and C (K>=1,F), got "
+    codes = (_build.storage_code(X.dtype, "kmeans_assign's X"),
+             _build.storage_code(C.dtype, "kmeans_assign's C"))
+    if X.dim() != 2 or C.dim() != 2 or X.shape[1] != C.shape[1] or C.shape[0] < 1 \
+            or X.shape[1] < 1:
+        raise ValueError(f"kmeans_assign wants X (N,F>=1) and C (K>=1,F), got "
                          f"{tuple(X.shape)} and {tuple(C.shape)}")
     if not (X.is_contiguous() and C.is_contiguous()):
         raise ValueError("kmeans_assign needs contiguous X and C")
     N, F = X.shape
     K = C.shape[0]
-    smem = (K * F + K) * 4
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"kmeans_assign stages C in shared memory: K*F={K * F} "
-                         f"needs {smem} B, more than {SMEM_LIMIT} B")
     if k_active is not None:
         if not isinstance(k_active, torch.Tensor) or k_active.dim() != 0 \
                 or k_active.dtype.is_floating_point or k_active.dtype.is_complex \
@@ -68,7 +82,7 @@ def kmeans_assign(X: torch.Tensor, C: torch.Tensor, k_active=None) -> torch.Tens
         stream = torch.cuda.current_stream(X.device).cuda_stream
         err = _lib()(X.data_ptr(), C.data_ptr(),
                      None if k_active is None else k_active.data_ptr(),
-                     out.data_ptr(), N, F, K, stream)
+                     out.data_ptr(), N, F, K, *codes, stream)
     if err != 0:
         raise RuntimeError(f"kmeans_assign launch failed: CUDA error {err}")
     kmeans_assign.launches += 1

@@ -6,7 +6,10 @@ Wraps ``csrc/param_stats.cu``, the port of the Pallas kernel
 ``repro/kernels/param_stats.py`` (``param_stats_batched``). The source
 note there says what bounds it, how a CTA finds its leaf in the table
 that the launch carries, and how a long row splits and merges in the
-same launch. Its plain version is
+same launch. Leaves may be of any of the storage types
+(``_build.STORAGE_CODES``: fp32, bf16, fp16, fp8 e4m3 and e5m2), each
+converted to fp32 as it is loaded, mixed in one launch, and of any
+number of clients. Its plain version is
 :func:`repro_torch.kernels.ref.param_stats_leaves`.
 """
 from __future__ import annotations
@@ -23,9 +26,7 @@ from repro_torch.kernels.flash_decode import merge_counter
 
 MAX_LEAVES = 64                       # the kernel's table (kMaxLeaves)
 ROW_PER_CTA = 16384                   # elements a CTA reads; a longer row splits
-MAX_CLIENTS = 65535
 _INT32_MAX = 2**31 - 1
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # one record of the kernel's table (struct Leaf in csrc/param_stats.cu):
 # data pointer, elements a client, first CTA, slices, first partial,
 # first counter, dtype, padding
@@ -57,6 +58,15 @@ class Launch(NamedTuple):
     n_ctas: int
     n_parts: int
     n_counters: int
+
+
+def leaf_record(ptr: int, n: int, cta0: int, slices: int, part0: int, ctr0: int,
+                dtype: torch.dtype) -> bytes:
+    """One leaf's record of the launch's table: its data pointer, its
+    elements a client, its place in the launch (:class:`Launch`) and its
+    storage type's code."""
+    return LEAF_RECORD.pack(ptr, n, cta0, slices, part0, ctr0,
+                            _build.storage_code(dtype, "a param_stats leaf"), 0)
 
 
 def slices(n: int) -> int:
@@ -100,8 +110,7 @@ def _check(leaves) -> torch.device:
         if not x.is_cuda or x.get_device() != dev.index:
             raise ValueError(f"param_stats kernel needs every leaf on one CUDA device, got "
                              f"{sorted({str(x.device) for x in leaves})}")
-        if x.dtype not in _DTYPES:
-            raise TypeError(f"param_stats takes float32 or bfloat16 leaves, got {x.dtype}")
+        _build.storage_code(x.dtype, "a param_stats leaf")
         if x.dim() < 1:
             raise ValueError("param_stats needs a leading client axis on every leaf")
         if not x.is_contiguous():
@@ -111,14 +120,12 @@ def _check(leaves) -> torch.device:
     if any(x.shape[0] != N for x in leaves):
         raise ValueError(f"param_stats needs one client axis, got "
                          f"{sorted({x.shape[0] for x in leaves})}")
-    if N > MAX_CLIENTS:
-        raise ValueError(f"param_stats takes at most {MAX_CLIENTS} clients, got {N}")
     return dev
 
 
 def param_stats_leaves(leaves) -> torch.Tensor:
     """Per-client fp32 (mean, var) over the trailing axes of each of
-    ``leaves``: T client-stacked (N, ...) tensors, fp32 or bf16,
+    ``leaves``: T client-stacked (N, ...) tensors of any storage types,
     contiguous, on one CUDA device. Returns (N, T, 2) fp32, ``[..., 0]``
     the mean and ``[..., 1]`` the var; an empty trailing extent gives
     NaN. One launch, and one count, for every ``MAX_LEAVES`` leaves."""
@@ -143,7 +150,7 @@ def param_stats_leaves(leaves) -> torch.Tensor:
         fn = _lib()
         for ln in launches:
             table = b"".join(
-                LEAF_RECORD.pack(x.data_ptr(), n, *rec, _DTYPES[x.dtype], 0)
+                leaf_record(x.data_ptr(), n, *rec, x.dtype)
                 for x, n, *rec in zip(leaves[ln.start:ln.stop], sizes[ln.start:ln.stop], ln.cta0,
                                       ln.slices, ln.part0, ln.ctr0))
             err = fn(table, ln.stop - ln.start, ln.n_ctas, ROW_PER_CTA,

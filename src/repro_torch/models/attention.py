@@ -13,8 +13,9 @@ single-token decode against a KV cache (counterpart of
 - XLA's ``dynamic_update_slice`` clamps its start index so that the
   update fits; the port clamps the same way where torch indexing would
   raise.
-- An fp8 cache (``cfg.cache_dtype="float8_e4m3fn"``) stores what the
-  reference's ``astype`` stores (:func:`to_cache_dtype`), and is written
+- An fp8 cache (``cfg.cache_dtype`` ``"float8_e4m3fn"`` or
+  ``"float8_e5m2"``) stores what the reference's ``astype`` stores
+  (:func:`to_cache_dtype`), and is written
   through a ``uint8`` view (:func:`raw_view`): indexed writes and
   copies of float8 tensors are not implemented on every device. Decode
   hands the fp8 cache to the kernel as it is; prefill upcasts it to the
@@ -191,7 +192,9 @@ def to_cache_dtype(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``x`` cast to the cache's ``dtype`` as the reference's ``astype``
     casts it: round to nearest even and, for float8_e4m3fn (max 448, no
     inf), NaN where ``|x|`` rounds past the max (above 464, the midpoint
-    to the next step), where torch's cast saturates to 448."""
+    to the next step), where torch's cast saturates to 448. Into
+    float8_e5m2 torch's cast already is the reference's, byte for byte
+    (inf from 61,440 on)."""
     if dtype == torch.float8_e4m3fn:
         x = torch.where(x.abs() > 464.0, torch.nan, x)
     return x.to(dtype)

@@ -138,15 +138,44 @@ def test_param_stats_graph_replays_find_the_merge_counters_at_zero(cuda):
 
 @pytest.mark.cuda
 def test_param_stats_refuses_what_it_does_not_take(cuda):
+    """A leaf off the card, fp64, non-contiguous or of another client
+    axis is refused; an fp16 leaf beside an fp32 one is taken and matches
+    the plain version."""
     x = torch.zeros((4, 8), device=cuda)
     with pytest.raises(ValueError, match="one CUDA device"):
         k_stats.param_stats_leaves([x, torch.zeros((4, 8))])
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        k_stats.param_stats_leaves([x, torch.zeros((4, 8), device=cuda, dtype=torch.float16)])
+    h = torch.randn((4, 8), device=cuda).to(torch.float16)
+    _assert_stats_close(k_stats.param_stats_leaves([x, h]), ref.param_stats_leaves([x, h]))
+    with pytest.raises(TypeError, match="float64"):
+        k_stats.param_stats_leaves([x, torch.zeros((4, 8), device=cuda, dtype=torch.float64)])
     with pytest.raises(ValueError, match="contiguous"):
         k_stats.param_stats_leaves([x, torch.zeros((8, 4), device=cuda).t()])
     with pytest.raises(ValueError, match="one client axis"):
         k_stats.param_stats_leaves([x, torch.zeros((5, 8), device=cuda)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float16", "float8_e4m3fn", "float8_e5m2"])
+def test_param_stats_takes_fp16_and_fp8_leaves_and_any_client_count(cuda, dtype):
+    """The squeezenet-dr leaves in fp16 and both fp8 types (rows of 5 to
+    9,216 elements, most starting off a 16-byte boundary), an odd row and
+    a row split over 5 CTAs, in one launch; then a (70,000, 56) stack,
+    past the old limit of 65,535 clients. K1's tolerance against the
+    plain version, which upcasts the same values."""
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    dt = getattr(torch, dtype)
+    leaves = [(torch.randn((14,) + s, generator=gen, device=cuda) * 0.1 + 0.02 * i).to(dt)
+              for i, s in enumerate(SQUEEZENET_LEAVES)]
+    leaves += [torch.randn((14, 33), generator=gen, device=cuda).to(dt),
+               torch.randn((14, (1 << 16) + 5), generator=gen, device=cuda).to(dt)]
+    before = k_stats.param_stats_leaves.launches
+    got = k_stats.param_stats_leaves(leaves)
+    assert k_stats.param_stats_leaves.launches == before + 1
+    _assert_stats_close(got, ref.param_stats_leaves(leaves))
+    wide = torch.randn((70_000, 56), generator=gen, device=cuda).to(dt)
+    m, v = k_stats.param_stats_batched(wide)
+    rm, rv = ref.param_stats_batched(wide)
+    _assert_stats_close(torch.stack([m, v], 1)[:, None], torch.stack([rm, rv], 1)[:, None])
 
 
 @pytest.mark.cuda
@@ -232,10 +261,48 @@ def test_kmeans_assign_refuses_a_k_active_it_does_not_take(cuda):
 
 @pytest.mark.cuda
 def test_kmeans_assign_refuses_centroids_past_shared_memory(cuda):
-    """K = 64 at F = 260 needs 66,816 B of shared memory: refused."""
-    with pytest.raises(ValueError, match="shared memory"):
-        k_assign.kmeans_assign(torch.zeros((4, 260), device=cuda),
-                               torch.zeros((64, 260), device=cuda))
+    """K = 64 at F = 260 (66,816 B of C and its norms, which the kernel
+    before tiles refused) passes C in 8 tiles of 8 centroids: ids equal
+    to the plain version. fp64 is refused."""
+    gen = torch.Generator(device=cuda).manual_seed(260)
+    X = torch.randn((4, 260), generator=gen, device=cuda)
+    C = torch.randn((64, 260), generator=gen, device=cuda)
+    assert k_assign.c_tiles(64, 260) == (8, 1)
+    assert torch.equal(k_assign.kmeans_assign(X, C), ref.kmeans_assign(X, C))
+    with pytest.raises(TypeError, match="float64"):
+        k_assign.kmeans_assign(X.double(), C)
+
+
+# (N, F, K, X dtype, C dtype, k_active): the storage types, and C past one
+# tile (K above 8 or F chunked past 1,024), with k_active
+KMEANS_CONTRACT_CASES = [
+    (300, 56, 3, "bfloat16", "float16", None),
+    (300, 4100, 4, "bfloat16", "float16", None),
+    (257, 130, 5, "float16", "float8_e4m3fn", None),
+    (257, 130, 5, "float8_e5m2", "float32", 3),
+    (4096, 4096, 16, "bfloat16", "bfloat16", None),
+    (4096, 4096, 16, "bfloat16", "bfloat16", 11),
+    (1000, 200, 70, "float32", "float32", 65),
+    (999, 100, 130, "float32", "bfloat16", 129),
+    (70_000, 56, 3, "float8_e4m3fn", "float8_e4m3fn", None),
+    # 12 centroids, 5 live: one tile, staged once a CTA for its 3 groups
+    (20_000, 100, 12, "float32", "float32", 5),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", KMEANS_CONTRACT_CASES)
+def test_kmeans_assign_takes_every_storage_type_and_any_c(cuda, case):
+    """Ids equal to the plain version, which upcasts X and C as the
+    kernel does; every distance is computed in fp32 from the same
+    upcast values."""
+    N, F, K, xdt, cdt, ka = case
+    gen = torch.Generator(device=cuda).manual_seed(N + F + K)
+    X = torch.randn((N, F), generator=gen, device=cuda).to(getattr(torch, xdt))
+    C = torch.randn((K, F), generator=gen, device=cuda).to(getattr(torch, cdt))
+    ka_t = None if ka is None else torch.tensor(ka, dtype=torch.int32, device=cuda)
+    got = k_assign.kmeans_assign(X, C, ka_t)
+    assert torch.equal(got, ref.kmeans_assign(X, C, ka_t))
 
 
 # chip_smoke.py phase 5: B, H, KV, S, D, pos, window, stored in the serve
@@ -317,14 +384,27 @@ def test_ops_flash_decode_on_the_card_launches_the_kernel_only(cuda, monkeypatch
 
 @pytest.mark.cuda
 def test_flash_decode_refuses_what_it_does_not_take(cuda):
-    q = torch.zeros((1, 4, 1, 48), device=cuda)
-    kv = torch.zeros((1, 2, 8, 48), device=cuda)
-    with pytest.raises(ValueError, match="D in"):
-        k_decode.flash_decode(q, kv, kv, 3)
-    with pytest.raises(TypeError, match="one type"):
-        k_decode.flash_decode(torch.zeros((1, 4, 1, 64), device=cuda),
-                              torch.zeros((1, 2, 8, 64), device=cuda, dtype=torch.bfloat16),
-                              torch.zeros((1, 2, 8, 64), device=cuda, dtype=torch.bfloat16), 3)
+    """D 48 and an fp32 q against a bf16 cache are taken now and match
+    the plain version; D above 256, an fp8 or fp64 q and an fp64 cache
+    are refused."""
+    gen = torch.Generator(device=cuda).manual_seed(48)
+    q = torch.randn((1, 4, 1, 48), generator=gen, device=cuda)
+    kv = torch.randn((1, 2, 8, 48), generator=gen, device=cuda)
+    torch.testing.assert_close(k_decode.flash_decode(q, kv, kv, 3),
+                               ref.decode_attention(q, kv, kv, 3), rtol=2e-5, atol=2e-5)
+    q, kb = torch.randn((1, 4, 1, 64), generator=gen, device=cuda), \
+        torch.randn((1, 2, 8, 64), generator=gen, device=cuda).to(torch.bfloat16)
+    torch.testing.assert_close(k_decode.flash_decode(q, kb, kb, 3),
+                               ref.decode_attention(q, kb, kb, 3), rtol=2e-5, atol=2e-5)
+    with pytest.raises(ValueError, match="D <= 256"):
+        k_decode.flash_decode(torch.zeros((1, 4, 1, 264), device=cuda),
+                              torch.zeros((1, 2, 8, 264), device=cuda),
+                              torch.zeros((1, 2, 8, 264), device=cuda), 3)
+    for bad in (torch.float8_e4m3fn, torch.float8_e5m2, torch.float64):
+        with pytest.raises(TypeError, match="q of float32, bfloat16 or float16"):
+            k_decode.flash_decode(q.to(bad), kb, kb, 3)
+    with pytest.raises(TypeError, match="float64"):
+        k_decode.flash_decode(q, kb.double(), kb, 3)
 
 
 @pytest.mark.cuda
@@ -575,16 +655,100 @@ def test_flash_decode_fp8_cache_and_d112_match_plain_on_the_card(cuda, case):
 
 @pytest.mark.cuda
 def test_flash_decode_refuses_mixed_caches(cuda):
-    q = torch.zeros((1, 4, 1, 112), device=cuda, dtype=torch.bfloat16)
-    k8 = torch.zeros((1, 2, 16, 112), device=cuda).to(torch.float8_e4m3fn)
-    with pytest.raises(TypeError, match="one type"):
-        k_decode.flash_decode(q, k8, k8.to(torch.bfloat16), 3)
-    with pytest.raises(TypeError, match="one type"):
-        k_decode.flash_decode(q, k8.to(torch.float8_e5m2), k8.to(torch.float8_e5m2), 3)
-    with pytest.raises(ValueError, match="D in"):
-        k_decode.flash_decode(torch.zeros((1, 4, 1, 96), device=cuda),
-                              torch.zeros((1, 2, 16, 96), device=cuda),
-                              torch.zeros((1, 2, 16, 96), device=cuda), 3)
+    """Mixed caches (e4m3 k, bf16 v), an e5m2 cache and D 96 are taken
+    now: each matches the plain version within bf16's 2e-2 (fp32 2e-5)."""
+    gen = torch.Generator(device=cuda).manual_seed(112)
+    q = torch.randn((1, 4, 1, 112), generator=gen, device=cuda).to(torch.bfloat16)
+    k = torch.randn((1, 2, 16, 112), generator=gen, device=cuda)
+    k8 = k.to(torch.float8_e4m3fn)
+    for kk, vv in ((k8, k8.to(torch.bfloat16)), (k.to(torch.float8_e5m2),) * 2):
+        torch.testing.assert_close(k_decode.flash_decode(q, kk, vv, 3).float(),
+                                   ref.decode_attention(q, kk, vv, 3).float(), rtol=2e-2,
+                                   atol=2e-2)
+    q96, kv96 = torch.randn((1, 4, 1, 96), generator=gen, device=cuda), \
+        torch.randn((1, 2, 16, 96), generator=gen, device=cuda)
+    torch.testing.assert_close(k_decode.flash_decode(q96, kv96, kv96, 3),
+                               ref.decode_attention(q96, kv96, kv96, 3), rtol=2e-5, atol=2e-5)
+
+
+# K3 over the widened contract: B, H, KV, S, D, q dtype, k dtype, v dtype,
+# pos, window, stored as the serve cache (B,S,KV,D)
+DECODE_CONTRACT_CASES = [
+    (4, 32, 8, 4096, 80, "float16", "float16", "float16", [4095, 0, 2048, 3071], 0, True),
+    (4, 32, 8, 2048, 96, "float16", "float16", "float16", 2047, 0, True),
+    (2, 64, 1, 8192, 128, "bfloat16", "bfloat16", "bfloat16", [8191, 4000], 0, True),
+    (4, 48, 1, 2048, 192, "float16", "float8_e5m2", "float8_e5m2", [2047, 1500, 1024, 7], 1024,
+     True),
+    (4, 48, 8, 1024, 192, "float32", "float32", "float32", [1023, 0, 500, 900], 0, False),
+    (4, 32, 8, 2048, 64, "bfloat16", "float16", "float16", [2047, 1535, 1023, 511], 0, True),
+    (2, 12, 2, 300, 33, "float32", "float32", "float32", [299, 5], 17, False),   # ragged D
+    (2, 9, 1, 300, 40, "float16", "float8_e4m3fn", "float8_e5m2", [299, 120], 0, True),
+    (1, 6, 3, 777, 256, "bfloat16", "float8_e5m2", "bfloat16", 776, 0, True),
+    (2, 40, 4, 500, 1, "float32", "float32", "float32", [499, 0], 0, False),
+    # granite's fp16 serve on an e5m2 cache (DP 64, G 4)
+    (4, 32, 8, 2048, 64, "float16", "float8_e5m2", "float8_e5m2", [2047, 0, 1000, 1500], 0,
+     True),
+    (4, 32, 8, 2048, 64, "float16", "float8_e5m2", "float8_e5m2", [2047, 3, 700, 255], 256,
+     True),
+    (4, 32, 8, 1024, 64, "float16", "float8_e5m2", "float8_e5m2", 1023, 0, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DECODE_CONTRACT_CASES)
+def test_flash_decode_takes_any_d_group_and_cache_types(cuda, case):
+    """Any D <= 256 (on the next layout), any G (query chunks of 8), k
+    and v each of any storage type: fp32 q 2e-5 (with an fp32 cache),
+    else 2e-2 of the plain output's largest magnitude, as the path
+    cases; one launch a call."""
+    B, H, KV, S, D, qdt, kdt, vdt, pos, window, stored = case
+    gen = torch.Generator(device=cuda).manual_seed(S + D + H)
+    q = torch.randn((B, H, 1, D), generator=gen, device=cuda).to(getattr(torch, qdt))
+    shape = (B, S, KV, D) if stored else (B, KV, S, D)
+    k = torch.randn(shape, generator=gen, device=cuda).to(getattr(torch, kdt))
+    v = torch.randn(shape, generator=gen, device=cuda).to(getattr(torch, vdt))
+    if stored:
+        k, v = k.transpose(1, 2), v.transpose(1, 2)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=cuda) if isinstance(pos, list) else pos
+    before = k_decode.flash_decode.launches
+    got = k_decode.flash_decode(q, k, v, pos_t, window)
+    assert k_decode.flash_decode.launches == before + 1
+    expect = ref.decode_attention(q, k, v, pos_t, window).float()
+    assert got.dtype == q.dtype and got.shape == (B, H, 1, D)
+    if (qdt, kdt, vdt) == ("float32",) * 3:
+        torch.testing.assert_close(got.float(), expect, rtol=2e-5, atol=2e-5)
+    else:
+        torch.testing.assert_close(got.float(), expect, rtol=0,
+                                   atol=2e-2 * expect.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_flash_decode_query_chunks_replay_in_a_graph(cuda):
+    """G 48 in 6 query chunks on an e5m2 cache, captured once and
+    replayed three times on new inputs: the (row, chunk) merge counters
+    are back at 0 after every launch."""
+    gen = torch.Generator(device=cuda).manual_seed(48)
+    B, H, KV, S, D = 4, 48, 1, 2048, 192
+    q = torch.randn((B, H, 1, D), generator=gen, device=cuda).to(torch.float16)
+    k, v = (torch.randn((B, S, KV, D), generator=gen, device=cuda).to(torch.float8_e5m2)
+            .transpose(1, 2) for _ in range(2))
+    pos = torch.tensor([2047, 1535, 1023, 511], dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        k_decode.flash_decode(q, k, v, pos, 1024)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = k_decode.flash_decode(q, k, v, pos, 1024)
+    for _ in range(3):
+        q.copy_(torch.randn(q.shape, generator=gen, device=cuda))
+        k.copy_(torch.randn(k.shape, generator=gen, device=cuda))
+        pos.copy_(torch.randint(0, S, (B,), generator=gen, device=cuda, dtype=torch.int32))
+        graph.replay()
+        expect = ref.decode_attention(q, k, v, pos, 1024).float()
+        torch.testing.assert_close(out.float(), expect, rtol=0,
+                                   atol=2e-2 * expect.abs().max().item())
 
 
 def _moe_smoke(dtype="float32", **kw):
@@ -686,7 +850,7 @@ ATTN_CASES = [
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ATTN_CASES)
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_flash_attention_kernel_matches_plain_on_the_card(cuda, case, dtype):
     """fp32 2e-5, bf16 2e-2: the reference's tolerances for its own
     kernel against its oracle."""
@@ -746,19 +910,63 @@ def test_ops_flash_attention_on_the_card_launches_the_kernel_only(cuda, monkeypa
 
 @pytest.mark.cuda
 def test_flash_attention_refuses_what_it_does_not_take(cuda):
-    kv = torch.zeros((1, 2, 64, 64), device=cuda)
-    for dt in (torch.float16, torch.float8_e4m3fn):
-        x = torch.zeros((1, 4, 64, 64), device=cuda).to(dt)
-        with pytest.raises(TypeError, match="float32 and bfloat16"):
-            k_attn.flash_attention(x, kv.to(dt), kv.to(dt))
-    with pytest.raises(ValueError, match="D in"):
-        k_attn.flash_attention(torch.zeros((1, 4, 64, 48), device=cuda),
-                               torch.zeros((1, 2, 64, 48), device=cuda),
-                               torch.zeros((1, 2, 64, 48), device=cuda))
+    """fp16 and D 48 are taken now and match the plain version; an fp8
+    or fp64 q and D above 256 are refused."""
+    gen = torch.Generator(device=cuda).manual_seed(64)
+    kv = torch.randn((1, 2, 64, 64), generator=gen, device=cuda)
+    x = torch.randn((1, 4, 64, 64), generator=gen, device=cuda)
+    h = x.to(torch.float16), kv.to(torch.float16)
+    torch.testing.assert_close(k_attn.flash_attention(h[0], h[1], h[1]).float(),
+                               ref.attention(h[0], h[1], h[1]).float(), rtol=2e-2, atol=2e-2)
+    for dt in (torch.float8_e4m3fn, torch.float64):
+        with pytest.raises(TypeError, match="q of float32, bfloat16 or float16"):
+            k_attn.flash_attention(x.to(dt), kv.to(dt), kv.to(dt))
+    q48, kv48 = x[..., :48].contiguous(), kv[..., :48].contiguous()
+    torch.testing.assert_close(k_attn.flash_attention(q48, kv48, kv48),
+                               ref.attention(q48, kv48, kv48), rtol=2e-5, atol=2e-5)
+    with pytest.raises(ValueError, match="D <= 256"):
+        k_attn.flash_attention(torch.zeros((1, 4, 64, 264), device=cuda),
+                               torch.zeros((1, 2, 64, 264), device=cuda),
+                               torch.zeros((1, 2, 64, 264), device=cuda))
     with pytest.raises(ValueError, match="must divide blocks"):
         k_attn.flash_attention(torch.zeros((1, 4, 96, 64), device=cuda), kv, kv, block_q=64)
     with pytest.raises(ValueError, match="H % KV"):
         k_attn.flash_attention(torch.zeros((1, 3, 64, 64), device=cuda), kv, kv)
+
+
+# K4 over the widened contract: B, H, KV, Sq, Sk, D, q, k, v dtypes,
+# causal, window, q_offset; the kernel each runs
+ATTN_CONTRACT_CASES = [
+    (4, 32, 8, 2048, 2048, 64, ("float16",) * 3, True, 0, 0, "mma"),
+    (2, 8, 2, 512, 512, 96, ("bfloat16",) * 3, True, 0, 0, "mma"),
+    (1, 4, 4, 300, 300, 80, ("float16",) * 3, False, 70, 0, "mma"),
+    (2, 8, 2, 512, 512, 256, ("bfloat16",) * 3, True, 0, 0, "fma"),
+    (1, 4, 1, 200, 200, 160, ("float16",) * 3, True, 50, 0, "fma"),
+    (2, 8, 2, 512, 512, 64, ("bfloat16", "float16", "float16"), True, 0, 0, "fma"),
+    (1, 4, 2, 256, 256, 64, ("float16", "float8_e4m3fn", "float8_e5m2"), True, 0, 0, "fma"),
+    (2, 8, 2, 100, 612, 80, ("float32",) * 3, True, 0, 512, "fma"),
+    (1, 2, 1, 64, 64, 7, ("float32", "bfloat16", "float32"), False, 0, 0, "fma"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ATTN_CONTRACT_CASES)
+def test_flash_attention_takes_fp16_mixed_types_and_any_d(cuda, case):
+    """fp16 on the tensor cores; mixed types, fp8 k / v and D above 128
+    on the FMA kernel, each input converted as it is staged. An all-fp32
+    call 2e-5; else 2e-2, bf16's tolerance, for fp16 too."""
+    B, H, KV, Sq, Sk, D, dts, causal, window, off, kernel = case
+    assert k_attn.kernel_for(*(getattr(torch, t) for t in dts), D=D) == kernel
+    gen = torch.Generator(device=cuda).manual_seed(Sq + Sk + D)
+    q = torch.randn((B, H, Sq, D), generator=gen, device=cuda).to(getattr(torch, dts[0]))
+    k = torch.randn((B, KV, Sk, D), generator=gen, device=cuda).to(getattr(torch, dts[1]))
+    v = torch.randn((B, KV, Sk, D), generator=gen, device=cuda).to(getattr(torch, dts[2]))
+    kw = dict(causal=causal, window=window, q_offset=off)
+    got = k_attn.flash_attention(q, k, v, block_q=Sq, block_k=Sk, **kw)
+    expect = ref.attention(q, k, v, **kw)
+    tol = 2e-5 if dts == ("float32",) * 3 else 2e-2
+    assert got.dtype == q.dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), expect.float(), rtol=tol, atol=tol)
 
 
 # the tensor-core kernel's tile edges (B, H, KV, Sq, Sk, D, causal,

@@ -175,13 +175,25 @@ def test_granite_attention_composed_from_the_kernel_matches_reference():
 
 
 def test_the_dtype_chooses_the_kernel():
-    """bf16 runs on the tensor cores, fp32 keeps the FMA kernel (TF32
-    would miss its 2e-5); nothing else is taken."""
-    assert k_attn.kernel_for(torch.bfloat16) == "mma"
-    assert k_attn.kernel_for(torch.float32) == "fma"
-    for dt in (torch.float16, torch.float64):
-        with pytest.raises(TypeError, match="float32 and bfloat16"):
+    """q, k, v all bf16 or all fp16 at D <= 128 run on the tensor cores;
+    fp32 keeps the FMA kernel (TF32 would miss its 2e-5), and so do mixed
+    types, an fp8 k or v, and D above 128. An fp64 or fp8 q, and a D
+    above 256, are refused."""
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    assert k_attn.kernel_for(bf16) == "mma"
+    assert k_attn.kernel_for(f16) == "mma"
+    assert k_attn.kernel_for(f16, D=128) == k_attn.kernel_for(bf16, D=96) == "mma"
+    assert k_attn.kernel_for(f32) == "fma"
+    assert k_attn.kernel_for(bf16, f16, f16) == "fma"
+    assert k_attn.kernel_for(f16, f16, torch.float8_e5m2) == "fma"
+    assert k_attn.kernel_for(bf16, D=129) == k_attn.kernel_for(f16, D=256) == "fma"
+    for dt in (torch.float64, torch.float8_e4m3fn):
+        with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
             k_attn.kernel_for(dt)
+    with pytest.raises(TypeError, match="k must be of .*got torch.float64"):
+        k_attn.kernel_for(f32, torch.float64)
+    with pytest.raises(ValueError, match="D <= 256"):
+        k_attn.kernel_for(bf16, D=257)
 
 
 @pytest.mark.parametrize("dtype,B,H,Sq,D,bq,grid", [

@@ -100,8 +100,8 @@ def test_zamba2_fits_flash_decode_at_g1_d64():
     from repro_torch.kernels import flash_decode
     cfg = get_config("zamba2-1.2b")
     G, D = cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
-    assert (G, D) == (1, 64) and D in flash_decode.HEAD_DIMS
-    assert G <= flash_decode.MAX_GROUP and G * D <= flash_decode.MAX_GROUP_ELEMS
+    assert (G, D) == (1, 64) and flash_decode.padded_dims(D) == D
+    assert flash_decode.query_chunks(G) == (1, 1)
     chunk, n_split = flash_decode.split_plan(4, cfg.n_kv_heads, 129, D, 132)
     assert chunk * n_split >= 129 > chunk * (n_split - 1) and n_split <= flash_decode.MAX_SPLITS
 
@@ -442,15 +442,15 @@ def test_whole_ssm_swarm_round_matches_reference(arch):
 def test_full_depth_leaf_sets_fit_the_coordinator_kernels(arch, n_leaves):
     """The registered depth's leaves (9 an SSM layer; zamba2's lm_head and
     shared block): K1 takes them in chunks of ``MAX_LEAVES``, one launch
-    a chunk, and K2 stages k = 2 centroids of F = 2 x leaves in shared
-    memory within its limit. Counted at smoke widths: the leaf count
-    does not depend on the widths."""
+    a chunk, and K2's k = 2 centroids of F = 2 x leaves fit one C tile,
+    staged in shared memory once a CTA. Counted at smoke widths:
+    the leaf count does not depend on the widths."""
     cfg = dataclasses.replace(get_config(arch).smoke(), n_layers=get_config(arch).n_layers)
     leaves = tree_leaves(build_model(cfg).init(torch.Generator().manual_seed(0)))
     assert len(leaves) == n_leaves
     launches = param_stats.plan([x.numel() for x in leaves], 6)
     assert len(launches) == -(-n_leaves // param_stats.MAX_LEAVES)
-    assert (2 * (2 * n_leaves) + 2) * 4 <= kmeans_assign.SMEM_LIMIT
+    assert kmeans_assign.c_tiles(2, 2 * n_leaves) == (1, 1)
 
 
 def test_train_swarm_mode_runs_mamba2_on_the_cpu(capsys):
