@@ -247,7 +247,28 @@ exits non-zero and prints no result. It imports nothing of JAX. Phases:
    e5m2 cache with a (B,) pos and window 1,024, a bf16 q on an fp16
    cache, and three graph replays of the G 48 call; K4 in fp16, bf16 at
    D 96 and 256, q bf16 on fp16 k and v, fp32 at D 80 ragged with
-   q_offset.
+   q_offset;
+24. the port complete: (a) K3 at the inputs its last gaps held back, D
+   above 256 (D 320 ragged on an fp16 cache with per-row pos, D 512 on
+   a 134 MB bf16 cache, D 1,024 with window 512) and an fp8 q (e4m3 and
+   e5m2 at granite's (4,32,1,64) on e4m3, e5m2 and bf16 caches,
+   kimi-k2's (4,64,1,112) e4m3 on bf16), each against its plain version
+   (an fp8 output byte for byte away from fp8's rounding edges, see
+   :func:`fp8_check`) and timed beside SDPA and its bound; constant V
+   rows past fp8's range, bytes equal to the plain version's (NaN and
+   inf included); three replays of a captured D 512 call; (b) K4 the
+   same way: bf16 (1,8,1,024,D) at D 320 and 512, causal and with a
+   window, e4m3 and e5m2 q, k and v at (4,32,2,048,64), the overflow
+   rows; (c) Table III on the card: ``examples/paper_tables_torch.py``'s
+   ``table3(full=True)``, BSO-SL over alexnet-dr, vgg-dr, inception-dr
+   and squeezenet-dr on the full Table I at 20 px, 8 rounds of 12 local
+   steps, K1 and K2 launches asserted (one K1 and 21 K2 a round), each
+   architecture's seconds and accuracy printed beside the paper's; one
+   round of alexnet-dr, vgg-dr and inception-dr on the card and on the
+   CPU from one state and one set of draws, compared as phase 4.
+
+``python3 chip_smoke.py --only-phase 24`` builds the kernels (phase 1)
+and runs phase 24 alone, printing no result line.
 
 ``python3 chip_smoke.py --ssm-depth-probe 36 37 38 39`` runs only phase
 18 (e)'s mamba2 round at each depth, alone, and prints each peak up to
@@ -272,10 +293,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 non-tensor FLOP/s,
-# dense bf16 tensor-core FLOP/s
+# dense bf16 and fp8 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_TENSOR_FLOPS = 989e12
+FP8_TENSOR_FLOPS = 1979e12
 
 # the serve path (phase 6): benchmarks/serve_bench.py's ladder_2 layout at
 # max_seq 2048 and its _workload (24 requests, prompts in [2, 2016), 32
@@ -443,7 +465,7 @@ FLEET_FAULTS = {"drop_rate": 0.2, "straggler_rate": 0.2, "stale_decay": 0.5, "qu
 FLEET_HIER_K_LOCAL = 4
 FLEET_CARD_VS_CPU_ROUNDS = 2
 # kernels that phase 1 holds to no stack frame and no spills
-NO_SPILL_KERNELS = ("param_stats", "kmeans_assign")
+NO_SPILL_KERNELS = ("param_stats", "kmeans_assign", "flash_decode", "flash_attention")
 # calls captured in one graph for the coordinator kernels' second device time
 GRAPH_CALLS = 20
 # the coordinator's kernels by name, as the profiled round reports them
@@ -4110,8 +4132,8 @@ def _fmt_ms(ms) -> str:
     return "none" if ms is None else f"{ms:.4f} ms"
 
 
-def _time_line(name, ms, one, plain_ms, lib_ms, lib_name, b, by, card):
-    log(f"[contract c] {name}: wrapper {ms:.4f} ms, device alone {one:.4f} ms, bound {b:.5f} ms "
+def _time_line(name, ms, one, plain_ms, lib_ms, lib_name, b, by, card, tag="contract c"):
+    log(f"[{tag}] {name}: wrapper {ms:.4f} ms, device alone {one:.4f} ms, bound {b:.5f} ms "
         f"({by}), plain {plain_ms:.4f} ms, {lib_name} {_fmt_ms(lib_ms)}; {card}")
 
 
@@ -4198,6 +4220,68 @@ def contract_k2(torch, dev, card) -> None:
                    "cdist+argmin (fp32)", b, by, card)
 
 
+# ------------------------------------------------- fp8 outputs (phases 23, 24)
+
+# constant V rows on both sides of fp8's edges: e4m3 is NaN above 464,
+# e5m2 inf from 61,440 (tests/test_torch_cuda.py's OVERFLOW_V)
+OVERFLOW_V = [460.0, -466.0, 470.0, -300.0, 61000.0, 62000.0, -62500.0, 1.5]
+FP8_REL = 2e-5                    # of max |out|: fp32 sums in other orders (fp8_check)
+
+
+def _is_fp8(torch, dt) -> bool:
+    return dt in (torch.float8_e4m3fn, torch.float8_e5m2)
+
+
+def fp8_check(torch, got, o32, label: str) -> dict:
+    """An fp8 output of K3 or K4 against the plain version's fp32 output
+    ``o32`` (the plain version on q upcast; its own fp8 output is
+    ``ref.astype(o32)``): every byte must be the reference's rounding of
+    a value within FP8_REL of max |o32| of o32, so it equals the plain
+    version's byte wherever o32 is farther than that from an fp8
+    rounding edge and is its neighbour across the edge otherwise; NaN
+    only where an edge rounds to NaN. Returns the count of bytes equal
+    to the plain version's and the largest |kernel - plain| among the
+    finite outputs."""
+    from repro_torch.kernels import ref
+    tol = FP8_REL * o32.abs().nan_to_num(posinf=0, neginf=0).max().item()
+    lo = ref.astype(o32 - tol, got.dtype).float()
+    hi = ref.astype(o32 + tol, got.dtype).float()
+    g = got.float()
+    nan = torch.isnan(g)
+    inside = (g >= lo.nan_to_num(nan=-math.inf)) & (g <= hi.nan_to_num(nan=math.inf))
+    ok = torch.where(nan, torch.isnan(lo) | torch.isnan(hi), inside)
+    bad = int((~ok).sum())
+    assert bad == 0, f"{label}: {bad} of {ok.numel()} fp8 outputs off the plain version"
+    plain = ref.astype(o32, got.dtype)
+    same = int((got.view(torch.uint8) == plain.view(torch.uint8)).sum())
+    finite = torch.isfinite(g) & torch.isfinite(plain.float())
+    step = (g - plain.float()).abs()[finite].max().item() if bool(finite.any()) else 0.0
+    return {"equal": same, "n": got.numel(), "step": step}
+
+
+def _err_or_fp8(torch, got, expect, tag, label, tol) -> float:
+    """The max abs error of ``got`` against ``expect`` within ``tol``; an
+    fp8 output is held by :func:`fp8_check` instead and counts 0.0 (it is
+    held by bytes)."""
+    if _is_fp8(torch, got.dtype):
+        rec = fp8_check(torch, got, expect, label)
+        log(f"[{tag}] {label}: fp8 bytes equal to the plain version's {rec['equal']:,} of "
+            f"{rec['n']:,}, the rest one rounding step across an edge (largest step "
+            f"{rec['step']:.4g})")
+        return 0.0
+    err = (got.float() - expect).abs().max().item()
+    assert err <= tol, f"{label}: max abs err {err} > {tol}"
+    return err
+
+
+def _peak_for(torch, dt) -> float:
+    if dt == torch.float32:
+        return FP32_FLOPS
+    return FP8_TENSOR_FLOPS if _is_fp8(torch, dt) else BF16_TENSOR_FLOPS
+
+
+
+
 def _decode_valid_cols(torch, S, pos, window):
     cols = torch.arange(S, device=pos.device)[None, :]
     p = pos.reshape(-1)[:, None]
@@ -4207,15 +4291,19 @@ def _decode_valid_cols(torch, S, pos, window):
     return mask
 
 
-def contract_k3_case(torch, dev, gen, label, B, H, KV, S, D, dts, pos, window, card):
-    """One K3 case of phase 23 (c): q (B,H,1,D) against a cache stored
-    (B,S,KV,D), q / k / v of the types ``dts``, against the plain version
-    (fp32 2e-5, else HALF_RTOL of max |out|), then timed: the wrapper,
-    the device alone, the plain version, SDPA (``enable_gqa``, the cache
-    cast to q's type first where it is another), and the bound: the
-    bytes of the columns the mask keeps, or their operations at the
-    tensor-core rate for a half q, the fp32 rate for fp32, as
-    :func:`contract_k4_case`. Returns the max abs error."""
+def contract_k3_case(torch, dev, gen, label, B, H, KV, S, D, dts, pos, window, card,
+                     tag="contract c"):
+    """One K3 case of phase 23 (c) or 24 (a): q (B,H,1,D) against a cache
+    stored (B,S,KV,D), q / k / v of the types ``dts``, one launch, against
+    the plain version (fp32 2e-5, a half q HALF_RTOL of max |out|, an fp8
+    q's output by :func:`fp8_check` against the plain version on q
+    upcast), then timed: the wrapper, the device alone, the plain
+    version, SDPA (``enable_gqa``; the cache cast to q's type first, or
+    q, k and v to bf16 where q is fp8, which SDPA does not take), and the
+    bound: the bytes of the columns the mask keeps, or their operations
+    at the rate of q's type (tensor cores for a half or fp8 q, the fp32
+    rate for fp32), as :func:`contract_k4_case`. Returns the max abs
+    error (0.0 for an fp8 output, which is held by bytes)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_decode, ref
@@ -4223,16 +4311,17 @@ def contract_k3_case(torch, dev, gen, label, B, H, KV, S, D, dts, pos, window, c
     k = torch.randn((B, S, KV, D), generator=gen, device=dev).to(dts[1]).transpose(1, 2)
     v = torch.randn((B, S, KV, D), generator=gen, device=dev).to(dts[2]).transpose(1, 2)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=dev)
+    fp8 = _is_fp8(torch, q.dtype)
     before = flash_decode.flash_decode.launches
     got = flash_decode.flash_decode(q, k, v, pos, window)
     assert flash_decode.flash_decode.launches == before + 1
-    expect = ref.decode_attention(q, k, v, pos, window).float()
+    expect = ref.decode_attention(q.float() if fp8 else q, k, v, pos, window).float()
     torch.cuda.synchronize()
-    err = (got.float() - expect).abs().max().item()
     tol = 2e-5 if dts == (torch.float32,) * 3 else HALF_RTOL * expect.abs().max().item()
-    assert err <= tol, f"contract K3 {label}: max abs err {err} > {tol}"
+    err = _err_or_fp8(torch, got, expect, tag, f"K3 {label}", tol)
     mask = _decode_valid_cols(torch, S, pos.expand(B), window)        # (B, S)
     valid = int(mask.sum())
+    lib_dt = torch.bfloat16 if fp8 else q.dtype
 
     def kernel():
         flash_decode.flash_decode(q, k, v, pos, window)
@@ -4241,20 +4330,21 @@ def contract_k3_case(torch, dev, gen, label, B, H, KV, S, D, dts, pos, window, c
         ref.decode_attention(q, k, v, pos, window)
 
     def library():
-        return F.scaled_dot_product_attention(q, k.to(q.dtype), v.to(q.dtype),
+        return F.scaled_dot_product_attention(q.to(lib_dt), k.to(lib_dt), v.to(lib_dt),
                                               attn_mask=mask[:, None, None, :], enable_gqa=True)
 
     n_bytes = valid * KV * D * (k.element_size() + v.element_size()) \
         + 2 * q.numel() * q.element_size() + pos.numel() * 4
-    peak = FP32_FLOPS if dts[0] == torch.float32 else BF16_TENSOR_FLOPS
-    b, by = bound_ms(n_bytes, valid * H * (4 * D + 5), peak)
+    b, by = bound_ms(n_bytes, valid * H * (4 * D + 5), _peak_for(torch, dts[0]))
     chunks = flash_decode.query_chunks(H // KV)
+    layout = f"D on {flash_decode.padded_dims(D)}" + (
+        f" in {flash_decode.slices(D)} slices" if D > flash_decode.MAX_LAYOUT else "")
     _time_line(f"K3 {label}: q {tuple(q.shape)} {str(dts[0])[6:]}, k {str(dts[1])[6:]}, v "
                f"{str(dts[2])[6:]} ({B},{S},{KV},{D}), pos {pos.tolist()}, window {window}, "
-               f"D on {flash_decode.padded_dims(D)}, query chunks {chunks}, max abs err "
-               f"{err:.3e} (tol {tol:.3e})", cuda_ms(torch, kernel, reps=200),
-               graph_ms(torch, kernel), cuda_ms(torch, plain, reps=20), cuda_ms(torch, library),
-               "sdpa", b, by, card)
+               f"{layout}, query chunks {chunks}, max abs err {err:.3e} (tol {tol:.3e})",
+               cuda_ms(torch, kernel, reps=200), graph_ms(torch, kernel),
+               cuda_ms(torch, plain, reps=20), cuda_ms(torch, library),
+               f"sdpa ({str(lib_dt)[6:]})", b, by, card, tag)
     return err
 
 
@@ -4292,12 +4382,14 @@ def contract_k3_graph(torch, dev, gen) -> None:
 
 
 def contract_k4_case(torch, dev, gen, label, B, H, KV, Sq, Sk, D, dts, causal, window, q_offset,
-                     card):
-    """One K4 case of phase 23 (c) against the plain version (an all-fp32
-    call 2e-5, else 2e-2, phase 8's), timed beside SDPA (on k, v cast to
-    q's type where they are of another) and the bound: the operations on
-    the pairs the mask keeps at the tensor-core rate for half types, the
-    fp32 rate for fp32. Returns the max abs error."""
+                     card, tag="contract c"):
+    """One K4 case of phase 23 (c) or 24 (b) against the plain version (an
+    all-fp32 call 2e-5, else 2e-2, phase 8's; an fp8 q's output by
+    :func:`fp8_check` against the plain version on q upcast), timed
+    beside SDPA (on k, v cast to q's type where they are of another, or
+    on q, k, v cast to bf16 where q is fp8) and the bound: the
+    operations on the pairs the mask keeps at the rate of q's type. Returns the max abs
+    error (0.0 for an fp8 output, which is held by bytes)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention, ops, ref
@@ -4305,18 +4397,22 @@ def contract_k4_case(torch, dev, gen, label, B, H, KV, Sq, Sk, D, dts, causal, w
     k = torch.randn((B, KV, Sk, D), generator=gen, device=dev).to(dts[1])
     v = torch.randn((B, KV, Sk, D), generator=gen, device=dev).to(dts[2])
     kw = dict(causal=causal, window=window, q_offset=q_offset)
+    fp8 = _is_fp8(torch, q.dtype)
     kernel_name = flash_attention.kernel_for(*dts, D=D)
+    before = flash_attention.flash_attention.launches
     got = flash_attention.flash_attention(q, k, v, block_q=Sq, block_k=Sk, **kw)
-    expect = ref.attention(q, k, v, **kw).float()
+    assert flash_attention.flash_attention.launches == before + 1
+    expect = ref.attention(q.float() if fp8 else q, k, v, **kw).float()
     torch.cuda.synchronize()
-    err = (got.float() - expect).abs().max().item()
     tol = 2e-5 if dts == (torch.float32,) * 3 else 2e-2
-    assert err <= tol, f"contract K4 {label}: max abs err {err} > {tol}"
+    err = _err_or_fp8(torch, got, expect, tag, f"K4 {label}", tol)
+    del expect
     rows = q_offset + torch.arange(Sq, device=dev)[:, None]
     cols = torch.arange(Sk, device=dev)[None, :]
     mask = cols <= rows if causal else torch.ones((Sq, Sk), dtype=torch.bool, device=dev)
     if window > 0:
         mask = mask & (cols > rows - window)
+    lib_dt = torch.bfloat16 if fp8 else q.dtype
 
     def kernel():
         flash_attention.flash_attention(q, k, v, block_q=Sq, block_k=Sk, **kw)
@@ -4329,20 +4425,20 @@ def contract_k4_case(torch, dev, gen, label, B, H, KV, Sq, Sk, D, dts, causal, w
     plain_causal = causal and window == 0 and q_offset == 0 and Sq == Sk
 
     def library():
-        F.scaled_dot_product_attention(q, k.to(q.dtype), v.to(q.dtype),
+        F.scaled_dot_product_attention(q.to(lib_dt), k.to(lib_dt), v.to(lib_dt),
                                        attn_mask=None if plain_causal else mask,
                                        is_causal=plain_causal, enable_gqa=True)
 
     n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v)) + q.numel() * q.element_size()
     n_ops = 4 * B * H * D * ops.valid_pairs(Sq, Sk, causal, window, q_offset)
-    peak = FP32_FLOPS if dts[0] == torch.float32 else BF16_TENSOR_FLOPS
-    b, by = bound_ms(n_bytes, n_ops, peak)
+    b, by = bound_ms(n_bytes, n_ops, _peak_for(torch, dts[0]))
     _time_line(f"K4 {label}: q ({B},{H},{Sq},{D}) {str(dts[0])[6:]}, k {str(dts[1])[6:]}, v "
                f"{str(dts[2])[6:]} ({B},{KV},{Sk},{D}), causal {causal}, window {window}, "
-               f"q_offset {q_offset}, kernel {kernel_name}, max abs err {err:.3e} (tol {tol:g})",
+               f"q_offset {q_offset}, kernel {kernel_name}, {flash_attention.slices(D)} output "
+               f"slices, max abs err {err:.3e} (tol {tol:g})",
                cuda_ms(torch, kernel, reps=10), graph_ms(torch, kernel, reps=10),
                cuda_ms(torch, plain, reps=3, trials=3), cuda_ms(torch, library, reps=10),
-               "sdpa", b, by, card)
+               f"sdpa ({str(lib_dt)[6:]})", b, by, card, tag)
     return err
 
 
@@ -4391,6 +4487,182 @@ def contract_phase(torch, dev, lm_data, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 24
+
+
+def complete_overflow(torch, dev, gen) -> None:
+    """Constant V rows of ``OVERFLOW_V`` under an e4m3 and an e5m2 q, K3
+    at D 64 and 320 and K4 at D 64 and 320: the output bytes equal the
+    plain version's, NaN (e4m3) and inf (e5m2) where they are."""
+    from repro_torch.kernels import flash_attention, flash_decode, ref
+    for fp8 in (torch.float8_e4m3fn, torch.float8_e5m2):
+        for D in (64, 320):
+            vals = torch.tensor(OVERFLOW_V, device=dev).repeat(D // len(OVERFLOW_V) + 1)[:D]
+            k = torch.randn((2, 2, 300, D), generator=gen, device=dev).to(torch.bfloat16)
+            v = vals.expand(2, 2, 300, D).contiguous()
+            q = torch.randn((2, 8, 1, D), generator=gen, device=dev).to(fp8)
+            pos = torch.tensor([299, 40], dtype=torch.int32, device=dev)
+            got = flash_decode.flash_decode(q, k, v, pos)
+            plain = ref.decode_attention(q, k, v, pos)
+            q4 = torch.randn((2, 8, 128, D), generator=gen, device=dev).to(fp8)
+            got4 = flash_attention.flash_attention(q4, k, v, block_q=128, block_k=300)
+            plain4 = ref.attention(q4, k, v)
+            torch.cuda.synchronize()
+            for name, a, b_ in (("K3", got, plain), ("K4", got4, plain4)):
+                same = torch.equal(a.view(torch.uint8), b_.view(torch.uint8))
+                n_nan = int(torch.isnan(a.float()).sum())
+                n_inf = int(torch.isinf(a.float()).sum())
+                log(f"[complete] {name} overflow rows, {str(fp8)[6:]} q, D {D}: bytes equal "
+                    f"{same}; NaN {n_nan}, inf {n_inf} of {a.numel()}; row 0's first 8 bytes "
+                    f"{a.view(torch.uint8).reshape(-1)[:8].tolist()}")
+                assert same, f"{name} {fp8} D {D}: overflow bytes differ from the plain version"
+                assert (n_nan if fp8 == torch.float8_e4m3fn else n_inf) > 0
+
+
+def complete_k3_graph(torch, dev, gen) -> float:
+    """Three replays of one captured D 512 call (the wide kernel) on new
+    inputs, each against the plain version and against an eager call of
+    the same inputs, bitwise: every (row, chunk, slice) merge counter is
+    back at 0 after a launch. Returns the max abs err."""
+    from repro_torch.kernels import flash_decode, ref
+    B, H, KV, S, D = 4, 16, 4, 4096, 512
+    q = torch.randn((B, H, 1, D), generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((B, S, KV, D), generator=gen, device=dev).to(torch.bfloat16)
+            .transpose(1, 2) for _ in range(2))
+    pos = torch.tensor([4095, 3000, 2047, 1023], dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flash_decode.flash_decode(q, k, v, pos)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_decode.flash_decode(q, k, v, pos)
+    err = 0.0
+    for rep in range(3):
+        q.copy_(torch.randn(q.shape, generator=gen, device=dev))
+        v.copy_(torch.randn(v.shape, generator=gen, device=dev))
+        pos.copy_(torch.randint(0, S, (B,), generator=gen, device=dev, dtype=torch.int32))
+        graph.replay()
+        eager = flash_decode.flash_decode(q, k, v, pos)
+        expect = ref.decode_attention(q, k, v, pos).float()
+        torch.cuda.synchronize()
+        e = (out.float() - expect).abs().max().item()
+        tol = HALF_RTOL * expect.abs().max().item()
+        assert e <= tol, f"complete K3 D 512 graph replay {rep}: {e} > {tol}"
+        assert torch.equal(out, eager), f"complete K3 D 512 graph replay {rep} differs from eager"
+        err = max(err, e)
+        log(f"[complete] K3 D 512 graph replay {rep} (pos {pos.tolist()}): equal to eager, max "
+            f"abs err {e:.3e} (tol {tol:.3e})")
+    return err
+
+
+def table3_phase(torch, dev) -> dict:
+    """Phase 24 (c): ``examples/paper_tables_torch.table3(full=True)`` on
+    the card with K1 / K2 launch counts read from it alone, then one
+    round each of alexnet-dr, vgg-dr and inception-dr card vs CPU (phase
+    4's comparison; squeezenet-dr's is phase 4 itself)."""
+    from repro_torch.configs import OptimizerConfig, SwarmConfig, get_config
+    from repro_torch.core.swarm import SwarmTrainer
+    from repro_torch.data.dr import make_dr_swarm_data, scale_table
+    from repro_torch.models import build_model
+    sys.path.insert(0, str(ROOT / "examples"))
+    import paper_tables_torch as pt
+
+    scale, rounds = pt.scale_and_rounds(True)
+    _zero_coordinator_counts()
+    t0 = time.perf_counter()
+    res = pt.table3(full=True, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _coordinator_counts()
+    want = {"param_stats_batched": 0, "kmeans_assign": 0, "kmeans_assign with k_active": 0}
+    for r in res.values():
+        for key, n in _grid_want(1, rounds, len(_leaves(r["run"].state.params))).items():
+            want[key] += n
+    want["kmeans_assign with k_active"] = 0
+    log(f"[table3] {len(res)} archs x {rounds} rounds on the full Table I at {pt.IMAGE_SIZE} px "
+        f"in {secs:.2f} s; launches {launches}, expected {want}")
+    assert launches == want, f"Table III launch counts {launches} != {want}"
+    for arch, r in res.items():
+        assert math.isfinite(r["acc"]) and 0.0 <= r["acc"] <= 1.0, f"{arch} accuracy {r['acc']}"
+        val = r["run"].metrics.mean_val_acc.tolist()
+        log(f"[table3] {arch}: {r['seconds']:.3f} s, Eq. 3 test acc {r['acc']:.4f} (paper "
+            f"{pt.PAPER_TABLE3[arch]:.4f}), {r['params']:,} params, val acc by round "
+            f"{[round(a, 4) for a in val]}")
+    clients = make_dr_swarm_data(image_size=pt.IMAGE_SIZE, seed=pt.SEED, table=scale_table(scale))
+    diffs = {}
+    for arch in ("alexnet-dr", "vgg-dr", "inception-dr"):
+        swarm = SwarmConfig(n_clients=14, n_clusters=K, p1=0.9, p2=0.8, kmeans_iters=KMEANS_ITERS,
+                            local_steps=pt.LOCAL_STEPS, rounds=1)
+        tr = SwarmTrainer(build_model(get_config(arch)), clients, swarm,
+                          OptimizerConfig(name="adam", lr=2e-3), seed=pt.SEED,
+                          batch_size=pt.BATCH, device=dev)
+        t1 = time.perf_counter()
+        diff, m_card, m_cpu = card_vs_cpu(torch, tr, clients, local_steps=2, eps=1e-6)
+        log(f"[card-vs-cpu table3] {arch}, 2 local steps, adam eps 1e-6: assignments "
+            f"{m_card.assignments.tolist()} / {m_cpu.assignments.tolist()}, centers "
+            f"{m_card.centers.tolist()} / {m_cpu.centers.tolist()}, max |param diff| {diff:.3e} "
+            f"({time.perf_counter() - t1:.1f} s)")
+        assert torch.equal(m_card.assignments.cpu(), m_cpu.assignments), f"{arch} assignments"
+        assert torch.equal(m_card.centers.cpu(), m_cpu.centers), f"{arch} centers differ"
+        # atol 1e-4, as phase 4
+        assert diff <= 1e-4, f"card and CPU {arch} params differ by {diff}"
+        diffs[arch] = diff
+        del tr
+    torch.cuda.empty_cache()
+    return {"launches": launches, "seconds": secs, "results": res, "diffs": diffs}
+
+
+def complete_phase(torch, dev, card: str) -> dict:
+    """Phase 24: K3 and K4 at D above 256 and an fp8 q, the overflow
+    rows, a captured wide call, then Table III on the card."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(27)
+    f16, bf16 = torch.float16, torch.bfloat16
+    e4, e5 = torch.float8_e4m3fn, torch.float8_e5m2
+    g_pos = [2047, 1535, 1023, 511]
+    k3_cases = [  # label, B, H, KV, S, D, (q, k, v types), pos, window
+        ("D 320 ragged", 2, 8, 2, 1000, 320, (f16,) * 3, [999, 400], 0),
+        ("D 512", 4, 16, 4, 4096, 512, (bf16,) * 3, [4095, 4095, 4095, 4095], 0),
+        ("D 1024 window 512", 1, 8, 2, 2048, 1024, (bf16,) * 3, [2047], 512),
+        ("e4m3 q on e4m3", 4, 32, 8, 2048, 64, (e4,) * 3, g_pos, 0),
+        ("e4m3 q on e5m2", 4, 32, 8, 2048, 64, (e4, e5, e5), g_pos, 0),
+        ("e4m3 q on bf16", 4, 32, 8, 2048, 64, (e4, bf16, bf16), g_pos, 0),
+        ("e5m2 q on e4m3", 4, 32, 8, 2048, 64, (e5, e4, e4), g_pos, 0),
+        ("e5m2 q on e5m2", 4, 32, 8, 2048, 64, (e5,) * 3, g_pos, 0),
+        ("e5m2 q on bf16", 4, 32, 8, 2048, 64, (e5, bf16, bf16), g_pos, 0),
+        ("kimi-k2 e4m3 q on bf16", 4, 64, 8, 2048, 112, (e4, bf16, bf16), g_pos, 0),
+    ]
+    err = {"k3": max(contract_k3_case(torch, dev, gen, *c, card, tag="complete")
+                     for c in k3_cases)}
+    complete_overflow(torch, dev, gen)
+    err["k3"] = max(err["k3"], complete_k3_graph(torch, dev, gen))
+    torch.cuda.empty_cache()
+    k4_cases = [  # label, B, H, KV, Sq, Sk, D, types, causal, window, q_offset
+        ("bf16 D 320", 1, 8, 2, 1024, 1024, 320, (bf16,) * 3, True, 0, 0),
+        ("bf16 D 320 window 256", 1, 8, 2, 1024, 1024, 320, (bf16,) * 3, True, 256, 0),
+        ("bf16 D 512", 1, 8, 2, 1024, 1024, 512, (bf16,) * 3, True, 0, 0),
+        ("bf16 D 512 window 256", 1, 8, 2, 1024, 1024, 512, (bf16,) * 3, True, 256, 0),
+        ("e4m3 q, k, v", 4, 32, 8, 2048, 2048, 64, (e4,) * 3, True, 0, 0),
+        ("e5m2 q, k, v", 4, 32, 8, 2048, 2048, 64, (e5,) * 3, True, 0, 0),
+    ]
+    err["k4"] = max(contract_k4_case(torch, dev, gen, *c, card, tag="complete")
+                    for c in k4_cases)
+    torch.cuda.empty_cache()
+    t_c = time.perf_counter()
+    t3 = table3_phase(torch, dev)
+    out = {"err": err, "table3": t3, "ab_s": t_c - t0,
+           "c_s": time.perf_counter() - t_c, "phase_s": time.perf_counter() - t0}
+    log(f"[complete] phase 24 in {out['phase_s']:.1f} s ((a)+(b) {out['ab_s']:.1f} s, (c) "
+        f"{out['c_s']:.1f} s); max abs err K3 {err['k3']:.3e}, K4 {err['k4']:.3e} (fp8 outputs "
+        f"held by bytes); Table III "
+        f"{ {a: round(r['acc'], 4) for a, r in t3['results'].items()} } in "
+        f"{t3['seconds']:.2f} s")
+    return out
+
+
 def _kernel_line(name, source, replaces, launches, err, times) -> dict:
     """One entry of the ``{"kernels": [...]}`` line; ``times`` is a
     timing function's (ms, plain_ms, library_ms, bound_ms, bound_by)."""
@@ -4405,6 +4677,8 @@ def main() -> int:
                                  "card; with no arguments, every phase.")
     ap.add_argument("--ssm-depth-probe", type=int, nargs="+", metavar="LAYERS",
                     help="only phase 18 (e)'s mamba2 round at each depth (ssm_depth_probe)")
+    ap.add_argument("--only-phase", type=int, choices=(24,),
+                    help="build the kernels (phase 1), then run only this phase; no result line")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -4444,6 +4718,10 @@ def main() -> int:
     card = card_line()
     log(f"[build] {len(build_logs)} kernel libraries built in {build_s:.2f} s on {name}")
     log(card)
+    if args.only_phase == 24:
+        complete_phase(torch, dev, card)
+        log(f"[done] build and phase 24 alone in {time.perf_counter() - t_all:.1f} s")
+        return 0
 
     starts[2] = time.perf_counter()
     # --- phase 2: kernels against their plain versions, at the path's shapes
@@ -4727,6 +5005,11 @@ def main() -> int:
     # --- phase 23: the kernels' whole input contract, launch counts from
     # its serve and swarm runs alone
     ct = contract_phase(torch, dev, lm_data, card)
+
+    starts[24] = time.perf_counter()
+    # --- phase 24: the port complete (K3 and K4 at any D and an fp8 q;
+    # Table III), K1 and K2 launch counts from Table III alone
+    cp = complete_phase(torch, dev, card)
     ends = [*list(starts.values())[1:], time.perf_counter()]
     phase_s = {n: round(e - t, 1) for (n, t), e in zip(starts.items(), ends)}
     log(f"[phases] seconds each: {phase_s}")
@@ -4736,22 +5019,22 @@ def main() -> int:
                      sum(n["param_stats_batched"]
                          for n in (launches, g_launches, c_launches, b_launches, h_launches,
                                    la, lb, ssm["launches"], fl["launches"], pf["launches"],
-                                   ct["b"]["launches"])),
+                                   ct["b"]["launches"], cp["table3"]["launches"])),
                      max(k1_err, fl["k1_err"], ct["err"]["k1"]), k1),
         _kernel_line("kmeans_assign", "kmeans_assign", "src/repro/kernels/kmeans_assign.py:44",
                      sum(n["kmeans_assign"]
                          for n in (launches, g_launches, c_launches, b_launches, h_launches,
                                    la, lb, ssm["launches"], fl["launches"], pf["launches"],
-                                   ct["b"]["launches"])),
+                                   ct["b"]["launches"], cp["table3"]["launches"])),
                      k2_err, k2),
         _kernel_line("flash_decode", "flash_decode", "src/repro/kernels/flash_decode.py:93",
                      k3_launches + k3_lm + k3_moe + ssm["k3"] + ev["k3"] + dr["k3"]
                      + ct["a"]["k3"],
-                     max(k3_err, ssm["k3_err"], ev["k3_err"], ct["err"]["k3"],
+                     max(k3_err, ssm["k3_err"], ev["k3_err"], ct["err"]["k3"], cp["err"]["k3"],
                          *(r["err"] for r in dr["k3_probe"].values())), k3),
         _kernel_line("flash_attention", "flash_attention",
                      "src/repro/kernels/flash_attention.py:89", k4_launches,
-                     max(k4_err, ct["err"]["k4"]), k4),
+                     max(k4_err, ct["err"]["k4"], cp["err"]["k4"]), k4),
     ]
     log(f"[done] {time.perf_counter() - t_all:.1f} s in all; "
         f"round seconds {round_s}; Table II sweep {sweep_s:.3f} s, serial bso-sl "
@@ -4810,9 +5093,12 @@ def main() -> int:
         f"{[round(x, 4) for x in ct['b']['secs']]}, peak {ct['b']['peak'] / 1e9:.2f} GB; K1 and "
         f"K2 launches in the kernels "
         f"line: phases 3, 11, 12, 13, 14 (its 4-pod fit and scaling axis), 15, 18, 20 (the fleet's "
-        f"runs (a)-(c)), 22 (a) and 23 (b); K3: phases "
-        f"6, 16, 17, 18, 19, 21 and 23 (a); K3's max_abs_err over phases 5, 18, 19, 21 and 23, "
-        f"K1's and K4's also over 23")
+        f"runs (a)-(c)), 22 (a), 23 (b) and 24 (c); K3: phases "
+        f"6, 16, 17, 18, 19, 21 and 23 (a); K3's max_abs_err over phases 5, 18, 19, 21, 23 and "
+        f"24, K1's over 23, K4's over 23 and 24 (fp8 outputs held by bytes, not in the error); "
+        f"complete (phase 24, {cp['phase_s']:.1f} s): Table III "
+        f"{ {a: (round(r['acc'], 4), round(r['seconds'], 3)) for a, r in cp['table3']['results'].items()} } "
+        f"(acc, s), card vs CPU {cp['table3']['diffs']}")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -11,13 +11,16 @@ see the drift between the ends. Each tree prints one JSON line: every
 case's device time alone in ms, a CUDA graph of ``CALLS`` calls replayed
 and divided by ``CALLS`` (``graph_ms`` of ``chip_smoke.py``), so that
 the replay's own cost drops out of the small kernels' times. A case
-that a tree's wrapper refuses prints ``refused``. The card's
-``nvidia-smi`` name and power limit come first. It imports nothing of
-JAX.
+that a tree's wrapper refuses prints ``refused``. Each tree's line also
+carries the registers of its flash_decode instances on the 128-dim
+layout (ptxas' report of the tree's build), keyed by instance. The
+card's ``nvidia-smi`` name and power limit come first. It imports
+nothing of JAX.
 """
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -87,7 +90,9 @@ def k3_cases(torch, dev):
             ("kimi-k2 bf16", 64, 112, 2048, bf16, bf16),
             ("kimi-k2 bf16 on e4m3", 64, 112, 2048, bf16, torch.float8_e4m3fn),
             ("internvl2 bf16", 48, 128, 4096, bf16, bf16),
-            ("D 80 fp16", 32, 80, 4096, f16, f16)):
+            ("D 80 fp16", 32, 80, 4096, f16, f16),
+            ("granite e4m3 q on bf16", 32, 64, 2048, torch.float8_e4m3fn, bf16),
+            ("D 512 bf16", 32, 512, 4096, bf16, bf16)):
         q = torch.randn((4, H, 1, D), generator=gen, device=dev).to(qdt)
         k, v = (torch.randn((4, S, 8, D), generator=gen, device=dev).to(cdt).transpose(1, 2)
                 for _ in range(2))
@@ -97,11 +102,26 @@ def k3_cases(torch, dev):
     return out
 
 
+def registers_128(log: str) -> dict:
+    """``{instance: registers}`` of the flash_decode kernel instances on
+    the 128-dim layout (template argument 128) in ptxas' report."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and "flash_decode_kernel" in name and "Li128E" in name:
+            out[name.split("flash_decode_kernel")[1]] = int(m.group(1))
+    return out
+
+
 def one_tree(tree: Path) -> int:
     import torch
     sys.path.insert(0, str(tree / "src"))
-    from repro_torch.kernels import flash_decode, kmeans_assign
+    from repro_torch.kernels import _build, flash_decode, kmeans_assign
     dev = torch.device("cuda")
+    _build.build(("kmeans_assign", "flash_decode"))
     rows = {}
     for label, X, C, ka in k2_cases(torch, dev):
         rows[f"K2 {label}"] = graph_ms(torch, lambda X=X, C=C, ka=ka:
@@ -114,7 +134,8 @@ def one_tree(tree: Path) -> int:
             continue
         rows[label] = graph_ms(torch, lambda q=q, k=k, v=v, pos=pos:
                                flash_decode.flash_decode(q, k, v, pos, 0))
-    print(json.dumps({"tree": str(tree), "ms": rows}), flush=True)
+    regs = registers_128(_build.build_log("flash_decode"))
+    print(json.dumps({"tree": str(tree), "ms": rows, "registers_128": regs}), flush=True)
     return 0
 
 

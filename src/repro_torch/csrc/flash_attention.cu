@@ -8,7 +8,8 @@
 // sits at global position q_offset + i; causal keeps cols <= that
 // position, window > 0 keeps cols > position - window. The softmax is
 // online in fp32, scaled by 1/sqrt(D); the output is acc / max(l, 1e-30)
-// in q's type, so a row with no valid key gives 0.
+// in q's type, so a row with no valid key gives 0; an fp8 q's output is
+// rounded as the reference's astype (store_out).
 //
 // Bound: operations. Every valid (row, col) pair costs 2*D multiply-adds
 // per query head (D for the score, D for the output). At granite-3-2b's
@@ -55,7 +56,7 @@
 //   long causal rows start in the first wave and the short ones fill the
 //   tail.
 //
-// flash_attention_fwd (every other case: fp32, mixed types, an fp8 k or
+// flash_attention_fwd (every other case: fp32, mixed types, an fp8 q, k or
 // v, D above 128): the products on the fp32 FMA units from shared memory
 // (TF32 tensor cores cannot meet fp32's 2e-5). 128 threads; thread (r, c)
 // = (tid / 8, tid % 8) owns query rows 4r..4r+3 and, in a tile, score and
@@ -64,6 +65,14 @@
 // as it is staged (a runtime switch a tile); the probabilities of a tile
 // go through shared memory for P.V. At DP 256 its 214.5 KB of dynamic
 // shared memory take one CTA an SM.
+//
+// flash_attention_wide (D above 256, any types): flash_attention_fwd's
+// threads and tiles at a DP of 128, one CTA per (q tile, 128-dim output
+// slice). Per K/V tile it stages q's and K's dims 128 at a time (plain
+// loads, a dim a thread) and adds each piece to the scores, so every
+// slice's CTA computes the scores over all of D; it stages V over its own
+// slice only and owns that slice's accumulators. K and the scores are so
+// read and computed once a slice.
 //
 // Both read q, k, v and write the output through strides with D the
 // unit-stride axis, so a (B,S,H,D) activation is used as a (B,H,S,D)
@@ -91,12 +100,34 @@ __device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_f(__nv_fp8_e4m3 x) { return static_cast<float>(x); }
 __device__ __forceinline__ float to_f(__nv_fp8_e5m2 x) { return static_cast<float>(x); }
 
-// the output in q's type by its code: 0 fp32, 1 bf16, 2 fp16
+// fp32 -> fp8 as the reference's astype (ml_dtypes): round to nearest
+// even; e4m3 has no inf, so a value past its max 448 (|x| > 464, the
+// midpoint to the next step) is NaN; e5m2 is inf from 61,440 on and
+// writes NaN as 0x7e. Signs are kept. The hardware's conversion
+// saturates to the largest finite value instead, so those cases are
+// decided first.
+__device__ __forceinline__ unsigned char fp8_e4m3_ref(float x) {
+  const unsigned char sign = signbit(x) ? 0x80 : 0x00;
+  if (isnan(x) || fabsf(x) > 464.f) return sign | 0x7f;
+  return __nv_cvt_float_to_fp8(x, __NV_SATFINITE, __NV_E4M3);
+}
+
+__device__ __forceinline__ unsigned char fp8_e5m2_ref(float x) {
+  const unsigned char sign = signbit(x) ? 0x80 : 0x00;
+  if (isnan(x)) return sign | 0x7e;
+  if (fabsf(x) >= 61440.f) return sign | 0x7c;
+  return __nv_cvt_float_to_fp8(x, __NV_SATFINITE, __NV_E5M2);
+}
+
+// the output in q's type by its code: 0 fp32, 1 bf16, 2 fp16, 3 fp8
+// e4m3, 4 fp8 e5m2
 __device__ __forceinline__ void store_out(void* o, int dtype, long long i, float x) {
   switch (dtype) {
     case 0: static_cast<float*>(o)[i] = x; break;
     case 1: static_cast<__nv_bfloat16*>(o)[i] = __float2bfloat16_rn(x); break;
-    default: static_cast<__half*>(o)[i] = __float2half_rn(x); break;
+    case 2: static_cast<__half*>(o)[i] = __float2half_rn(x); break;
+    case 3: static_cast<unsigned char*>(o)[i] = fp8_e4m3_ref(x); break;
+    default: static_cast<unsigned char*>(o)[i] = fp8_e5m2_ref(x); break;
   }
 }
 
@@ -337,6 +368,176 @@ __global__ void __launch_bounds__(NT)
 template <int DP>
 constexpr size_t fma_smem_bytes() {
   return (size_t)(BQ * (DP + 1) + DP * (BK + 1) + BK * DP + BQ * (BK + 1)) * sizeof(float);
+}
+
+// D above 256: flash_attention_fwd's threads and tiles at DP 128, the CTA
+// of blockIdx.x taking q tile x % n_q and the output dims [s0, s0 + 128)
+// of slice x / n_q; the scores are summed over D in 128-dim pieces
+constexpr int kWideSlice = 128;
+static_assert(kWideSlice == NT, "the wide kernel stages a dim a thread");
+
+// rows [row0, row0 + nrows) of one (S, D) head, dims [0, w) of `src`, as
+// fp32 into dst[i * rs + d * ds] (d < kWideSlice), thread d taking dim d
+// of every row; rows at or past `limit` and dims past w are 0
+template <typename T>
+__device__ __forceinline__ void wide_rows(const T* __restrict__ src, long long s_stride,
+                                          int row0, int nrows, int limit, int w, float* dst,
+                                          int rs, int ds) {
+  const int d = threadIdx.x;
+#pragma unroll 8
+  for (int i = 0; i < nrows; ++i)
+    dst[i * rs + d * ds] =
+        row0 + i < limit && d < w ? to_f(src[(long long)(row0 + i) * s_stride + d]) : 0.f;
+}
+
+// wide_rows() of an input given by its storage type's code, from element
+// `off` of `src`
+__device__ __forceinline__ void wide_stage(const void* src, int dtype, long long off,
+                                           long long s_stride, int row0, int nrows, int limit,
+                                           int w, float* dst, int rs, int ds) {
+  switch (dtype) {
+    case 0:
+      wide_rows(static_cast<const float*>(src) + off, s_stride, row0, nrows, limit, w, dst, rs,
+                ds);
+      break;
+    case 1:
+      wide_rows(static_cast<const __nv_bfloat16*>(src) + off, s_stride, row0, nrows, limit, w,
+                dst, rs, ds);
+      break;
+    case 2:
+      wide_rows(static_cast<const __half*>(src) + off, s_stride, row0, nrows, limit, w, dst, rs,
+                ds);
+      break;
+    case 3:
+      wide_rows(static_cast<const __nv_fp8_e4m3*>(src) + off, s_stride, row0, nrows, limit, w,
+                dst, rs, ds);
+      break;
+    default:
+      wide_rows(static_cast<const __nv_fp8_e5m2*>(src) + off, s_stride, row0, nrows, limit, w,
+                dst, rs, ds);
+      break;
+  }
+}
+
+__global__ void __launch_bounds__(NT)
+    flash_attention_wide(const void* __restrict__ q, const void* __restrict__ k,
+                         const void* __restrict__ v, void* __restrict__ o, Types ty, int H,
+                         int KV, int Sq, int Sk, int D, int causal, int window, int q_offset,
+                         float scale, Strides st, int n_q) {
+  constexpr int DP = kWideSlice;
+  constexpr int DJ = DP / CPT;  // output columns a thread
+  extern __shared__ float smem[];
+  float* Qs = smem;                  // BQ x (DP + 1): a piece of q's dims
+  float* Kt = Qs + BQ * (DP + 1);    // DP x (BK + 1), a piece of K transposed
+  float* Vs = Kt + DP * (BK + 1);    // BK x DP, the slice of V
+  float* Ps = Vs + BK * DP;          // BQ x (BK + 1)
+
+  const int q0 = blockIdx.x % n_q * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int s0 = blockIdx.x / n_q * DP, sw = min(DP, D - s0);
+  const int kvh = h / (H / KV);
+  const int r = threadIdx.x / CPT, c = threadIdx.x % CPT;
+
+  const long long qb = b * st.q_b + h * st.q_h;
+  const long long kb = b * st.k_b + kvh * st.k_h;
+  const long long vb = b * st.v_b + kvh * st.v_h;
+
+  const int pos_lo = q_offset + q0;
+  const int pos_hi = q_offset + min(q0 + BQ, Sq) - 1;
+  const int col_hi = causal ? min(Sk - 1, pos_hi) : Sk - 1;
+  const int col_lo = window > 0 ? max(0, pos_lo - window + 1) : 0;
+
+  float m[RPT], l[RPT], acc[RPT][DJ];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
+  }
+
+  for (int t0 = col_lo / BK * BK; t0 <= col_hi; t0 += BK) {
+    float s[RPT][CPT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) s[i][j] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += DP) {
+      const int w = min(DP, D - d0);
+      __syncthreads();  // the last piece's Qs, Kt (and the last tile's Vs, Ps) consumed
+      wide_stage(q, ty.q, qb + d0, st.q_s, q0, BQ, Sq, w, Qs, DP + 1, 1);
+      wide_stage(k, ty.k, kb + d0, st.k_s, t0, BK, Sk, w, Kt, 1, BK + 1);
+      if (d0 == 0) wide_stage(v, ty.v, vb + s0, st.v_s, t0, BK, Sk, sw, Vs, DP, 1);
+      __syncthreads();
+#pragma unroll 8
+      for (int d = 0; d < DP; ++d) {
+        float qv[RPT], kv[CPT];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) qv[i] = Qs[(r * RPT + i) * (DP + 1) + d];
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) kv[j] = Kt[d * (BK + 1) + c + CPT * j];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i)
+#pragma unroll
+          for (int j = 0; j < CPT; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int pos = pos_lo + r * RPT + i;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        const int col = t0 + c + CPT * j;
+        const bool ok = col < Sk && (!causal || col <= pos) && (window <= 0 || col > pos - window);
+        s[i][j] = ok ? s[i][j] * scale : -INFINITY;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], group_max(mx));
+      // no valid column yet: keep exp() away from (-inf) - (-inf)
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = expf(m[i] - m_use);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        const float p = expf(s[i][j] - m_use);  // 0 for a masked column
+        psum += p;
+        Ps[(r * RPT + i) * (BK + 1) + c + CPT * j] = p;
+      }
+      l[i] = l[i] * alpha + group_sum(psum);
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) acc[i][j] *= alpha;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      float pv[RPT], vv[DJ];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) pv[i] = Ps[(r * RPT + i) * (BK + 1) + kk];
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) vv[j] = Vs[kk * DP + c + CPT * j];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+    }
+  }
+
+  const long long ob = b * st.o_b + h * st.o_h + s0;
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int row = q0 + r * RPT + i;
+    if (row < Sq) {
+      // the SFU's reciprocal (2 ulp): the IEEE one's slow path is a call,
+      // which the stores' switch on q's type would copy five times
+      const float inv = __fdividef(1.f, fmaxf(l[i], 1e-30f));
+#pragma unroll
+      for (int j = 0; j < DJ; ++j)
+        if (c + CPT * j < sw) store_out(o, ty.q, ob + row * st.o_s + c + CPT * j, acc[i][j] * inv);
+    }
+  }
 }
 
 // ------------------------------------------------- bf16 and fp16: mma.sync
@@ -732,6 +933,18 @@ int launch_mma_dp(const void* q, const void* k, const void* v, void* o, const Sh
   return launch_mma_exact<T, 128>(q, k, v, o, sh, st, grid, s);
 }
 
+int launch_wide(const void* q, const void* k, const void* v, void* o, Types ty, const Shape& sh,
+                const Strides& st, dim3 grid, int n_q, cudaStream_t stream) {
+  constexpr size_t smem = fma_smem_bytes<kWideSlice>();
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_wide,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  flash_attention_wide<<<grid, NT, smem, stream>>>(
+      q, k, v, o, ty, sh.H, sh.KV, sh.Sq, sh.Sk, sh.D, sh.causal, sh.window, sh.q_offset,
+      1.0f / sqrtf((float)sh.D), st, n_q);
+  return (int)cudaGetLastError();
+}
+
 int launch_fma_dp(const void* q, const void* k, const void* v, void* o, Types ty,
                   const Shape& sh, const Strides& st, dim3 grid, cudaStream_t s) {
   if (sh.D <= 32) return launch_fma<32>(q, k, v, o, ty, sh, st, grid, s);
@@ -743,9 +956,10 @@ int launch_fma_dp(const void* q, const void* k, const void* v, void* o, Types ty
 }  // namespace
 
 // q (B,H,Sq,D), k and v (B,KV,Sk,D), o (B,H,Sq,D), each given by element
-// strides of its first three axes (D unit-stride). q_dtype (q and o): 0
-// fp32, 1 bf16, 2 fp16; k_dtype, v_dtype: those or 3 fp8 e4m3, 4 fp8
-// e5m2. kernel 0 = the FMA kernel (any types, D <= 256; grid (n_q, H, B)),
+// strides of its first three axes (D unit-stride). q_dtype (q and o),
+// k_dtype, v_dtype: 0 fp32, 1 bf16, 2 fp16, 3 fp8 e4m3, 4 fp8 e5m2.
+// kernel 0 = the FMA kernel (any types, any D; grid (n_q * n_slice, H,
+// B), n_slice = 1 up to D 256, else ceil(D / 128)),
 // 1 = the tensor-core kernel (q, k, v all bf16 or all fp16, D <= 128; grid
 // (H, B, n_q), q tiles heaviest first), n_q = ceil(Sq / rows a CTA): 64
 // for fma, 128 for mma at D <= 64 and 64 above; the wrapper chooses the
@@ -766,8 +980,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                                       void* stream) {
   const Strides st{q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss};
   const Shape sh{B, H, KV, Sq, Sk, D, causal, window, q_offset, vec};
-  if (D < 1 || D > 256 || q_dtype < 0 || q_dtype > 2 || k_dtype < 0 || k_dtype > 4 ||
-      v_dtype < 0 || v_dtype > 4)
+  if (D < 1 || q_dtype < 0 || q_dtype > 4 || k_dtype < 0 || k_dtype > 4 || v_dtype < 0 ||
+      v_dtype > 4)
     return (int)cudaErrorInvalidValue;
   // rows a CTA: 64 for fma, MmaTile<DP>::BQ for mma
   const int bq = kernel == 1 && D <= 64 ? 128 : 64;
@@ -775,9 +989,13 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   const dim3 grid(gx, gy, gz);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (kernel) {
-    case 0:
-      if (gx != n_q || gy != H || gz != B) return (int)cudaErrorInvalidValue;
-      return launch_fma_dp(q, k, v, o, Types{q_dtype, k_dtype, v_dtype}, sh, st, grid, s);
+    case 0: {
+      const int n_slice = D > 256 ? (D + kWideSlice - 1) / kWideSlice : 1;
+      if (gx != n_q * n_slice || gy != H || gz != B) return (int)cudaErrorInvalidValue;
+      const Types ty{q_dtype, k_dtype, v_dtype};
+      return D > 256 ? launch_wide(q, k, v, o, ty, sh, st, grid, n_q, s)
+                     : launch_fma_dp(q, k, v, o, ty, sh, st, grid, s);
+    }
     case 1:
       if (gx != H || gy != B || gz != n_q || D > 128 || k_dtype != q_dtype ||
           v_dtype != q_dtype || (q_dtype != 1 && q_dtype != 2))

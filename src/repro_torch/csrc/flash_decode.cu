@@ -6,12 +6,12 @@
 // h reads kv head h / G (G = H / KV). Keys 0..pos[b] are valid in row b,
 // and window > 0 keeps only cols > pos - window. The softmax is online in
 // fp32, scaled by 1/sqrt(D); the output is acc / max(l, 1e-30) in q's type.
-// q is fp32, bf16 or fp16; k and v are each, independently, fp32, bf16,
-// fp16, fp8 e4m3 or fp8 e5m2, which the Pallas kernel upcasts as it does
-// any dtype (.astype(f32)): here each cache's bytes come through the same
-// cp.async ring in their storage type and are converted to fp32 in
-// registers when read (cuda_fp8.h for the fp8 types). Any D from 1 to 256
-// and any G.
+// q, k and v are each, independently, fp32, bf16, fp16, fp8 e4m3 or fp8
+// e5m2, which the Pallas kernel upcasts as it does any dtype
+// (.astype(f32)): here each cache's bytes come through the same cp.async
+// ring in their storage type and are converted to fp32 in registers when
+// read (cuda_fp8.h for the fp8 types). The output is in q's type, an fp8
+// one rounded as the reference's astype (store_out). Any D and any G.
 //
 // Bound: bytes. Each valid K/V column is D elements read once per kv head;
 // the work on it is 2*G*D multiply-adds for the scores and as many for the
@@ -71,6 +71,9 @@
 //   CTA and the output's written once a row, so it is a runtime switch;
 //   k's type, v's type and DP are template arguments, and D too for
 //   kimi-k2's 112.
+// - A D above 256 runs flash_decode_wide (below): a CTA owns one 256-dim
+//   slice of the output, computes the scores over all of D in 256-dim
+//   pieces, and merges its slice as above.
 // What is left (PERF.md): every one of the chunk's warps converts and
 // multiplies the whole tile, ~300 instructions a lane a tile; a G above
 // kMaxGroup reads each tile once a chunk; the G rows of a kv head as one
@@ -96,20 +99,46 @@ __device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_f(__nv_fp8_e4m3 x) { return static_cast<float>(x); }
 __device__ __forceinline__ float to_f(__nv_fp8_e5m2 x) { return static_cast<float>(x); }
 
-// q's (and the output's) type by its code: 0 fp32, 1 bf16, 2 fp16
-__device__ __forceinline__ float load_q(const void* q, int dtype, long long i) {
+// element i of a tensor of a storage type given by its code (0 fp32,
+// 1 bf16, 2 fp16, 3 fp8 e4m3, 4 fp8 e5m2), as fp32: q's, and the wide
+// kernel's k and v
+__device__ __forceinline__ float load_any(const void* p, int dtype, long long i) {
   switch (dtype) {
-    case 0: return static_cast<const float*>(q)[i];
-    case 1: return __bfloat162float(static_cast<const __nv_bfloat16*>(q)[i]);
-    default: return __half2float(static_cast<const __half*>(q)[i]);
+    case 0: return static_cast<const float*>(p)[i];
+    case 1: return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
+    case 2: return __half2float(static_cast<const __half*>(p)[i]);
+    case 3: return to_f(static_cast<const __nv_fp8_e4m3*>(p)[i]);
+    default: return to_f(static_cast<const __nv_fp8_e5m2*>(p)[i]);
   }
 }
 
+// fp32 -> fp8 as the reference's astype (ml_dtypes): round to nearest
+// even; e4m3 has no inf, so a value past its max 448 (|x| > 464, the
+// midpoint to the next step) is NaN; e5m2 is inf from 61,440 on and
+// writes NaN as 0x7e. Signs are kept. The hardware's conversion
+// saturates to the largest finite value instead, so those cases are
+// decided first.
+__device__ __forceinline__ unsigned char fp8_e4m3_ref(float x) {
+  const unsigned char sign = signbit(x) ? 0x80 : 0x00;
+  if (isnan(x) || fabsf(x) > 464.f) return sign | 0x7f;
+  return __nv_cvt_float_to_fp8(x, __NV_SATFINITE, __NV_E4M3);
+}
+
+__device__ __forceinline__ unsigned char fp8_e5m2_ref(float x) {
+  const unsigned char sign = signbit(x) ? 0x80 : 0x00;
+  if (isnan(x)) return sign | 0x7e;
+  if (fabsf(x) >= 61440.f) return sign | 0x7c;
+  return __nv_cvt_float_to_fp8(x, __NV_SATFINITE, __NV_E5M2);
+}
+
+// the output in q's type by its code
 __device__ __forceinline__ void store_out(void* o, int dtype, long long i, float x) {
   switch (dtype) {
     case 0: static_cast<float*>(o)[i] = x; break;
     case 1: static_cast<__nv_bfloat16*>(o)[i] = __float2bfloat16_rn(x); break;
-    default: static_cast<__half*>(o)[i] = __float2half_rn(x); break;
+    case 2: static_cast<__half*>(o)[i] = __float2half_rn(x); break;
+    case 3: static_cast<unsigned char*>(o)[i] = fp8_e4m3_ref(x); break;
+    default: static_cast<unsigned char*>(o)[i] = fp8_e5m2_ref(x); break;
   }
 }
 
@@ -275,7 +304,7 @@ __device__ __forceinline__ float dot16(const unsigned char* kr, const float* qv,
 // TK, TV: the caches' types; DP: the dims a row holds in shared memory and
 // a partial (the stored D padded); DC: the one D an instance takes, where
 // it has its own (kimi-k2's 112; 0: any D up to DP). q and out are of
-// q_dtype (0 fp32, 1 bf16, 2 fp16). blockDim.x / 32 warps take query rows
+// q_dtype (0-4, as load_any). blockDim.x / 32 warps take query rows
 // chunk * GC + warp of kv head kvh, where blockIdx.y = kvh * n_chunk +
 // chunk.
 template <typename TK, typename TV, int DP, int DC>
@@ -333,7 +362,7 @@ __global__ void __launch_bounds__(kMaxGroup * 32)
   for (int i = threadIdx.x; i < GC * DP; i += blockDim.x) {
     const int gi = qc * GC + i / DP, d = i % DP;
     q_s[i] = d < D && gi < G
-                 ? load_q(q, q_dtype, b * st.q_b + (long long)(kvh * G + gi) * st.q_h + d)
+                 ? load_any(q, q_dtype, b * st.q_b + (long long)(kvh * G + gi) * st.q_h + d)
                  : 0.f;
   }
   const int part = lane % LPK, slot = lane / LPK;
@@ -519,6 +548,210 @@ __global__ void __launch_bounds__(kMaxGroup * 32)
     if (lane * DPL + dd < D) store_out(out, q_dtype, row * D + lane * DPL + dd, A[dd] * inv);
 }
 
+// ------------------------------------------- D above 256: flash_decode_wide
+//
+// One CTA of 256 threads per (split of S, output slice, query chunk of a kv
+// head, batch row). Keys go in tiles of 32, one a lane: for each 256-dim
+// piece of D, q's piece (the chunk's rows) and the tile's K piece are
+// staged in fp32 in shared memory, and warp g adds row g's dot with the
+// lane's key over the piece. Warp g then runs row g's online softmax
+// (exact running max) and leaves the tile's probabilities in shared
+// memory; the tile's V rows over the CTA's slice are staged in the K
+// piece's place, and thread t adds p * V to dim t of the slice for every
+// row of the chunk. K is read once a slice, V once. The partial (m, l,
+// acc over the slice) is merged as flash_decode_kernel merges, per (row,
+// slice): the last split of a (row, kv head, query chunk, slice) merges.
+// Plain loads, converted as they are staged; no cp.async ring (its
+// speed is later work).
+
+constexpr int kWideSlice = 256;   // output dims a CTA, and k dims a score pass stages
+constexpr int kWideTile = 32;     // keys a tile, one a lane
+constexpr int kWideThreads = kWideSlice;  // one thread an output dim of the slice
+
+// rows [t0, t0 + n) of one (S, D) head, dims [d0, d0 + w), as fp32 into
+// dst (kWideTile rows of ld floats, kWideSlice dims each); rows past n
+// and dims past w are 0
+template <typename T>
+__device__ __forceinline__ void wide_rows(const T* __restrict__ src, long long s_stride, int t0,
+                                          int n, int d0, int w, float* dst, int ld) {
+  const int d = threadIdx.x;
+#pragma unroll 8
+  for (int r = 0; r < kWideTile; ++r)
+    dst[r * ld + d] = r < n && d < w ? to_f(src[(t0 + r) * s_stride + d0 + d]) : 0.f;
+}
+
+__device__ __forceinline__ void wide_stage(const void* src, int dtype, long long off,
+                                           long long s_stride, int t0, int n, int d0, int w,
+                                           float* dst, int ld) {
+  switch (dtype) {
+    case 0:
+      wide_rows(static_cast<const float*>(src) + off, s_stride, t0, n, d0, w, dst, ld);
+      break;
+    case 1:
+      wide_rows(static_cast<const __nv_bfloat16*>(src) + off, s_stride, t0, n, d0, w, dst, ld);
+      break;
+    case 2:
+      wide_rows(static_cast<const __half*>(src) + off, s_stride, t0, n, d0, w, dst, ld);
+      break;
+    case 3:
+      wide_rows(static_cast<const __nv_fp8_e4m3*>(src) + off, s_stride, t0, n, d0, w, dst, ld);
+      break;
+    default:
+      wide_rows(static_cast<const __nv_fp8_e5m2*>(src) + off, s_stride, t0, n, d0, w, dst, ld);
+      break;
+  }
+}
+
+// blockIdx.y = (kvh * n_chunk + chunk) * n_slice + slice; q, k, v and the
+// output of types by code (load_any); part_acc holds kWideSlice floats a
+// (row, slice, split)
+// 2 CTAs an SM at least: ptxas otherwise sizes the registers for the 5
+// CTAs that the 44 KB of static shared memory allow (48 a thread) and
+// spills
+__global__ void __launch_bounds__(kWideThreads, 2)
+    flash_decode_wide(const void* __restrict__ q, const void* __restrict__ k,
+                      const void* __restrict__ v, int q_dtype, int k_dtype, int v_dtype,
+                      const int* __restrict__ pos, void* __restrict__ out,
+                      float* __restrict__ part_m, float* __restrict__ part_l,
+                      float* __restrict__ part_acc, int* __restrict__ counter, int H, int G,
+                      int GC, int n_chunk, int n_slice, int D, int S, int window, int chunk,
+                      int n_split, float scale_log2, Strides st) {
+  constexpr int LD = kWideSlice + 1;  // padded rows: lane j reads row j without conflicts
+  __shared__ float q_s[kMaxGroup][kWideSlice];
+  __shared__ float kv_s[kWideTile * LD];  // a K piece, then the V slice
+  __shared__ float p_s[kMaxGroup][kWideTile];
+  __shared__ float alpha_s[kMaxGroup];
+  __shared__ float w_s[kMaxGroup][kMaxSplits];
+  __shared__ float l_s[kMaxGroup];
+  __shared__ int is_last;
+
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int slice = blockIdx.y % n_slice, qc = blockIdx.y / n_slice % n_chunk;
+  const int kvh = blockIdx.y / (n_slice * n_chunk);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const bool scorer = warp < GC && qc * GC + warp < G;  // warp g scores row qc * GC + g
+  const int p = pos[b];
+  const int lo = window > 0 ? max(p - window + 1, 0) : 0;
+  const int c0 = max(split * chunk, lo);
+  const int c1 = min(min(split * chunk + chunk, S), p + 1);  // exclusive
+  const int s0 = slice * kWideSlice;       // the slice's first dim
+  const int sw = min(kWideSlice, D - s0);  // its dims
+  const long long kb = b * st.k_b + kvh * st.k_h, vb = b * st.v_b + kvh * st.v_h;
+  const long long qb = b * st.q_b + (long long)(kvh * G + qc * GC) * st.q_h;
+
+  float m = -INFINITY, l = 0.f;  // a scorer warp's row: running max (log2 units), sum
+  float acc[kMaxGroup];          // dim s0 + tid of each row of the chunk
+#pragma unroll
+  for (int g = 0; g < kMaxGroup; ++g) acc[g] = 0.f;
+
+  for (int t0 = c0; t0 < c1; t0 += kWideTile) {
+    const int n = min(kWideTile, c1 - t0);
+    float sc0 = 0.f, sc1 = 0.f;  // q . k of the warp's row and key t0 + lane
+    for (int d0 = 0; d0 < D; d0 += kWideSlice) {
+      const int w = min(kWideSlice, D - d0);
+      __syncthreads();  // the last pass's q_s and kv_s (and the last tile's V) are consumed
+      for (int g = 0; g < GC; ++g)
+        q_s[g][tid] = tid < w && qc * GC + g < G
+                          ? load_any(q, q_dtype, qb + g * st.q_h + d0 + tid) : 0.f;
+      wide_stage(k, k_dtype, kb, st.k_s, t0, n, d0, w, kv_s, LD);
+      __syncthreads();
+      if (scorer) {
+        const float* qr = q_s[warp];
+        const float* kr = kv_s + lane * LD;
+#pragma unroll 8
+        for (int d = 0; d < kWideSlice; d += 2) {
+          sc0 = fmaf(qr[d], kr[d], sc0);
+          sc1 = fmaf(qr[d + 1], kr[d + 1], sc1);
+        }
+      }
+    }
+    if (scorer) {
+      const float s = lane < n ? (sc0 + sc1) * scale_log2 : -INFINITY;
+      const float m_new = fmaxf(m, warp_max(s));  // finite: n >= 1
+      const float alpha = exp2f(m - m_new);       // 0 on the first tile
+      const float pj = lane < n ? exp2f(s - m_new) : 0.f;
+      l = l * alpha + warp_sum(pj);
+      m = m_new;
+      p_s[warp][lane] = pj;
+      if (lane == 0) alpha_s[warp] = alpha;
+    }
+    __syncthreads();  // the K piece is consumed; p_s, alpha_s written
+    wide_stage(v, v_dtype, vb, st.v_s, t0, n, s0, sw, kv_s, LD);
+    __syncthreads();
+    // a row past G has no p_s: its acc is never written out
+#pragma unroll
+    for (int g = 0; g < kMaxGroup; ++g)
+      if (g < GC) acc[g] *= alpha_s[g];
+#pragma unroll 4
+    for (int j = 0; j < kWideTile; ++j) {
+      const float vj = kv_s[j * LD + tid];
+#pragma unroll
+      for (int g = 0; g < kMaxGroup; ++g)
+        if (g < GC) acc[g] = fmaf(p_s[g][j], vj, acc[g]);
+    }
+  }
+
+  // this split's partials: (m, l) from each scorer warp, acc from every thread
+  const long long row0 = (long long)b * H + kvh * G + qc * GC;  // the chunk's first row
+  if (scorer && lane == 0) {
+    const long long prow = ((row0 + warp) * n_slice + slice) * n_split + split;
+    part_m[prow] = m;
+    part_l[prow] = l;
+  }
+  if (c1 > c0) {
+#pragma unroll
+    for (int g = 0; g < kMaxGroup; ++g)
+      if (g < GC && qc * GC + g < G)
+        part_acc[(((row0 + g) * n_slice + slice) * n_split + split) * kWideSlice + tid] = acc[g];
+  }
+
+  // the last split of this (row, kv head, query chunk, slice) merges
+  int* ctr = counter + (long long)b * gridDim.y + blockIdx.y;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(ctr, 1) == n_split - 1;
+  __syncthreads();
+  if (!is_last) return;
+  if (tid == 0) *ctr = 0;
+  __threadfence();
+  constexpr int SPL = kMaxSplits / 32;
+  if (scorer) {
+    const long long base = ((row0 + warp) * n_slice + slice) * n_split;
+    float ms[SPL], ws[SPL];
+    float M = -INFINITY, L = 0.f;
+#pragma unroll
+    for (int i = 0; i < SPL; ++i) {
+      const int s2 = lane + 32 * i;
+      ws[i] = s2 < n_split ? __ldcg(part_l + base + s2) : 0.f;
+      ms[i] = ws[i] > 0.f ? __ldcg(part_m + base + s2) : -INFINITY;
+      M = fmaxf(M, ms[i]);
+    }
+    M = warp_max(M);
+#pragma unroll
+    for (int i = 0; i < SPL; ++i) {
+      const float w = ws[i] > 0.f ? exp2f(ms[i] - M) : 0.f;  // l = 0: no weight
+      L = fmaf(ws[i], w, L);
+      w_s[warp][lane + 32 * i] = w;
+    }
+    L = warp_sum(L);
+    if (lane == 0) l_s[warp] = L;
+  }
+  __syncthreads();
+  if (tid >= sw) return;
+  for (int g = 0; g < GC && qc * GC + g < G; ++g) {
+    const long long base = ((row0 + g) * n_slice + slice) * n_split;
+    float A = 0.f;
+    for (int s2 = 0; s2 < n_split; ++s2) {
+      const float w = w_s[g][s2];
+      // a split with l = 0 wrote no acc: it is skipped, not read
+      A = fmaf(w, w > 0.f ? __ldcg(part_acc + (base + s2) * kWideSlice + tid) : 0.f, A);
+    }
+    // the SFU's reciprocal (2 ulp): the IEEE one's slow path is a call,
+    // whose frame the stores' switch on q's type would copy five times
+    store_out(out, q_dtype, (row0 + g) * D + s0 + tid, A * __fdividef(1.f, fmaxf(l_s[g], 1e-30f)));
+  }
+}
+
 struct Args {
   const void *q, *k, *v;
   const int* pos;
@@ -564,6 +797,20 @@ int launch_dp(const Args& a) {
   return launch<TK, TV, 256>(a);
 }
 
+int launch_wide(int k_dtype, int v_dtype, const Args& a) {
+  const int n_slice = (a.D + kWideSlice - 1) / kWideSlice;
+  if (a.n_split > kMaxSplits || a.GC < 1 || a.GC > kMaxGroup || a.GC * a.n_chunk < a.G ||
+      a.chunk % kWideTile != 0)
+    return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)a.B * a.H * n_slice * a.n_split;
+  const dim3 grid(a.n_split, a.KV * a.n_chunk * n_slice, a.B);
+  flash_decode_wide<<<grid, kWideThreads, 0, a.stream>>>(
+      a.q, a.k, a.v, a.q_dtype, k_dtype, v_dtype, a.pos, a.out, a.part, a.part + rows,
+      a.part + 2 * rows, a.counter, a.H, a.G, a.GC, a.n_chunk, n_slice, a.D, a.S, a.window,
+      a.chunk, a.n_split, 1.4426950408889634f / sqrtf((float)a.D), a.st);
+  return (int)cudaGetLastError();
+}
+
 template <typename TK>
 int launch_v(int v_dtype, const Args& a) {
   switch (v_dtype) {
@@ -579,16 +826,17 @@ int launch_v(int v_dtype, const Args& a) {
 }  // namespace
 
 // q (B,H,1,D), k and v (B,KV,S,D) given by element strides (D unit-stride),
-// pos (B,) int32, out (B,H,1,D) contiguous, part B*H*n_split*(DP+2) fp32
-// scratch (DP: D rounded up to 32, 64, 128 or 256), counter
-// B*KV*n_chunk int32 that is 0 at the launch (and is 0 again when the
-// kernel ends). q_dtype (q and out): 0 fp32, 1 bf16, 2 fp16; k_dtype and
-// v_dtype each 0-2 or 3 fp8 e4m3, 4 fp8 e5m2. The wrapper checks the
-// shapes and plans the launch: H = KV * G, 1 <= D <= 256, the query rows
-// of a kv head in n_chunk chunks of GC <= 8 (GC * n_chunk >= G), chunk a
-// multiple of the tile (2048/DP keys), n_split <= 64, and vec = 1 only
-// where every base and stride of k and v and each row's D elements are
-// whole 16-byte chunks. Returns cudaGetLastError() after the launch on
+// pos (B,) int32, out (B,H,1,D) contiguous, part B*H*n_slice*n_split*(DS+2)
+// fp32 scratch (up to D 256 n_slice 1 and DS = D rounded up to 32, 64, 128
+// or 256; above it n_slice = ceil(D / 256) and DS 256), counter
+// B*KV*n_chunk*n_slice int32 that is 0 at the launch (and is 0 again when
+// the kernel ends). q_dtype, k_dtype and v_dtype: 0 fp32, 1 bf16, 2 fp16,
+// 3 fp8 e4m3, 4 fp8 e5m2; the output is of q's. The wrapper checks the
+// shapes and plans the launch: H = KV * G, D >= 1, the query rows of a kv
+// head in n_chunk chunks of GC <= 8 (GC * n_chunk >= G), chunk a multiple
+// of the tile (2048/DS keys, 32 above D 256), n_split <= 64, and vec = 1
+// only where every base and stride of k and v and each row's D elements
+// are whole 16-byte chunks. Returns cudaGetLastError() after the launch on
 // `stream`.
 extern "C" int flash_decode_launch(const void* q, const void* k, const void* v, const void* pos,
                                    void* out, void* part, void* counter, int q_dtype,
@@ -597,11 +845,14 @@ extern "C" int flash_decode_launch(const void* q, const void* k, const void* v, 
                                    long long q_sb, long long q_sh, long long k_sb,
                                    long long k_sh, long long k_ss, long long v_sb,
                                    long long v_sh, long long v_ss, int vec, void* stream) {
-  if (q_dtype < 0 || q_dtype > 2 || KV < 1 || H % KV) return (int)cudaErrorInvalidValue;
+  if (q_dtype < 0 || q_dtype > 4 || k_dtype < 0 || k_dtype > 4 || v_dtype < 0 || v_dtype > 4 ||
+      KV < 1 || H % KV || D < 1)
+    return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, static_cast<const int*>(pos), out, static_cast<float*>(part),
                static_cast<int*>(counter), q_dtype, B, H, KV, H / KV, GC, n_chunk, S, D, window,
                chunk, n_split, vec, Strides{q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss},
                static_cast<cudaStream_t>(stream)};
+  if (D > 256) return launch_wide(k_dtype, v_dtype, a);
   switch (k_dtype) {
     case 0: return launch_v<float>(v_dtype, a);
     case 1: return launch_v<__nv_bfloat16>(v_dtype, a);

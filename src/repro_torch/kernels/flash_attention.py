@@ -6,12 +6,14 @@ Wraps ``csrc/flash_attention.cu``, the port of the Pallas kernel
 note there says what bounds it and how a CTA walks its K/V tiles. q, k
 and v all bf16 or all fp16 at D <= 128 run on the tensor cores
 (``mma``); every other case runs on the FMA units (``fma``), each input
-converted from its own type as it is staged: fp32, mixed types, a k or
-v of an fp8 type, and D from 129 to ``MAX_HEAD_DIM``. :func:`kernel_for`
-and :func:`launch_plan` choose the kernel and its grid by the types and
-D up front. Still refused: D above ``MAX_HEAD_DIM``, and a q of an fp8
-type or of fp64. Its plain version is
-:func:`repro_torch.kernels.ref.attention`.
+converted from its own type as it is staged: fp32, mixed types, a q, k
+or v of an fp8 type, and D above 128. Above ``MAX_LAYOUT`` each FMA CTA
+owns one ``WIDE_SLICE``-dim slice of the output and computes the scores
+over all of D (:func:`slices`). :func:`kernel_for` and
+:func:`launch_plan` choose the kernel and its grid by the types and D up
+front. The output is in q's type, an fp8 one rounded as the reference's
+``astype`` (:func:`repro_torch.kernels.ref.astype`). fp64 is refused.
+Its plain version is :func:`repro_torch.kernels.ref.attention`.
 """
 from __future__ import annotations
 
@@ -22,11 +24,11 @@ import torch
 
 from repro_torch.kernels import _build
 
-Q_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 MMA_DTYPES = (torch.bfloat16, torch.float16)
 _KERNEL_IDS = {"fma": 0, "mma": 1}
 LAYOUTS = (32, 64, 128, 256)          # padded dims of a row in shared memory
-MAX_HEAD_DIM = LAYOUTS[-1]
+MAX_LAYOUT = LAYOUTS[-1]
+WIDE_SLICE = 128                      # output dims a CTA owns above MAX_LAYOUT (kWideSlice)
 MMA_MAX_HEAD_DIM = 128                # the tensor-core kernel's registers
 BLOCK_K = 64                          # keys a K/V tile, both kernels
 
@@ -52,11 +54,21 @@ def check_blocks(Sq: int, Sk: int, block_q: int, block_k: int) -> None:
 
 
 def padded_dims(D: int) -> int:
-    """The dims a row holds in shared memory: the first of ``LAYOUTS`` at
-    or above D (pad dims zero). A D outside 1..``MAX_HEAD_DIM`` raises."""
-    if not 1 <= D <= MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention takes a head dim D <= {MAX_HEAD_DIM}, got {D}")
+    """The dims a row holds in shared memory: up to ``MAX_LAYOUT`` the
+    first of ``LAYOUTS`` at or above D (pad dims zero); above it D in
+    whole ``WIDE_SLICE`` slices, which the wide kernel stages one at a
+    time. A D below 1 raises."""
+    if D < 1:
+        raise ValueError(f"flash_attention takes a head dim D >= 1, got {D}")
+    if D > MAX_LAYOUT:
+        return slices(D) * WIDE_SLICE
     return next(dp for dp in LAYOUTS if D <= dp)
+
+
+def slices(D: int) -> int:
+    """Output slices of a q tile: 1 up to ``MAX_LAYOUT``, else
+    ``ceil(D / WIDE_SLICE)``, one FMA CTA each."""
+    return 1 if D <= MAX_LAYOUT else math.ceil(D / WIDE_SLICE)
 
 
 def kernel_for(q_dtype: torch.dtype, k_dtype: torch.dtype | None = None,
@@ -64,13 +76,12 @@ def kernel_for(q_dtype: torch.dtype, k_dtype: torch.dtype | None = None,
     """The kernel of a call by its types (k's and v's default to q's) and
     head dim: ``"mma"`` (tensor cores) where q, k and v are all bf16 or
     all fp16 and D <= ``MMA_MAX_HEAD_DIM``, ``"fma"`` (fp32 FMA units;
-    TF32 would miss fp32's 2e-5) for every other case. A q outside fp32,
-    bf16 and fp16, a k or v outside the storage types, or a D above
-    ``MAX_HEAD_DIM`` raises."""
+    TF32 would miss fp32's 2e-5) for every other case, an fp8 q and any
+    D above 128 included. A q, k or v outside the storage types, or a D
+    below 1, raises."""
     k_dtype = k_dtype or q_dtype
     v_dtype = v_dtype or q_dtype
-    if q_dtype not in Q_DTYPES:
-        raise TypeError(f"flash_attention takes q of float32, bfloat16 or float16, got {q_dtype}")
+    _build.storage_code(q_dtype, "flash_attention's q")
     _build.storage_code(k_dtype, "flash_attention's k")
     _build.storage_code(v_dtype, "flash_attention's v")
     padded_dims(D)
@@ -88,13 +99,13 @@ def launch_plan(dtypes, B: int, H: int, Sq: int, D: int):
     """(kernel, rows a CTA, grid) of one call; ``dtypes`` is q's type or
     (q's, k's, v's). ``mma``'s grid is (H, B, n_q) and its CTA ``z``
     takes q tile ``n_q - 1 - z`` (:func:`q_tile_order`), so the heaviest
-    causal tiles are dispatched first; ``fma`` keeps (n_q, H, B) with q
-    tile ``x``."""
+    causal tiles are dispatched first; ``fma`` keeps (n_q * slices, H,
+    B) with q tile ``x % n_q`` and output slice ``x // n_q``."""
     dtypes = dtypes if isinstance(dtypes, tuple) else (dtypes,)
     kernel = kernel_for(*dtypes, D=D)
     bq = rows_per_cta(kernel, D)
     n_q = math.ceil(Sq / bq)
-    return kernel, bq, ((H, B, n_q) if kernel == "mma" else (n_q, H, B))
+    return kernel, bq, ((H, B, n_q) if kernel == "mma" else (n_q * slices(D), H, B))
 
 
 def q_tile_order(kernel: str, n_q: int) -> list:
@@ -169,9 +180,8 @@ def _launch(q, k, v, out, causal: bool, window: int, q_offset: int) -> None:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
                     window: int = 0, block_q: int = 128, block_k: int = 128,
                     q_offset: int = 0) -> torch.Tensor:
-    """q (B,H,Sq,D) fp32, bf16 or fp16, k and v (B,KV,Sk,D) each of any
-    storage type, on one CUDA device, D <= ``MAX_HEAD_DIM``, any strides
-    with D unit-stride. Returns (B,H,Sq,D) in q's type. ``block_q`` / ``block_k`` only carry the reference's
+    """q (B,H,Sq,D) and k and v (B,KV,Sk,D), each of any storage type, on
+    one CUDA device, any D >= 1, any strides with D unit-stride. Returns (B,H,Sq,D) in q's type. ``block_q`` / ``block_k`` only carry the reference's
     shape rule (:func:`check_blocks`). One count per launch."""
     check_blocks(q.shape[2], k.shape[2], block_q, block_k)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)

@@ -7,14 +7,16 @@ there says what bounds it, how a CTA keeps its tiles in flight and how
 the last split of a (row, query chunk) merges the partials in the same
 launch. Its plain version is :func:`repro_torch.kernels.ref.decode_attention`.
 
-q may be fp32, bf16 or fp16; k and v may each be any of the storage
-types (``_build.STORAGE_CODES``, fp8 e4m3 and e5m2 included), which the
-kernel converts to fp32 in registers, as the Pallas kernel upcasts any
-cache dtype. Any D from 1 to ``MAX_HEAD_DIM`` runs on rows padded to
-the next of ``LAYOUTS`` in shared memory (:func:`padded_dims`), and any
-G = H / KV in chunks of at most ``MAX_GROUP`` query rows a CTA
-(:func:`query_chunks`). Still refused: D above ``MAX_HEAD_DIM``, and a q
-of an fp8 type or of fp64.
+q, k and v may each be any of the storage types
+(``_build.STORAGE_CODES``, fp8 e4m3 and e5m2 included), which the
+kernel converts to fp32, as the Pallas kernel upcasts any dtype; the
+output is in q's type, an fp8 one rounded as the reference's ``astype``
+(:func:`repro_torch.kernels.ref.astype`). Any D up to ``MAX_LAYOUT``
+runs on rows padded to the next of ``LAYOUTS`` in shared memory
+(:func:`padded_dims`); a larger D runs the wide kernel, whose CTAs each
+own one ``WIDE_SLICE``-dim slice of the output and compute the scores
+over all of D. Any G = H / KV runs in chunks of at most ``MAX_GROUP``
+query rows a CTA (:func:`query_chunks`). fp64 is refused.
 """
 from __future__ import annotations
 
@@ -25,9 +27,10 @@ import torch
 
 from repro_torch.kernels import _build
 
-Q_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 LAYOUTS = (32, 64, 128, 256)          # dims a row holds in shared memory
-MAX_HEAD_DIM = LAYOUTS[-1]
+MAX_LAYOUT = LAYOUTS[-1]
+WIDE_SLICE = 256                      # output dims a CTA of the wide kernel owns (kWideSlice)
+WIDE_TILE = 32                        # keys a tile of the wide kernel (kWideTile)
 MAX_GROUP = 8                         # query rows a CTA holds, one warp each (kMaxGroup)
 TILE_ELEMS = 2048                     # keys x padded dims of one shared-memory tile
 _CTAS_PER_SM = 4
@@ -51,22 +54,29 @@ def _lib():
 
 
 def type_codes(q_dtype: torch.dtype, k_dtype: torch.dtype, v_dtype: torch.dtype) -> tuple:
-    """The launcher's codes of q's, k's and v's types: q fp32, bf16 or
-    fp16, k and v each of any storage type; fp64, or a q of an fp8 type,
-    raises TypeError."""
-    if q_dtype not in Q_DTYPES:
-        raise TypeError(f"flash_decode takes q of float32, bfloat16 or float16, got {q_dtype}")
-    return (_build.STORAGE_CODES[q_dtype], _build.storage_code(k_dtype, "flash_decode's k"),
-            _build.storage_code(v_dtype, "flash_decode's v"))
+    """The launcher's codes of q's, k's and v's types, each of any
+    storage type; any other (fp64) raises TypeError."""
+    return tuple(_build.storage_code(dt, f"flash_decode's {n}")
+                 for n, dt in (("q", q_dtype), ("k", k_dtype), ("v", v_dtype)))
 
 
 def padded_dims(D: int) -> int:
-    """The dims a cache row holds in shared memory and in a partial: the
-    first of ``LAYOUTS`` at or above D (kimi-k2's 112 on 128; pad dims
-    zero). A D outside 1..``MAX_HEAD_DIM`` raises."""
-    if not 1 <= D <= MAX_HEAD_DIM:
-        raise ValueError(f"flash_decode takes a head dim D <= {MAX_HEAD_DIM}, got {D}")
+    """The dims a partial holds: up to ``MAX_LAYOUT``, the first of
+    ``LAYOUTS`` at or above D, which a cache row also holds in shared
+    memory (kimi-k2's 112 on 128; pad dims zero); above it, D rounded up
+    to whole ``WIDE_SLICE`` slices (:func:`slices`). A D below 1 raises."""
+    if D < 1:
+        raise ValueError(f"flash_decode takes a head dim D >= 1, got {D}")
+    if D > MAX_LAYOUT:
+        return slices(D) * WIDE_SLICE
     return next(dp for dp in LAYOUTS if D <= dp)
+
+
+def slices(D: int) -> int:
+    """Output slices a (row, kv head, query chunk) is cut into: 1 up to
+    ``MAX_LAYOUT``, else ``ceil(D / WIDE_SLICE)``, one wide-kernel CTA
+    each a split."""
+    return 1 if D <= MAX_LAYOUT else math.ceil(D / WIDE_SLICE)
 
 
 def query_chunks(G: int) -> tuple:
@@ -79,18 +89,20 @@ def query_chunks(G: int) -> tuple:
 
 def split_plan(B: int, KV: int, S: int, D: int, n_sms: int, G: int = 1):
     """(chunk, n_split): the cache's S columns cut into ``n_split``
-    ranges of ``chunk`` columns (a multiple of the tile), enough to give
-    the card ``_CTAS_PER_SM`` CTAs an SM across the B*KV*chunks (row, kv
-    head, query chunk) triples (:func:`query_chunks` of G), never more
-    ranges than tiles nor more than ``MAX_SPLITS``.
+    ranges of ``chunk`` columns (a multiple of the tile: 2,048 / padded
+    dims keys, ``WIDE_TILE`` above ``MAX_LAYOUT``), enough to give the
+    card ``_CTAS_PER_SM`` CTAs an SM across the B*KV*chunks*slices (row,
+    kv head, query chunk, output slice) CTAs of a split
+    (:func:`query_chunks` of G, :func:`slices` of D), never more ranges
+    than tiles nor more than ``MAX_SPLITS``.
 
     Short ranges keep a CTA's whole range in its ring of copies (at the
     serve shape 4 tiles of 32 keys, all in flight at once) and spread
     the bytes in flight over every SM; the cap bounds the partials the
     last CTA merges."""
-    tile = TILE_ELEMS // padded_dims(D)
+    tile = TILE_ELEMS // padded_dims(D) if D <= MAX_LAYOUT else WIDE_TILE
     n_tiles = math.ceil(S / tile)
-    want = max(1, math.ceil(_CTAS_PER_SM * n_sms / (B * KV * query_chunks(G)[1])))
+    want = max(1, math.ceil(_CTAS_PER_SM * n_sms / (B * KV * query_chunks(G)[1] * slices(D))))
     chunk_tiles = max(math.ceil(n_tiles / min(want, n_tiles)), math.ceil(n_tiles / MAX_SPLITS))
     chunk = chunk_tiles * tile
     return chunk, math.ceil(S / chunk)
@@ -125,10 +137,9 @@ def stages_by_cp_async(k: torch.Tensor, v: torch.Tensor) -> bool:
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos,
                  window: int = 0) -> torch.Tensor:
-    """q (B,H,1,D) fp32, bf16 or fp16, and k and v (B,KV,S,D) each of any
-    storage type, on one CUDA device, D <= ``MAX_HEAD_DIM``; k and v may
-    be strided views (the serve cache's (B,S,KV,D) seen as (B,KV,S,D))
-    but D must be unit-stride.
+    """q (B,H,1,D), k and v (B,KV,S,D), each of any storage type, on one
+    CUDA device, any D >= 1; k and v may be strided views (the serve
+    cache's (B,S,KV,D) seen as (B,KV,S,D)) but D must be unit-stride.
     ``pos`` is an int or a () / (B,) integer tensor; ``window >= 0``.
     Returns (B,H,1,D) in q's type. One CUDA launch a call (the split pass
     with its merge fused in), counted in ``flash_decode.launches``; a call
@@ -163,12 +174,14 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos,
     out = torch.empty((B, H, 1, D), dtype=q.dtype, device=q.device)
     G = H // KV
     GC, n_chunk = query_chunks(G)
+    n_slice = slices(D)
     chunk, n_split = split_plan(B, KV, S, D, _build.sm_count(q.device.index), G)
-    part = torch.empty((B * H * n_split * (DP + 2),), dtype=torch.float32, device=q.device)
+    part = torch.empty((B * H * n_slice * n_split * (DP // n_slice + 2),), dtype=torch.float32,
+                       device=q.device)
     vec = int(stages_by_cp_async(k, v))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        counter = merge_counter(q.device, stream, B * KV * n_chunk)
+        counter = merge_counter(q.device, stream, B * KV * n_chunk * n_slice)
         err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_t.data_ptr(),
                      out.data_ptr(), part.data_ptr(), counter.data_ptr(), *codes,
                      B, H, KV, GC, n_chunk, S, D,

@@ -10,6 +10,29 @@ import math
 
 import torch
 
+# the reference's ``astype`` into fp8 (ml_dtypes): e4m3 has no inf, so a
+# value that rounds past its max 448 (above 464, the midpoint to the
+# next step) is NaN; e5m2 writes NaN as 0x7e (torch: 0x7f). Signs kept.
+E4M3_NAN_ABOVE = 464.0
+E5M2_NAN_BYTE = 0x7E
+
+
+def astype(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` cast to ``dtype`` as the reference's ``astype`` casts it,
+    byte for byte: round to nearest even; into float8_e4m3fn NaN (of
+    x's sign) where ``|x|`` > 464, where torch's cast saturates to 448;
+    into float8_e5m2 torch's cast (inf from 61,440), with a NaN as the
+    reference's 0x7e / 0xfe. Any other dtype is torch's cast."""
+    if dtype == torch.float8_e4m3fn:
+        nan = torch.where(x < 0, -torch.nan, torch.nan)
+        return torch.where(x.abs() > E4M3_NAN_ABOVE, nan, x).to(dtype)
+    out = x.to(dtype)
+    if dtype == torch.float8_e5m2:
+        raw = out.view(torch.uint8)
+        ref_nan = (torch.signbit(x).to(torch.uint8) << 7) | E5M2_NAN_BYTE
+        out = torch.where(torch.isnan(x), ref_nan, raw).view(dtype)
+    return out
+
 
 def param_stats_batched(x: torch.Tensor):
     """Per-client (mean, var) over the trailing axes of ``x`` (N, ...),
@@ -68,7 +91,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos,
     s = torch.where(mask[:, None, None], s, -1e30)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgt,bktd->bkgd", p, v.float())
-    return o.reshape(B, H, 1, D).to(q.dtype)
+    return astype(o.reshape(B, H, 1, D), q.dtype)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
@@ -78,7 +101,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
     at global position ``q_offset + i``; ``causal`` keeps cols <= that
     position and ``window > 0`` keeps cols > position - window. fp32
     softmax scaled by 1/sqrt(D), masked scores at -1e30, the output in
-    q's dtype.
+    q's dtype by the reference's rounding (:func:`astype`).
 
     A query row with no valid key gives 0, as the reference's Pallas
     kernel does (its ``acc / max(l, 1e-30)`` with l = 0); the
@@ -101,4 +124,4 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgst,bktd->bkgsd", p, v.float())
     o = torch.where(mask.any(dim=1)[:, None], o, 0.0)
-    return o.reshape(B, H, Sq, D).to(q.dtype)
+    return astype(o.reshape(B, H, Sq, D), q.dtype)

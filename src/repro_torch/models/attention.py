@@ -33,7 +33,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models.layers import apply_rope, dense_init, dtype_of
 from repro_torch.sharding import shard_act
 from repro_torch.sharding.rules import places, sharding_active
@@ -190,14 +190,11 @@ def cache_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def to_cache_dtype(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``x`` cast to the cache's ``dtype`` as the reference's ``astype``
-    casts it: round to nearest even and, for float8_e4m3fn (max 448, no
-    inf), NaN where ``|x|`` rounds past the max (above 464, the midpoint
-    to the next step), where torch's cast saturates to 448. Into
-    float8_e5m2 torch's cast already is the reference's, byte for byte
-    (inf from 61,440 on)."""
-    if dtype == torch.float8_e4m3fn:
-        x = torch.where(x.abs() > 464.0, torch.nan, x)
-    return x.to(dtype)
+    casts it (:func:`repro_torch.kernels.ref.astype`): round to nearest
+    even and, for float8_e4m3fn (max 448, no inf), NaN where ``|x|``
+    rounds past the max (above 464, the midpoint to the next step), where
+    torch's cast saturates to 448; into float8_e5m2 inf from 61,440 on."""
+    return ref.astype(x, dtype)
 
 
 def raw_view(t: torch.Tensor) -> torch.Tensor:

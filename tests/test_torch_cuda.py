@@ -339,6 +339,23 @@ DECODE_CASES = [
 ]
 
 
+def _assert_fp8_close(got, o32, rel=2e-5):
+    """An fp8 output of a kernel against the plain version's fp32 output
+    ``o32`` (the plain version on q upcast): each byte is the reference's
+    rounding (``ref.astype``) of a value within ``rel`` of max |o32| of
+    o32, so it equals the plain version's byte wherever o32 is farther
+    than that from an fp8 rounding edge, and is its neighbour across the
+    edge otherwise (the two sum in other orders). NaN only where one of
+    the edges rounds to NaN."""
+    tol = rel * o32.abs().nan_to_num(posinf=0, neginf=0).max().item()
+    lo, hi = ref.astype(o32 - tol, got.dtype).float(), ref.astype(o32 + tol, got.dtype).float()
+    g = got.float()
+    nan = torch.isnan(g)
+    inside = (g >= lo.nan_to_num(nan=-float("inf"))) & (g <= hi.nan_to_num(nan=float("inf")))
+    ok = torch.where(nan, torch.isnan(lo) | torch.isnan(hi), inside)
+    assert bool(ok.all()), f"{int((~ok).sum())} of {ok.numel()} fp8 outputs off the plain version"
+
+
 def _decode_inputs(dev, B, H, KV, S, D, dtype, stored, seed):
     gen = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((B, H, 1, D), generator=gen, device=dev).to(dtype)
@@ -384,9 +401,10 @@ def test_ops_flash_decode_on_the_card_launches_the_kernel_only(cuda, monkeypatch
 
 @pytest.mark.cuda
 def test_flash_decode_refuses_what_it_does_not_take(cuda):
-    """D 48 and an fp32 q against a bf16 cache are taken now and match
-    the plain version; D above 256, an fp8 or fp64 q and an fp64 cache
-    are refused."""
+    """D 48, D 264 and an fp32 q against a bf16 cache are taken and match
+    the plain version, and so does an fp8 q (its bytes within the fp32
+    tolerance, :func:`_assert_fp8_close`); an fp64 q or cache and a D of
+    0 are refused."""
     gen = torch.Generator(device=cuda).manual_seed(48)
     q = torch.randn((1, 4, 1, 48), generator=gen, device=cuda)
     kv = torch.randn((1, 2, 8, 48), generator=gen, device=cuda)
@@ -396,15 +414,20 @@ def test_flash_decode_refuses_what_it_does_not_take(cuda):
         torch.randn((1, 2, 8, 64), generator=gen, device=cuda).to(torch.bfloat16)
     torch.testing.assert_close(k_decode.flash_decode(q, kb, kb, 3),
                                ref.decode_attention(q, kb, kb, 3), rtol=2e-5, atol=2e-5)
-    with pytest.raises(ValueError, match="D <= 256"):
-        k_decode.flash_decode(torch.zeros((1, 4, 1, 264), device=cuda),
-                              torch.zeros((1, 2, 8, 264), device=cuda),
-                              torch.zeros((1, 2, 8, 264), device=cuda), 3)
-    for bad in (torch.float8_e4m3fn, torch.float8_e5m2, torch.float64):
-        with pytest.raises(TypeError, match="q of float32, bfloat16 or float16"):
-            k_decode.flash_decode(q.to(bad), kb, kb, 3)
+    q264, kv264 = torch.randn((1, 4, 1, 264), generator=gen, device=cuda), \
+        torch.randn((1, 2, 8, 264), generator=gen, device=cuda)
+    torch.testing.assert_close(k_decode.flash_decode(q264, kv264, kv264, 3),
+                               ref.decode_attention(q264, kv264, kv264, 3), rtol=2e-5, atol=2e-5)
+    for fp8 in (torch.float8_e4m3fn, torch.float8_e5m2):
+        got = k_decode.flash_decode(q.to(fp8), kb, kb, 3)
+        assert got.dtype == fp8
+        _assert_fp8_close(got, ref.decode_attention(q.to(fp8).float(), kb, kb, 3))
+    with pytest.raises(TypeError, match="q must be of .*float64"):
+        k_decode.flash_decode(q.double(), kb, kb, 3)
     with pytest.raises(TypeError, match="float64"):
         k_decode.flash_decode(q, kb.double(), kb, 3)
+    with pytest.raises(ValueError, match="D >= 1"):
+        k_decode.flash_decode(q[..., :0], kb[..., :0], kb[..., :0], 3)
 
 
 @pytest.mark.cuda
@@ -751,6 +774,113 @@ def test_flash_decode_query_chunks_replay_in_a_graph(cuda):
                                    atol=2e-2 * expect.abs().max().item())
 
 
+# K3's last two gaps closed: D above 256 (the wide kernel) and an fp8 q.
+# B, H, KV, S, D, q, k, v dtypes, pos, window, stored (B,S,KV,D)
+DECODE_WIDE_CASES = [
+    (2, 8, 2, 1000, 320, "float16", "float16", "float16", [999, 400], 0, True),
+    (4, 16, 4, 4096, 512, "bfloat16", "bfloat16", "bfloat16", [4095, 3000, 2047, 100], 0, True),
+    (1, 8, 2, 2048, 1024, "float32", "float32", "float32", [2047], 512, False),
+    (2, 12, 2, 300, 257, "float32", "bfloat16", "float8_e5m2", [299, 0], 0, True),   # G 6
+    (2, 6, 1, 300, 600, "float8_e5m2", "float8_e4m3fn", "float16", [299, 10], 64, True),
+    (4, 32, 8, 2048, 64, "float8_e4m3fn", "float8_e4m3fn", "float8_e4m3fn",
+     [2047, 1535, 1023, 511], 0, True),
+    (4, 32, 8, 2048, 64, "float8_e5m2", "float8_e5m2", "float8_e5m2", [2047, 3, 700, 255], 256,
+     True),
+    (4, 32, 8, 2048, 64, "float8_e4m3fn", "bfloat16", "bfloat16", [2047, 1535, 1023, 511], 0,
+     True),
+    (4, 64, 8, 2048, 112, "float8_e4m3fn", "bfloat16", "bfloat16", [2047, 1000, 17, 1800], 0,
+     True),
+]
+
+
+def _check_decode(cuda, case, gen):
+    B, H, KV, S, D, qdt, kdt, vdt, pos, window, stored = case
+    q = torch.randn((B, H, 1, D), generator=gen, device=cuda).to(getattr(torch, qdt))
+    shape = (B, S, KV, D) if stored else (B, KV, S, D)
+    k = torch.randn(shape, generator=gen, device=cuda).to(getattr(torch, kdt))
+    v = torch.randn(shape, generator=gen, device=cuda).to(getattr(torch, vdt))
+    if stored:
+        k, v = k.transpose(1, 2), v.transpose(1, 2)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    before = k_decode.flash_decode.launches
+    got = k_decode.flash_decode(q, k, v, pos_t, window)
+    assert k_decode.flash_decode.launches == before + 1
+    assert got.dtype == q.dtype and got.shape == (B, H, 1, D)
+    expect = ref.decode_attention(q.float(), k, v, pos_t, window)
+    if qdt.startswith("float8"):
+        _assert_fp8_close(got, expect)
+    elif (qdt, kdt, vdt) == ("float32",) * 3:
+        torch.testing.assert_close(got, expect, rtol=2e-5, atol=2e-5)
+    else:
+        torch.testing.assert_close(got.float(), expect, rtol=0,
+                                   atol=2e-2 * expect.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DECODE_WIDE_CASES)
+def test_flash_decode_takes_any_d_and_an_fp8_q(cuda, case):
+    """D 257 to 1,024 and an fp8 q (on fp8, bf16 and fp16 caches) launch
+    the kernel once a call and match the plain version: fp32 2e-5, half
+    types 2e-2 of the largest output, fp8 by :func:`_assert_fp8_close`."""
+    _check_decode(cuda, case, torch.Generator(device=cuda).manual_seed(case[3] + case[4]))
+
+
+# values of constant V rows on both sides of fp8's edges: e4m3 is NaN
+# above 464, e5m2 inf from 61,440
+OVERFLOW_V = [460.0, -466.0, 470.0, -300.0, 61000.0, 62000.0, -62500.0, 1.5]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdt", ["float8_e4m3fn", "float8_e5m2"])
+@pytest.mark.parametrize("D", [64, 320])
+def test_fp8_outputs_past_the_range_equal_the_plain_bytes(cuda, qdt, D):
+    """K3 and K4 on constant V rows of ``OVERFLOW_V``: the output bytes
+    equal the plain version's, NaN and inf where they are."""
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    fp8 = getattr(torch, qdt)
+    vals = torch.tensor(OVERFLOW_V, device=cuda).repeat(D // len(OVERFLOW_V) + 1)[:D]
+    k = torch.randn((2, 2, 300, D), generator=gen, device=cuda).to(torch.bfloat16)
+    v = vals.expand(2, 2, 300, D).contiguous()
+    q = torch.randn((2, 8, 1, D), generator=gen, device=cuda).to(fp8)
+    pos = torch.tensor([299, 40], dtype=torch.int32, device=cuda)
+    got = k_decode.flash_decode(q, k, v, pos)
+    assert torch.equal(got.view(torch.uint8), ref.decode_attention(q, k, v, pos).view(torch.uint8))
+    assert torch.isnan(got.float()).any() or qdt == "float8_e5m2"
+    assert torch.isinf(got.float()).any() or qdt == "float8_e4m3fn"
+    q = torch.randn((2, 8, 128, D), generator=gen, device=cuda).to(fp8)
+    got = k_attn.flash_attention(q, k, v, block_q=128, block_k=300)
+    assert torch.equal(got.view(torch.uint8), ref.attention(q, k, v).view(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_flash_decode_wide_path_replays_in_a_graph(cuda):
+    """D 512 captured once and replayed three times on new inputs: each
+    replay equals the plain version, so every (row, chunk, slice) merge
+    counter is back at 0 after a launch."""
+    gen = torch.Generator(device=cuda).manual_seed(512)
+    B, H, KV, S, D = 4, 16, 4, 2048, 512
+    q = torch.randn((B, H, 1, D), generator=gen, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn((B, S, KV, D), generator=gen, device=cuda).to(torch.bfloat16)
+            .transpose(1, 2) for _ in range(2))
+    pos = torch.tensor([2047, 1535, 1023, 511], dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        k_decode.flash_decode(q, k, v, pos)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = k_decode.flash_decode(q, k, v, pos)
+    for _ in range(3):
+        q.copy_(torch.randn(q.shape, generator=gen, device=cuda))
+        v.copy_(torch.randn(v.shape, generator=gen, device=cuda))
+        pos.copy_(torch.randint(0, S, (B,), generator=gen, device=cuda, dtype=torch.int32))
+        graph.replay()
+        expect = ref.decode_attention(q, k, v, pos).float()
+        torch.testing.assert_close(out.float(), expect, rtol=0,
+                                   atol=2e-2 * expect.abs().max().item())
+
+
 def _moe_smoke(dtype="float32", **kw):
     from dataclasses import replace
 
@@ -910,24 +1040,31 @@ def test_ops_flash_attention_on_the_card_launches_the_kernel_only(cuda, monkeypa
 
 @pytest.mark.cuda
 def test_flash_attention_refuses_what_it_does_not_take(cuda):
-    """fp16 and D 48 are taken now and match the plain version; an fp8
-    or fp64 q and D above 256 are refused."""
+    """fp16, D 48, D 264 and an fp8 q (its bytes within the fp32
+    tolerance) are taken and match the plain version; an fp64 q and a D
+    of 0 are refused, and so is what the reference's shape rule
+    refuses."""
     gen = torch.Generator(device=cuda).manual_seed(64)
     kv = torch.randn((1, 2, 64, 64), generator=gen, device=cuda)
     x = torch.randn((1, 4, 64, 64), generator=gen, device=cuda)
     h = x.to(torch.float16), kv.to(torch.float16)
     torch.testing.assert_close(k_attn.flash_attention(h[0], h[1], h[1]).float(),
                                ref.attention(h[0], h[1], h[1]).float(), rtol=2e-2, atol=2e-2)
-    for dt in (torch.float8_e4m3fn, torch.float64):
-        with pytest.raises(TypeError, match="q of float32, bfloat16 or float16"):
-            k_attn.flash_attention(x.to(dt), kv.to(dt), kv.to(dt))
+    for fp8 in (torch.float8_e4m3fn, torch.float8_e5m2):
+        got = k_attn.flash_attention(x.to(fp8), kv.to(fp8), kv)
+        assert got.dtype == fp8
+        _assert_fp8_close(got, ref.attention(x.to(fp8).float(), kv.to(fp8), kv))
+    with pytest.raises(TypeError, match="q must be of .*float64"):
+        k_attn.flash_attention(x.double(), kv.double(), kv.double())
     q48, kv48 = x[..., :48].contiguous(), kv[..., :48].contiguous()
     torch.testing.assert_close(k_attn.flash_attention(q48, kv48, kv48),
                                ref.attention(q48, kv48, kv48), rtol=2e-5, atol=2e-5)
-    with pytest.raises(ValueError, match="D <= 256"):
-        k_attn.flash_attention(torch.zeros((1, 4, 64, 264), device=cuda),
-                               torch.zeros((1, 2, 64, 264), device=cuda),
-                               torch.zeros((1, 2, 64, 264), device=cuda))
+    q264, kv264 = torch.randn((1, 4, 64, 264), generator=gen, device=cuda), \
+        torch.randn((1, 2, 64, 264), generator=gen, device=cuda)
+    torch.testing.assert_close(k_attn.flash_attention(q264, kv264, kv264),
+                               ref.attention(q264, kv264, kv264), rtol=2e-5, atol=2e-5)
+    with pytest.raises(ValueError, match="D >= 1"):
+        k_attn.flash_attention(x[..., :0], kv[..., :0], kv[..., :0])
     with pytest.raises(ValueError, match="must divide blocks"):
         k_attn.flash_attention(torch.zeros((1, 4, 96, 64), device=cuda), kv, kv, block_q=64)
     with pytest.raises(ValueError, match="H % KV"):
@@ -968,6 +1105,45 @@ def test_flash_attention_takes_fp16_mixed_types_and_any_d(cuda, case):
     assert got.dtype == q.dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), expect.float(), rtol=tol, atol=tol)
 
+
+# K4's last two gaps closed: D above 256 (slices of the FMA kernel's
+# output) and an fp8 q. B, H, KV, Sq, Sk, D, q, k, v dtypes, causal,
+# window, q_offset
+ATTN_WIDE_CASES = [
+    (1, 8, 2, 1024, 1024, 320, ("bfloat16",) * 3, True, 0, 0),
+    (1, 8, 2, 1024, 1024, 320, ("bfloat16",) * 3, True, 128, 0),
+    (1, 4, 1, 512, 512, 512, ("bfloat16",) * 3, True, 0, 0),
+    (1, 4, 4, 300, 300, 1000, ("float32",) * 3, False, 70, 0),
+    (1, 4, 2, 100, 612, 257, ("float32", "float16", "bfloat16"), True, 0, 512),
+    (2, 8, 2, 512, 512, 64, ("float8_e4m3fn", "float8_e4m3fn", "float8_e4m3fn"), True, 0, 0),
+    (2, 8, 2, 512, 512, 64, ("float8_e5m2", "float8_e5m2", "bfloat16"), True, 100, 0),
+    (1, 4, 2, 256, 256, 384, ("float8_e4m3fn", "bfloat16", "bfloat16"), True, 0, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ATTN_WIDE_CASES)
+def test_flash_attention_takes_any_d_and_an_fp8_q(cuda, case):
+    """D 257 to 1,000 and an fp8 q on the FMA kernel, one launch a call,
+    against the plain version: an all-fp32 call 2e-5, half types 2e-2,
+    fp8 by :func:`_assert_fp8_close`."""
+    B, H, KV, Sq, Sk, D, dts, causal, window, off = case
+    gen = torch.Generator(device=cuda).manual_seed(Sq + D)
+    q = torch.randn((B, H, Sq, D), generator=gen, device=cuda).to(getattr(torch, dts[0]))
+    k = torch.randn((B, KV, Sk, D), generator=gen, device=cuda).to(getattr(torch, dts[1]))
+    v = torch.randn((B, KV, Sk, D), generator=gen, device=cuda).to(getattr(torch, dts[2]))
+    kw = dict(causal=causal, window=window, q_offset=off)
+    assert k_attn.kernel_for(q.dtype, k.dtype, v.dtype, D=D) == "fma"
+    before = k_attn.flash_attention.launches
+    got = k_attn.flash_attention(q, k, v, block_q=Sq, block_k=Sk, **kw)
+    assert k_attn.flash_attention.launches == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    expect = ref.attention(q.float(), k, v, **kw)
+    if dts[0].startswith("float8"):
+        _assert_fp8_close(got, expect)
+    else:
+        tol = 2e-5 if dts == ("float32",) * 3 else 2e-2
+        torch.testing.assert_close(got.float(), expect, rtol=tol, atol=tol)
 
 # the tensor-core kernel's tile edges (B, H, KV, Sq, Sk, D, causal,
 # window, q_offset): D 32 and 128, Sq and Sk off the 64-row tile,

@@ -177,8 +177,8 @@ def test_granite_attention_composed_from_the_kernel_matches_reference():
 def test_the_dtype_chooses_the_kernel():
     """q, k, v all bf16 or all fp16 at D <= 128 run on the tensor cores;
     fp32 keeps the FMA kernel (TF32 would miss its 2e-5), and so do mixed
-    types, an fp8 k or v, and D above 128. An fp64 or fp8 q, and a D
-    above 256, are refused."""
+    types, an fp8 q, k or v, and any D above 128 (above 256 in slices of
+    the output). An fp64 q or k, and a D below 1, are refused."""
     bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     assert k_attn.kernel_for(bf16) == "mma"
     assert k_attn.kernel_for(f16) == "mma"
@@ -187,13 +187,15 @@ def test_the_dtype_chooses_the_kernel():
     assert k_attn.kernel_for(bf16, f16, f16) == "fma"
     assert k_attn.kernel_for(f16, f16, torch.float8_e5m2) == "fma"
     assert k_attn.kernel_for(bf16, D=129) == k_attn.kernel_for(f16, D=256) == "fma"
-    for dt in (torch.float64, torch.float8_e4m3fn):
-        with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
-            k_attn.kernel_for(dt)
+    assert k_attn.kernel_for(bf16, D=257) == k_attn.kernel_for(f16, D=1024) == "fma"
+    for dt in (torch.float8_e4m3fn, torch.float8_e5m2):
+        assert k_attn.kernel_for(dt) == k_attn.kernel_for(dt, bf16, bf16, D=128) == "fma"
+    with pytest.raises(TypeError, match="q must be of .*got torch.float64"):
+        k_attn.kernel_for(torch.float64)
     with pytest.raises(TypeError, match="k must be of .*got torch.float64"):
         k_attn.kernel_for(f32, torch.float64)
-    with pytest.raises(ValueError, match="D <= 256"):
-        k_attn.kernel_for(bf16, D=257)
+    with pytest.raises(ValueError, match="D >= 1"):
+        k_attn.kernel_for(bf16, D=0)
 
 
 @pytest.mark.parametrize("dtype,B,H,Sq,D,bq,grid", [

@@ -1,12 +1,13 @@
 """The four kernels' whole input contract on the CPU: every input that
 a Pallas kernel of the reference takes and its port's card kernel now
 takes too (fp16 and fp8 leaves, any storage type of X and C and any
-K*F, any head dim up to 256, any GQA group, mixed and fp8 caches,
+K*F, any head dim, any GQA group, mixed and fp8 caches, an fp8 q,
 mixed-type attention), each through the port's plain version against
-the reference's kernel in interpret mode on the same bytes; the
+the reference's kernel in interpret mode on the same bytes (an fp8
+output byte for byte, NaN and inf past fp8's range included); the
 planners that route those inputs, in pure Python; the refusals that are
-left; and two whole paths against the reference at smoke widths (fp16
-serving, the swarm upload of fp16 LM params).
+left (fp64, D <= 0); and two whole paths against the reference at smoke
+widths (fp16 serving, the swarm upload of fp16 LM params).
 
 Run it alone with::
 
@@ -178,15 +179,91 @@ def test_flash_decode_plain_matches_pallas_on_the_widened_contract(case):
     np.testing.assert_allclose(got.float().numpy(), expect, rtol=0, atol=tol)
 
 
+# B, H, KV, S, D, q dtype, k dtype, v dtype, pos, window: an fp8 q on
+# bf16, fp8 and fp32 caches; D above 256, ragged, with windows and per-row pos
+DECODE_WIDE_CASES = [
+    (1, 4, 2, 24, 64, "float8_e4m3fn", "bfloat16", "bfloat16", [23], 0),
+    (2, 4, 1, 20, 40, "float8_e5m2", "float8_e4m3fn", "float8_e5m2", [19, 6], 8),
+    (1, 2, 2, 16, 32, "float8_e4m3fn", "float32", "float32", 11, 0),
+    (1, 2, 1, 12, 257, "float32", "float32", "float32", [11], 0),
+    (2, 4, 2, 20, 320, "bfloat16", "float16", "float16", [19, 7], 0),
+    (1, 2, 1, 24, 512, "float16", "bfloat16", "bfloat16", [23], 10),
+    (1, 2, 2, 12, 1000, "float32", "float32", "float32", [9], 4),
+    (1, 2, 1, 16, 320, "float8_e5m2", "bfloat16", "float8_e4m3fn", [15], 0),
+]
+
+
+def _assert_out(got, expect_j, qdt):
+    """fp8 outputs byte for byte; fp32 within 2e-5, half types within
+    2e-2 of the largest output (the widened contract's tolerances)."""
+    expect_j = np.asarray(expect_j)
+    if qdt.startswith("float8"):
+        np.testing.assert_array_equal(got.view(torch.uint8).numpy(), expect_j.view(np.uint8))
+        return
+    expect = expect_j.astype(np.float32)
+    tol = 2e-5 if qdt == "float32" else _half_tol(expect)
+    np.testing.assert_allclose(got.float().numpy(), expect, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("case", DECODE_WIDE_CASES)
+def test_flash_decode_plain_matches_pallas_on_any_d_and_an_fp8_q(case):
+    """The plain version against ``flash_decode`` (interpret) on the same
+    bytes, at the inputs the card's kernel takes since its last gaps
+    closed: an fp8 q (its output in q's type) and D above 256."""
+    B, H, KV, S, D, qdt, kdt, vdt, pos, window = case
+    rng = np.random.default_rng(S + D + H)
+    q, jq = _both(rng.normal(size=(B, H, 1, D)), qdt)
+    k, jk = _both(rng.normal(size=(B, KV, S, D)), kdt)
+    v, jv = _both(rng.normal(size=(B, KV, S, D)), vdt)
+    tpos = torch.tensor(pos, dtype=torch.int32) if isinstance(pos, list) else pos
+    got = ref.decode_attention(q, k, v, tpos, window)
+    assert got.dtype == q.dtype and got.shape == (B, H, 1, D)
+    _assert_out(got, jops.flash_decode(jq, jk, jv, jnp.asarray(pos, jnp.int32), window=window),
+                qdt)
+
+
+# values of constant V rows: each output dim is its value (a softmax
+# average of equal rows), on both sides of fp8's edges: e4m3 NaN above
+# 464, e5m2 inf from 61,440
+OVERFLOW_V = [460.0, -466.0, 470.0, -300.0, 61000.0, 62000.0, -62500.0, 1.5]
+
+
+@pytest.mark.parametrize("qdt", ["float8_e4m3fn", "float8_e5m2"])
+def test_fp8_outputs_round_past_the_range_as_the_reference(qdt):
+    """Constant V rows of the values ``OVERFLOW_V`` under an fp8 q, K3
+    and K4: the plain versions' output bytes equal the reference's
+    kernels' (interpret), NaN and inf where they are, and each carries
+    the value's fp8 byte by ml_dtypes' rounding."""
+    rng = np.random.default_rng(9)
+    D, S = 16, 16
+    vals = np.resize(np.asarray(OVERFLOW_V, np.float32), D)
+    q, jq = _both(rng.normal(size=(1, 2, 1, D)), qdt)
+    k, jk = _both(rng.normal(size=(1, 1, S, D)), "bfloat16")
+    v, jv = _both(np.broadcast_to(vals, (1, 1, S, D)), "float32")
+    got = ref.decode_attention(q, k, v, S - 1)
+    _assert_out(got, jops.flash_decode(jq, jk, jv, jnp.int32(S - 1)), qdt)
+    want = vals.astype(_NP[qdt][0]).view(np.uint8)
+    np.testing.assert_array_equal(got.view(torch.uint8).numpy()[0, 0, 0], want)
+    q, jq = _both(rng.normal(size=(1, 2, S, D)), qdt)
+    got = ref.attention(q, k, v)
+    _assert_out(got, jops.flash_attention(jq, jk, jv, block_q=S, block_k=S), qdt)
+    np.testing.assert_array_equal(got.view(torch.uint8).numpy()[0, 1, 5], want)
+
+
 def test_flash_decode_planners():
-    """Any D <= 256 on the next of (32, 64, 128, 256); any G in the fewest
-    chunks of at most 8 query rows, of one size; the split plan counts
-    the chunks; the type codes; the refusals left (D above 256, an fp8
-    or fp64 q, an fp64 cache)."""
+    """Any D <= 256 on the next of (32, 64, 128, 256), any larger D in
+    slices of 256 (the wide kernel, tiles of 32 keys); any G in the
+    fewest chunks of at most 8 query rows, of one size; the split plan
+    counts the chunks and the slices; the type codes of every storage
+    type, q's included; the refusals left (D <= 0, fp64)."""
     assert [k_decode.padded_dims(D) for D in (1, 32, 33, 64, 80, 96, 112, 128, 192, 256)] == \
         [32, 32, 64, 64, 128, 128, 128, 128, 256, 256]
-    with pytest.raises(ValueError, match="D <= 256"):
-        k_decode.padded_dims(257)
+    assert [(k_decode.padded_dims(D), k_decode.slices(D)) for D in (257, 320, 512, 1000, 1024)] \
+        == [(512, 2), (512, 2), (512, 2), (1024, 4), (1024, 4)]
+    assert k_decode.slices(256) == 1
+    for D in (0, -3):
+        with pytest.raises(ValueError, match="D >= 1"):
+            k_decode.padded_dims(D)
     assert [k_decode.query_chunks(G) for G in (1, 6, 8, 9, 12, 48, 64, 37)] == \
         [(1, 1), (6, 1), (8, 1), (5, 2), (6, 2), (8, 6), (8, 8), (8, 5)]
     for G in range(1, 130):
@@ -199,15 +276,22 @@ def test_flash_decode_planners():
     assert k_decode.split_plan(4, 1, 2048, 192, 132) == (32, 64)
     # MQA, G 64 at B 2: 16 pairs, 33 ranges wanted of 512 tiles of 16 keys
     assert k_decode.split_plan(2, 1, 8192, 128, 132, G=64) == (256, 32)
+    # D 512 at (4,16,1,512) on 4 kv heads: 4 x 4 x 2 slices = 32 CTAs a
+    # split want 17 ranges of the 128 tiles of 32 keys, 8 tiles each
+    assert k_decode.split_plan(4, 4, 4096, 512, 132, G=4) == (256, 16)
+    assert k_decode.split_plan(1, 8, 2048, 1024, 132) == (128, 16)
     codes = k_decode.type_codes(torch.bfloat16, torch.float8_e5m2, torch.float16)
     assert codes == (1, 4, 2)
-    for bad in (torch.float8_e4m3fn, torch.float8_e5m2, torch.float64):
-        with pytest.raises(TypeError, match="q of float32, bfloat16 or float16"):
-            k_decode.type_codes(bad, torch.float16, torch.float16)
+    assert k_decode.type_codes(torch.float8_e4m3fn, torch.float32, torch.float8_e5m2) == (3, 0, 4)
+    assert k_decode.type_codes(torch.float8_e5m2, torch.bfloat16, torch.bfloat16) == (4, 1, 1)
+    with pytest.raises(TypeError, match="q must be of .*float64"):
+        k_decode.type_codes(torch.float64, torch.float16, torch.float16)
     with pytest.raises(TypeError, match="float64"):
         k_decode.type_codes(torch.float16, torch.float64, torch.float16)
     src = (_build.CSRC / "flash_decode.cu").read_text()
     assert f"constexpr int kMaxGroup = {k_decode.MAX_GROUP};" in src
+    assert f"constexpr int kWideSlice = {k_decode.WIDE_SLICE};" in src
+    assert f"constexpr int kWideTile = {k_decode.WIDE_TILE};" in src
 
 
 def test_flash_decode_stages_unaligned_rows_with_plain_loads():
@@ -251,6 +335,34 @@ def test_flash_attention_plain_matches_pallas_on_the_widened_contract(case):
     np.testing.assert_allclose(got.float().numpy(), expect, rtol=tol, atol=tol)
 
 
+# B, H, KV, S, D, q / k / v dtypes, causal, window, block: an fp8 q on
+# bf16, fp8 and fp32 k and v; D above 256 with and without a window
+ATTN_WIDE_CASES = [
+    (1, 2, 1, 16, 64, ("float8_e4m3fn", "bfloat16", "bfloat16"), True, 0, 16),
+    (1, 2, 2, 16, 32, ("float8_e5m2", "float8_e5m2", "float8_e4m3fn"), True, 6, 8),
+    (1, 2, 1, 16, 48, ("float8_e4m3fn", "float32", "float32"), False, 0, 16),
+    (1, 2, 1, 16, 320, ("bfloat16",) * 3, True, 0, 16),
+    (1, 2, 1, 16, 512, ("float32",) * 3, True, 5, 8),
+    (1, 2, 2, 8, 1000, ("float16", "float16", "bfloat16"), False, 0, 8),
+]
+
+
+@pytest.mark.parametrize("case", ATTN_WIDE_CASES)
+def test_flash_attention_plain_matches_pallas_on_any_d_and_an_fp8_q(case):
+    """The plain version against ``flash_attention`` (interpret): an fp8
+    q's output byte for byte, the rest at the widened contract's
+    tolerances."""
+    B, H, KV, S, D, dts, causal, window, blk = case
+    rng = np.random.default_rng(S + D + 1)
+    q, jq = _both(rng.normal(size=(B, H, S, D)), dts[0])
+    k, jk = _both(rng.normal(size=(B, KV, S, D)), dts[1])
+    v, jv = _both(rng.normal(size=(B, KV, S, D)), dts[2])
+    got = ref.attention(q, k, v, causal=causal, window=window)
+    assert got.dtype == q.dtype
+    _assert_out(got, jops.flash_attention(jq, jk, jv, causal=causal, window=window,
+                                          block_q=blk, block_k=blk), dts[0])
+
+
 @pytest.mark.parametrize("dts,D,kernel,bq,grid", [
     (("float16",) * 3, 64, "mma", 128, (32, 4, 16)),
     (("bfloat16",) * 3, 96, "mma", 64, (32, 4, 32)),
@@ -270,18 +382,30 @@ def test_flash_attention_launch_plan_routes_by_types_and_d(dts, D, kernel, bq, g
 
 
 def test_flash_attention_padded_dims_and_refusals():
+    """Any D on the FMA kernel above 128 (in slices of 128 output dims
+    above 256, one more grid column each); an fp8 q on the FMA kernel;
+    the refusals left (D <= 0, fp64)."""
     assert [k_attn.padded_dims(D) for D in (1, 32, 48, 80, 96, 128, 129, 200, 256)] == \
         [32, 32, 64, 128, 128, 128, 256, 256, 256]
-    with pytest.raises(ValueError, match="D <= 256"):
-        k_attn.launch_plan(torch.bfloat16, 1, 1, 64, 257)
-    for bad in (torch.float8_e4m3fn, torch.float8_e5m2, torch.float64):
-        with pytest.raises(TypeError, match="q of float32, bfloat16 or float16"):
-            k_attn.launch_plan(bad, 1, 1, 64, 64)
+    assert [(k_attn.padded_dims(D), k_attn.slices(D)) for D in (257, 320, 512, 1000)] == \
+        [(384, 3), (384, 3), (512, 4), (1024, 8)]
+    assert k_attn.launch_plan(torch.bfloat16, 1, 8, 1024, 320) == ("fma", 64, (48, 8, 1))
+    assert k_attn.launch_plan(torch.bfloat16, 1, 1, 64, 257) == ("fma", 64, (3, 1, 1))
+    for bad in (0, -1):
+        with pytest.raises(ValueError, match="D >= 1"):
+            k_attn.launch_plan(torch.bfloat16, 1, 1, 64, bad)
+    for fp8 in (torch.float8_e4m3fn, torch.float8_e5m2):
+        assert k_attn.launch_plan(fp8, 4, 32, 2048, 64) == ("fma", 64, (32, 32, 4))
+        assert k_attn.kernel_for(fp8, torch.bfloat16, torch.bfloat16, D=64) == "fma"
+    with pytest.raises(TypeError, match="q must be of .*float64"):
+        k_attn.launch_plan(torch.float64, 1, 1, 64, 64)
     with pytest.raises(TypeError, match="float64"):
         k_attn.kernel_for(torch.float16, torch.float16, torch.float64)
     q = torch.zeros((1, 2, 16, 8), dtype=torch.float16)
     assert not k_attn.stages_by_vectors(q[..., :7], q[..., :7], q[..., :7])
     assert k_attn.stages_by_vectors(q, q, q)
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    assert f"constexpr int kWideSlice = {k_attn.WIDE_SLICE};" in src
 
 
 # -------------------------------------------------------------- fp8 cache
