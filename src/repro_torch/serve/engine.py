@@ -375,6 +375,7 @@ class ImageClassifier:
         self.buckets = tuple(sorted(set(int(b) for b in batch_buckets)))
         self.clock = clock
         self.results: Dict[int, ClassifyResult] = {}
+        self._input_shapes = {b: set() for b in self.buckets}
 
     @torch.no_grad()
     def _score(self, images: np.ndarray):
@@ -408,6 +409,7 @@ class ImageClassifier:
             if len(group) < b:                    # pad the tail group
                 pad = np.zeros((b - len(group),) + imgs.shape[1:], imgs.dtype)
                 imgs = np.concatenate([imgs, pad])
+            self._input_shapes[b].add((imgs.shape, imgs.dtype.str))
             label, conf = self._score(imgs)
             t_done = self.clock()
             for j, r in enumerate(group):
@@ -418,3 +420,11 @@ class ImageClassifier:
                 out.append(res)
             i += len(group)
         return out
+
+    def compile_counts(self) -> Dict[str, int]:
+        """Per bucket, the distinct input shapes it scored: the
+        reference's count of programs compiled for the bucket. Eager
+        scoring compiles none, so this counts what the reference would
+        compile: 1 for a bucket used at one image shape, 0 for a bucket
+        never used."""
+        return {f"b{b}": len(shapes) for b, shapes in self._input_shapes.items()}

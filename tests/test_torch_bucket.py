@@ -30,6 +30,9 @@ from repro_torch.models import build_model  # noqa: E402
 from repro_torch.optim.optimizers import make_optimizer  # noqa: E402
 from repro_torch.train.steps import make_eval_step  # noqa: E402
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_stack  # noqa: E402
+from torch_parity import pin_torch_threads  # noqa: E402
+
+pin_torch_threads()
 
 SMALL_TABLE = np.maximum(TABLE_I // 16, (TABLE_I > 0).astype(np.int64) * 2)
 N = TABLE_I.shape[1]
@@ -54,16 +57,6 @@ def _assert_runs_equal(a, b, what):
     assert _equal_trees(sa.opt_state, sb.opt_state), f"{what}: optimizer state"
     for f, x, y in zip(teng.RoundMetrics._fields, ma, mb):
         assert torch.equal(x, y), f"{what}: {f}"
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread for this module's torch work, restored after
-    it (see tests/test_torch_grid.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -30,6 +30,9 @@ from repro_torch.configs import ModelConfig  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serve import BucketSpec  # noqa: E402
 from repro_torch.utils.tree import tree_map, tree_paths_and_leaves  # noqa: E402
+from torch_parity import pin_torch_threads  # noqa: E402
+
+pin_torch_threads()
 
 
 def _tree():

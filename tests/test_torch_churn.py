@@ -42,7 +42,9 @@ from repro_torch.models import build_model  # noqa: E402
 from repro_torch.optim.optimizers import make_optimizer  # noqa: E402
 from repro_torch.train.steps import make_train_step  # noqa: E402
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_paths_and_leaves  # noqa: E402
-from torch_parity import jax_bso_draws, jax_kmeans_init_idx  # noqa: E402
+from torch_parity import jax_bso_draws, jax_kmeans_init_idx, pin_torch_threads  # noqa: E402
+
+pin_torch_threads()
 
 N = 8
 SMALL_TABLE = np.maximum(TABLE_I // 16, (TABLE_I > 0).astype(np.int64) * 2)[:, :N]
@@ -80,17 +82,6 @@ def _jax_cfg(eps=1e-8, **kw):
 
 def _equal_trees(a, b):
     return all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread for this module's torch work, restored after
-    it (see tests/test_torch_grid.py: beside the suite's parallel
-    workers a pool as wide as the machine is 20-100x slower here)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -22,7 +22,9 @@ from repro_torch.core import kmeans as tkm  # noqa: E402
 from repro_torch.core.bso import BSODraws, brain_storm  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.utils.tree import tree_paths_and_leaves  # noqa: E402
-from torch_parity import jax_bso_draws, jax_kmeans_init_idx  # noqa: E402
+from torch_parity import jax_bso_draws, jax_kmeans_init_idx, pin_torch_threads  # noqa: E402
+
+pin_torch_threads()
 
 N = 6
 

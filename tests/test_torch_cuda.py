@@ -17,6 +17,9 @@ from repro_torch.kernels import flash_decode as k_decode  # noqa: E402
 from repro_torch.kernels import kmeans_assign as k_assign  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import param_stats as k_stats  # noqa: E402
+from torch_parity import pin_torch_threads  # noqa: E402
+
+pin_torch_threads()
 
 # the squeezenet-dr leaf shapes, client-stacked over 14 clients
 SQUEEZENET_LEAVES = [(3, 3, 3, 32), (32,), (1, 1, 32, 8), (8,), (1, 1, 8, 32), (32,),

@@ -10,6 +10,9 @@ import numpy as np  # noqa: E402
 
 from repro.data import dr as jax_dr  # noqa: E402
 from repro_torch.data import dr  # noqa: E402
+from torch_parity import pin_torch_threads  # noqa: E402
+
+pin_torch_threads()
 
 
 def test_table_i_is_the_reference_table():

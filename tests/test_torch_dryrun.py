@@ -29,6 +29,9 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.models.model import abstract_params, cache_specs, input_specs  # noqa: E402
 from repro_torch.utils.tree import tree_paths_and_leaves  # noqa: E402
+from torch_parity import pin_torch_threads, subprocess_env  # noqa: E402
+
+pin_torch_threads()
 
 ROOT = Path(__file__).resolve().parents[1]
 PAIRS = [(a, s) for a in ASSIGNED_ARCHS for s in INPUT_SHAPES]
@@ -201,7 +204,7 @@ def test_census_of_a_train_and_a_decode_step():
     collectives, a 16x16 rank does less than a 2x2 one, and nothing of
     JAX or the reference was imported."""
     res = subprocess.run([sys.executable, "-c", _CENSUS_SCRIPT], cwd=ROOT, capture_output=True,
-                         text=True, timeout=300)
+                         text=True, timeout=300, env=subprocess_env())
     assert res.returncode == 0, res.stderr[-3000:]
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert not out.pop("jax_imported"), "the dry-run pulled in JAX or the reference"
@@ -218,7 +221,7 @@ def test_cli_writes_a_record_and_exits_1_on_a_failure(tmp_path):
     as a failed record and exits 1."""
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "granite-3-2b",
            "--shape", "decode_32k", "--mesh", "multi", "--out", str(tmp_path)]
-    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    env = subprocess_env({"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
     res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300, env=env)
     assert res.returncode == 0, res.stderr[-3000:]
     rec = json.loads((tmp_path / "dryrun_granite-3-2b_decode_32k_2x16x16.json").read_text())

@@ -32,6 +32,9 @@ from repro_torch.launch.serve import loop_generate, run_serve  # noqa: E402
 from repro_torch.models import build_model, layers, transformer  # noqa: E402
 from repro_torch.serve import BucketSpec, ServeEngine  # noqa: E402
 from repro_torch.utils.tree import tree_paths_and_leaves  # noqa: E402
+from torch_parity import pin_torch_threads  # noqa: E402
+
+pin_torch_threads()
 
 WHISPER, INTERNVL = "whisper-base", "internvl2-26b"
 

@@ -29,7 +29,9 @@ from repro_torch.core.swarm import SwarmTrainer  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.optim.optimizers import make_optimizer  # noqa: E402
 from repro_torch.utils.tree import tree_leaves, tree_paths_and_leaves  # noqa: E402
-from torch_parity import jax_bso_draws, jax_kmeans_init_idx  # noqa: E402
+from torch_parity import jax_bso_draws, jax_kmeans_init_idx, pin_torch_threads  # noqa: E402
+
+pin_torch_threads()
 
 SMALL_TABLE = np.maximum(TABLE_I // 16, (TABLE_I > 0).astype(np.int64) * 2)
 ARCH = "squeezenet-dr"

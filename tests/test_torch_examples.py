@@ -11,7 +11,6 @@ import ast
 import importlib.util
 import json
 import math
-import os
 import subprocess
 import sys
 from pathlib import Path
@@ -20,19 +19,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_parity import pin_torch_threads, subprocess_env  # noqa: E402
+
+pin_torch_threads()
+
 ROOT = Path(__file__).resolve().parents[1]
 EXAMPLES = ("quickstart", "paper_tables", "serve_batched", "train_lm_e2e", "multi_pod_dryrun")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread for this module's torch work, restored after
-    it (see tests/test_torch_grid.py: beside the suite's parallel
-    workers a pool as wide as the machine is 20-100x slower here)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _load(name: str):
@@ -111,8 +103,7 @@ def _multi_pod_dryrun(monkeypatch, capsys, tmp_path):
     res = subprocess.run([sys.executable, "-c", _DRYRUN_SCRIPT,
                           str(ROOT / "examples" / "multi_pod_dryrun_torch.py"), str(tmp_path)],
                          cwd=ROOT, capture_output=True, text=True, timeout=300,
-                         env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
-                              "OMP_NUM_THREADS": "1"})
+                         env={**subprocess_env(), "PYTHONPATH": str(ROOT / "src")})
     assert res.returncode == 0, res.stderr[-3000:]
     recs = json.loads(res.stdout.split("RECORDS ", 1)[1])
     assert recs == [["16x16", True, recs[0][2]]]

@@ -25,6 +25,9 @@ from repro_torch.kernels import flash_attention as k_attn  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.models import attention  # noqa: E402
 from repro_torch.models.layers import apply_rope  # noqa: E402
+from torch_parity import pin_torch_threads  # noqa: E402
+
+pin_torch_threads()
 
 # tests/test_kernels.py's FLASH_CASES: B, H, KV, S, D, causal, window, bq, bk
 FLASH_CASES = [

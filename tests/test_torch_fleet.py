@@ -55,7 +55,9 @@ from repro_torch.serve import BucketSpec  # noqa: E402
 from repro_torch.utils.collectives import CENSUS  # noqa: E402
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_paths_and_leaves, tree_stack  # noqa: E402
 from torch_fleet_workers import three_ranks, two_ranks  # noqa: E402
-from torch_parity import jax_kmeans_init_idx  # noqa: E402
+from torch_parity import jax_kmeans_init_idx, pin_torch_threads  # noqa: E402
+
+pin_torch_threads()
 
 N = 8
 SMALL_TABLE = np.maximum(TABLE_I // 16, (TABLE_I > 0).astype(np.int64) * 2)[:, :N]
@@ -80,17 +82,6 @@ PRESENT = np.array([1, 0, 1, 1, 1, 1, 0, 1], bool)
 AGG_PRESENT = np.array([1, 1, 1, 0, 1, 1, 1, 0], bool)
 DECAY = np.array([1.0, 0.5, 1.0, 0.25, 1.0, 1.0, 0.5, 0.0], np.float32)
 RUN = dict(local_steps=LOCAL_STEPS, batch_size=BATCH, seed=0)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread for this module's torch work, restored after
-    it (beside the suite's parallel workers a pool as wide as the
-    machine is many times slower)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

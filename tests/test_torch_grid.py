@@ -42,7 +42,9 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.optim.optimizers import make_optimizer  # noqa: E402
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_paths_and_leaves  # noqa: E402
-from torch_parity import jax_bso_draws, jax_kmeans_init_idx  # noqa: E402
+from torch_parity import jax_bso_draws, jax_kmeans_init_idx, pin_torch_threads  # noqa: E402
+
+pin_torch_threads()
 
 SMALL_TABLE = np.maximum(TABLE_I // 16, (TABLE_I > 0).astype(np.int64) * 2)
 N = TABLE_I.shape[1]
@@ -100,18 +102,6 @@ def _assert_runs_equal(a, b, what):
     assert _equal_trees(sa.opt_state, sb.opt_state), f"{what}: optimizer state"
     for f, x, y in zip(teng.RoundMetrics._fields, ma, mb):
         assert torch.equal(x, y), f"{what}: {f}"
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One intra-op thread for this module's torch work, restored after
-    it: beside the suite's parallel workers a pool as wide as the
-    machine waits at every op's barrier for preempted threads, and a
-    round here is thousands of small ops (20-100x slower measured)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -42,6 +42,9 @@ from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.attention import to_cache_dtype  # noqa: E402
 from repro_torch.serve import BucketSpec  # noqa: E402
 from repro_torch.utils.tree import tree_leaves, tree_stack  # noqa: E402
+from torch_parity import pin_torch_threads  # noqa: E402
+
+pin_torch_threads()
 
 # each storage type as numpy (ml_dtypes) holds it, and the unsigned view
 # that carries its bytes into torch unchanged

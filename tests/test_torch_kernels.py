@@ -18,6 +18,9 @@ from repro_torch.kernels import kmeans_assign as k_assign  # noqa: E402
 from repro_torch.kernels import param_stats as k_stats  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.utils.tree import tree_paths_and_leaves  # noqa: E402
+from torch_parity import pin_torch_threads  # noqa: E402
+
+pin_torch_threads()
 
 
 def _bf16_from_torch(x):

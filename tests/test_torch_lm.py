@@ -27,6 +27,9 @@ from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import ModelConfig, get_config  # noqa: E402
 from repro_torch.models import attention, build_model, layers, transformer  # noqa: E402
 from repro_torch.utils.tree import tree_map, tree_paths_and_leaves  # noqa: E402
+from torch_parity import pin_torch_threads  # noqa: E402
+
+pin_torch_threads()
 
 ARCH = "granite-3-2b"
 

@@ -28,7 +28,9 @@ from repro_torch.core.diststats import swarm_distribution_matrix  # noqa: E402
 from repro_torch.core.swarm import SwarmTrainer  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.utils.tree import tree_paths_and_leaves  # noqa: E402
-from torch_parity import assert_lm_round_matches_reference  # noqa: E402
+from torch_parity import assert_lm_round_matches_reference, pin_torch_threads  # noqa: E402
+
+pin_torch_threads()
 
 ARCH = "granite-3-2b"
 N_CLIENTS = 6

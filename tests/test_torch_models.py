@@ -19,6 +19,9 @@ from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
 from repro_torch.utils.tree import tree_paths_and_leaves  # noqa: E402
+from torch_parity import pin_torch_threads  # noqa: E402
+
+pin_torch_threads()
 
 ARCHS = ["squeezenet-dr", "alexnet-dr", "vgg-dr", "inception-dr"]
 

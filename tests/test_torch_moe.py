@@ -36,6 +36,9 @@ from repro_torch.models import attention, build_model, moe  # noqa: E402
 from repro_torch.serve import BucketSpec  # noqa: E402
 from repro_torch.serve.engine import serving_params  # noqa: E402
 from repro_torch.utils.tree import tree_leaves, tree_paths_and_leaves  # noqa: E402
+from torch_parity import pin_torch_threads  # noqa: E402
+
+pin_torch_threads()
 
 ARCHS = ["kimi-k2-1t-a32b", "llama4-maverick-400b-a17b"]
 BUCKETS = (BucketSpec(batch=2, seq=16), BucketSpec(batch=2, seq=48))

@@ -24,6 +24,9 @@ from repro_torch.models import build_model  # noqa: E402
 from repro_torch.optim.optimizers import make_optimizer  # noqa: E402
 from repro_torch.train.steps import make_eval_step, make_train_step  # noqa: E402
 from repro_torch.utils.tree import tree_paths_and_leaves  # noqa: E402
+from torch_parity import pin_torch_threads  # noqa: E402
+
+pin_torch_threads()
 
 N_CLIENTS = 3
 LR = 2e-3

@@ -1,6 +1,8 @@
 """The port's package as a whole: it imports neither JAX nor the JAX
 package, its configs match the reference's, the bridge round-trips,
-and its entry points refuse to fall back to the CPU."""
+its entry points refuse to fall back to the CPU, it covers the
+reference's public names, and every port test module pins its torch
+pool."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -24,6 +26,9 @@ from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import REGISTRY, OptimizerConfig, SwarmConfig, get_config  # noqa: E402
 from repro_torch.utils.device import resolve_device  # noqa: E402
 from repro_torch.utils.tree import tree_paths_and_leaves  # noqa: E402
+from torch_parity import pin_torch_threads, subprocess_env, torch_thread_share  # noqa: E402
+
+pin_torch_threads()
 
 SRC = Path(__file__).resolve().parent.parent / "src"
 ARCHS = ["squeezenet-dr", "alexnet-dr", "vgg-dr", "inception-dr"]
@@ -40,7 +45,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "print(len(names), bad)\n"
         "assert not bad, bad\n")
-    env = dict(os.environ, PYTHONPATH=str(SRC))
+    env = {**subprocess_env(), "PYTHONPATH": str(SRC)}
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -164,10 +169,16 @@ import ast  # noqa: E402
 
 REF = SRC / "repro"
 PORT = SRC / "repro_torch"
-# a reference name that the port module of the same path does not define:
+# a reference name ("name", or "Class.method" for a public method of a
+# public class) that the port module of the same path does not define:
 # its port name as "module path:name", or why the port has none
 SURFACE_MAP = {
     "core/bso.py": {"brain_storm_jax": "core/bso.py:brain_storm"},
+    "core/engine.py": {
+        "BucketedSwarmData.tree_flatten": "none: JAX's pytree hook, to pass the layout "
+                                          "through jit; torch needs none",
+        "BucketedSwarmData.tree_unflatten": "none: JAX's pytree hook, to pass the layout "
+                                            "through jit; torch needs none"},
     "kernels/ref.py": {"ref_attention": "kernels/ref.py:attention",
                        "ref_decode_attention": "kernels/ref.py:decode_attention",
                        "ref_kmeans_assign": "kernels/ref.py:kmeans_assign",
@@ -187,18 +198,15 @@ SURFACE_MAP = {
 }
 
 
-def _public_defs(path: Path) -> set:
-    tree = ast.parse(path.read_text())
-    return {n.name for n in tree.body
-            if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef))
-            and not n.name.startswith("_")}
+_DEFS = (ast.FunctionDef, ast.AsyncFunctionDef)
 
 
-def _defined(path: Path) -> set:
-    """Every name a module binds at its top level."""
+def _bound(body) -> set:
+    """The names a module or class body binds: defs, classes, assignments
+    and imports."""
     out = set()
-    for n in ast.parse(path.read_text()).body:
-        if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+    for n in body:
+        if isinstance(n, (*_DEFS, ast.ClassDef)):
             out.add(n.name)
         elif isinstance(n, ast.Assign):
             out.update(t.id for t in n.targets if isinstance(t, ast.Name))
@@ -209,17 +217,44 @@ def _defined(path: Path) -> set:
     return out
 
 
+def _public_defs(path: Path) -> set:
+    """Public top-level defs and classes, and "Class.method" for each
+    public method (properties included) of a public class."""
+    out = set()
+    for n in ast.parse(path.read_text()).body:
+        if isinstance(n, (*_DEFS, ast.ClassDef)) and not n.name.startswith("_"):
+            out.add(n.name)
+            if isinstance(n, ast.ClassDef):
+                out.update(f"{n.name}.{m.name}" for m in n.body
+                           if isinstance(m, _DEFS) and not m.name.startswith("_"))
+    return out
+
+
+def _defined(path: Path) -> set:
+    """Every name a module binds at its top level, and "Class.name" for
+    every name a class body binds (a method or a field)."""
+    tree = ast.parse(path.read_text())
+    out = _bound(tree.body)
+    for n in tree.body:
+        if isinstance(n, ast.ClassDef):
+            out.update(f"{n.name}.{m}" for m in _bound(n.body))
+    return out
+
+
 @pytest.mark.parametrize("module", sorted(str(p.relative_to(REF)) for p in REF.rglob("*.py")))
 def test_port_covers_every_public_name_of_the_reference(module):
-    """Every public def / class of ``src/repro/<module>`` (read with
-    ``ast``) is defined by ``src/repro_torch/<module>`` or named in
-    :data:`SURFACE_MAP`, with a port name that exists or the reason it
-    has none."""
+    """Every public def / class of ``src/repro/<module>``, and every
+    public method of such a class (read with ``ast``), is defined by
+    ``src/repro_torch/<module>`` (the method in the class of the same
+    name) or named in :data:`SURFACE_MAP`, with a port name that exists
+    or the reason it has none. A class named there answers for its
+    methods."""
     port = PORT / module
     assert port.is_file(), f"{module} has no port module"
     have = _defined(port)
     mapped = SURFACE_MAP.get(module, {})
-    missing = sorted(_public_defs(REF / module) - have - set(mapped))
+    missing = sorted(n for n in _public_defs(REF / module) - have - set(mapped)
+                     if n.split(".")[0] not in mapped)
     assert not missing, f"{module}: {missing} neither ported nor mapped"
     for name, where in mapped.items():
         assert name not in have, f"{module}: {name} is ported; drop it from SURFACE_MAP"
@@ -227,6 +262,49 @@ def test_port_covers_every_public_name_of_the_reference(module):
             continue
         mod, port_name = where.split(":")
         assert port_name in _defined(PORT / mod), f"{module}: {name} -> {where} does not exist"
+
+
+# ------------------------------------------------------------ the thread pool
+
+def test_every_port_test_module_pins_torch_threads_at_import():
+    """Every ``tests/test_torch_*.py`` imports ``pin_torch_threads`` from
+    ``torch_parity`` and calls it in its module body, and none sets
+    torch's pool itself: each pytest worker runs on one pool sized to
+    its share of the cores, whichever module it imports first."""
+    files = sorted(Path(__file__).resolve().parent.glob("test_torch_*.py"))
+    assert len(files) >= 30
+    for path in files:
+        tree = ast.parse(path.read_text())
+        imported = any(isinstance(n, ast.ImportFrom) and n.module == "torch_parity"
+                       and "pin_torch_threads" in {a.name for a in n.names if a.asname is None}
+                       for n in tree.body)
+        called = any(isinstance(n, ast.Expr) and isinstance(n.value, ast.Call)
+                     and isinstance(n.value.func, ast.Name)
+                     and n.value.func.id == "pin_torch_threads" for n in tree.body)
+        assert imported and called, f"{path.name} does not call pin_torch_threads() at import"
+        resized = [n.lineno for n in ast.walk(tree) if isinstance(n, ast.Call)
+                   and isinstance(n.func, ast.Attribute)
+                   and n.func.attr in ("set_num_threads", "set_num_interop_threads")]
+        assert not resized, f"{path.name}:{resized} sizes torch's pool itself"
+
+
+def test_torch_pool_is_the_workers_share(monkeypatch):
+    """The pool is this process's share of its cores over the xdist
+    workers (1 thread each under ``-n 6`` on 8 cores; the whole machine
+    without xdist), pinning again leaves it so, the share never falls
+    below one thread, and a process a test starts gets one thread."""
+    cores = len(os.sched_getaffinity(0))
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    assert torch.get_num_threads() == torch_thread_share() == max(1, cores // workers)
+    assert pin_torch_threads() == torch.get_num_threads() == max(1, cores // workers)
+    monkeypatch.setenv("PYTEST_XDIST_WORKER_COUNT", "6")
+    assert torch_thread_share() == max(1, cores // 6)
+    monkeypatch.setenv("PYTEST_XDIST_WORKER_COUNT", str(4 * cores))
+    assert torch_thread_share() == 1
+    monkeypatch.delenv("PYTEST_XDIST_WORKER_COUNT")
+    assert torch_thread_share() == cores
+    assert subprocess_env({"PATH": "/bin"}) == {"PATH": "/bin", "OMP_NUM_THREADS": "1"}
+    assert subprocess_env()["OMP_NUM_THREADS"] == "1"
 
 
 _TREE = {"a": np.arange(6, dtype=np.float32).reshape(2, 3),

@@ -26,6 +26,9 @@ from repro_torch.launch.serve import prefill_into_cache, run_serve  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serve import (BucketSpec, ImageClassifier, Request, ServeEngine,  # noqa: E402
                                SlotScheduler, default_bucket_layout)
+from torch_parity import pin_torch_threads  # noqa: E402
+
+pin_torch_threads()
 
 BUCKETS = (BucketSpec(batch=2, seq=16), BucketSpec(batch=2, seq=48))
 
@@ -251,6 +254,22 @@ def test_image_classifier_matches_reference():
     assert [o.label for o in out] == [o.label for o in ref]
     np.testing.assert_allclose([o.confidence for o in out], [o.confidence for o in ref],
                                rtol=0, atol=1e-5)
+
+
+def test_image_classifier_compile_counts_match_reference():
+    """Two drains over buckets (1, 4, 8): each bucket in use counts 1,
+    as the reference's per-bucket programs do, and b8, never used, 0."""
+    jm = jax_build_model(jax_get_config("squeezenet-dr"))
+    jp = jm.init(jax.random.PRNGKey(1))
+    tm = build_model(get_config("squeezenet-dr"))
+    tp = bridge.params_from_numpy(jax.tree.map(np.asarray, jp))
+    imgs = np.random.default_rng(0).normal(size=(6, 32, 32, 3)).astype(np.float32)
+    ref = jax_serve.ImageClassifier(jm, jp, (1, 4, 8))
+    clf = ImageClassifier(tm, tp, (1, 4, 8), device="cpu")
+    for n in (6, 5):
+        ref.classify([jax_serve.Request(rid=i, image=imgs[i]) for i in range(n)])
+        clf.classify([Request(rid=i, image=imgs[i]) for i in range(n)])
+    assert clf.compile_counts() == ref.compile_counts() == {"b1": 1, "b4": 1, "b8": 0}
 
 
 @pytest.mark.parametrize("client", ["mean", "client:2"])

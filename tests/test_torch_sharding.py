@@ -33,6 +33,9 @@ from repro_torch.sharding import (build_param_specs, logical_axes_for_path, shar
                                   spec_for, use_sharding)
 from repro_torch.sharding import rules  # noqa: E402
 from repro_torch.utils.tree import tree_paths_and_leaves  # noqa: E402
+from torch_parity import pin_torch_threads, subprocess_env  # noqa: E402
+
+pin_torch_threads()
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -244,7 +247,7 @@ def test_shard_act_and_distribute_under_a_fake_process_group():
     params; the flattened pod x data view of the 2x16x16 mesh. In a
     subprocess: a process group is process-wide."""
     out = subprocess.run([sys.executable, "-c", _FAKE_PG_SCRIPT], cwd=ROOT, capture_output=True,
-                         text=True, timeout=300)
+                         text=True, timeout=300, env=subprocess_env())
     assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr[-3000:]
 
 

@@ -37,7 +37,9 @@ from repro_torch.serve import BucketSpec, ServeEngine  # noqa: E402
 from repro_torch.utils.tree import tree_leaves, tree_paths_and_leaves  # noqa: E402
 from torch.utils import _pytree as pytree  # noqa: E402
 from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
-from torch_parity import assert_lm_round_matches_reference  # noqa: E402
+from torch_parity import assert_lm_round_matches_reference, pin_torch_threads  # noqa: E402
+
+pin_torch_threads()
 
 ARCHS = ["mamba2-370m", "zamba2-1.2b"]
 S = 16

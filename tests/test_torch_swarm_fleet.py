@@ -14,7 +14,6 @@ on uneven and empty shards; ``lower_fleet_round``'s census on a fake
 process-wide); and ``fleet_setup``'s refusals.
 """
 import json
-import os
 import pickle
 import subprocess
 import sys
@@ -44,7 +43,9 @@ from repro_torch.models import build_model  # noqa: E402
 from repro_torch.optim.optimizers import make_optimizer  # noqa: E402
 from repro_torch.utils.tree import tree_paths_and_leaves  # noqa: E402
 from torch_fleet_workers import placed_fleet  # noqa: E402
-from torch_parity import jax_kmeans_init_idx  # noqa: E402
+from torch_parity import jax_kmeans_init_idx, pin_torch_threads, subprocess_env  # noqa: E402
+
+pin_torch_threads()
 
 ARCH = "granite-3-2b"
 N = 4
@@ -87,7 +88,7 @@ def test_fleet_inner_rules_match_reference():
 def census_proc():
     """:data:`_CENSUS_CODE` started in a subprocess at once, so that it
     runs beside the spawned ranks (a process group is process-wide)."""
-    env = dict(os.environ, PYTHONPATH=str(SRC))
+    env = {**subprocess_env(), "PYTHONPATH": str(SRC)}
     proc = subprocess.Popen([sys.executable, "-c", _CENSUS_CODE], env=env, text=True,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE)
     yield proc

@@ -28,6 +28,9 @@ from repro.models import build_model as jax_build_model  # noqa: E402
 from repro_torch.configs import OptimizerConfig, SwarmConfig, get_config  # noqa: E402
 from repro_torch.core.baselines import run_sweep_table  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from torch_parity import pin_torch_threads  # noqa: E402
+
+pin_torch_threads()
 
 SEEDS = range(5)
 ROWS = ("local", "bso-sl")

@@ -10,6 +10,9 @@ import numpy as np  # noqa: E402
 
 from repro.data import tokens as jax_tokens  # noqa: E402
 from repro_torch.data import tokens  # noqa: E402
+from torch_parity import pin_torch_threads  # noqa: E402
+
+pin_torch_threads()
 
 
 @pytest.mark.parametrize("vocab,client,seed", [(32, 0, 0), (64, 1, 3), (512, 5, 7),

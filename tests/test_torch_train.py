@@ -31,6 +31,9 @@ from repro_torch.optim.optimizers import make_optimizer  # noqa: E402
 from repro_torch.optim.schedules import make_schedule  # noqa: E402
 from repro_torch.train.steps import make_train_step  # noqa: E402
 from repro_torch.utils.tree import tree_map, tree_paths_and_leaves  # noqa: E402
+from torch_parity import pin_torch_threads  # noqa: E402
+
+pin_torch_threads()
 
 # ------------------------------------------------------------------ schedules
 

@@ -1,16 +1,58 @@
-"""Shared helpers of the port's parity tests (``test_torch_*.py``): the
-reference's random draws, rebuilt from its JAX keys exactly as the
-reference derives them, handed to the port as plain arrays."""
+"""Shared helpers of the port's tests (``test_torch_*.py``): the torch
+thread pool each test process runs on, and the reference's random
+draws, rebuilt from its JAX keys exactly as the reference derives them,
+handed to the port as plain arrays. JAX is imported inside the helpers
+that use it, so that ``test_torch_cuda.py`` (run where JAX is not
+installed) can import this module for :func:`pin_torch_threads`."""
 import functools
+import os
 
-import jax
-import jax.numpy as jnp
 import numpy as np
+
+
+def torch_thread_share() -> int:
+    """This process's share of the cores: the cores it may run on over
+    the pytest-xdist workers that run beside it (1 without xdist)."""
+    cores = (len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity")
+             else os.cpu_count() or 1)
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    return max(1, cores // workers)
+
+
+def pin_torch_threads() -> int:
+    """Size torch's intra-op pool to :func:`torch_thread_share` and return
+    it. Every ``test_torch_*.py`` calls this at import: pytest imports
+    every test module of a worker at collection, so the pool is set once
+    for the worker's whole session, whichever module runs first.
+
+    The suite runs under ``pytest -n``: parallel workers, each with a
+    pool as wide as the machine by default (48 threads for 6 workers on
+    8 cores). A vmapped round is thousands of small ops, and each waits
+    at the pool's barrier for threads that the other workers have
+    preempted, so a round that takes seconds alone took minutes in the
+    suite, and the spinning pools slowed the reference's JAX tests on
+    the other workers too. Idempotent; the inter-op pool is left as it
+    is (it cannot be resized once started)."""
+    import torch
+
+    n = torch_thread_share()
+    if torch.get_num_threads() != n:
+        torch.set_num_threads(n)
+    return n
+
+
+def subprocess_env(env=None) -> dict:
+    """``env`` (default ``os.environ``) with one OpenMP thread, for a
+    process a port test starts: it runs beside the other workers too."""
+    return {**(os.environ if env is None else env), "OMP_NUM_THREADS": "1"}
 
 
 def jax_bso_draws(key, k: int, n: int):
     """(r1, g, r2, g2) as ``repro.core.bso.brain_storm_jax`` draws them
     from ``key`` (bso.py, the split and per-cluster fold_in draws)."""
+    import jax
+    import jax.numpy as jnp
+
     k_rep, k_member, k_swap, k_other = jax.random.split(key, 4)
     ids = jnp.arange(k, dtype=jnp.uint32)
     r1 = jax.vmap(lambda c: jax.random.uniform(jax.random.fold_in(k_rep, c)))(ids)
@@ -29,6 +71,8 @@ def jax_kmeans_init_idx(key, X, k: int, mask=None, weights=None) -> np.ndarray:
     looked up among the eligible rows only (positive weight, present),
     and the match must be unique: summary rows can coincide, and a
     zero-weight copy of an eligible row must not be taken for it."""
+    import jax.numpy as jnp
+
     from repro.core.kmeans import kmeans_pp_init
     C0 = np.asarray(kmeans_pp_init(key, jnp.asarray(X), k,
                                    mask=None if mask is None else jnp.asarray(mask, bool),
@@ -50,6 +94,8 @@ def jax_kmeans_init_idx(key, X, k: int, mask=None, weights=None) -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def _jit_pod_summaries():
+    import jax
+
     from repro.core.engine import pod_summaries
     return jax.jit(pod_summaries, static_argnums=(4, 5, 7))
 
@@ -65,6 +111,8 @@ def jax_hier_keys(k_kmeans, n_pods: int):
     derives them from the round's k-means key
     (``engine._hier_coordinate_and_aggregate``): ``k_pods, k_global =
     split(k_kmeans)``, and pod p seeds from ``fold_in(k_pods, p)``."""
+    import jax
+
     k_pods, k_global = jax.random.split(k_kmeans)
     return [jax.random.fold_in(k_pods, p) for p in range(n_pods)], k_global
 
@@ -78,6 +126,9 @@ def jax_hier_draws(k_kmeans, k_bso, feats, present, pods, k_local: int, k: int,
     in the reference's own summaries (``pod_summaries`` from the same
     pod key, its weights the member counts); ``feats`` are the round's
     (N, F) stats after the local phase."""
+    import jax
+    import jax.numpy as jnp
+
     feats = np.asarray(feats)
     pod_keys, k_global = jax_hier_keys(k_kmeans, len(pods))
     pod_idx = np.stack([
@@ -103,6 +154,8 @@ def assert_lm_round_matches_reference(jcfg, cfg, clients, *, k: int, lr: float, 
     logit tie flips), assignments, centers and events equal, train loss
     (the router's aux included for moe) within 1e-4 relative, params
     within atol 1e-4 (5% of one adam step at lr 2e-3)."""
+    import jax
+    import jax.numpy as jnp
     import torch
 
     from repro.configs.base import OptimizerConfig as JaxOptimizerConfig
