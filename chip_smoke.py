@@ -1000,10 +1000,12 @@ def _leaves(tree):
 
 def device_busy_us(prof):
     """(microseconds in which at least one kernel ran, the kernel spans)
-    of a ``torch.profiler`` trace."""
+    of a ``torch.profiler`` trace; the device-side copies of the
+    program's ``record_function`` spans are not kernels."""
     from torch.autograd import DeviceType
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
     busy_us, end = 0.0, float("-inf")
     for a, b in spans:
         if b > end:

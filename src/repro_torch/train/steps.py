@@ -15,6 +15,7 @@ from torch.func import grad_and_value
 from repro_torch.models.model import Model, argmax_last
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.sharding import shard_act
+from repro_torch.utils.trace import span
 from repro_torch.utils.tree import tree_map
 
 
@@ -24,8 +25,14 @@ def make_train_step(model: Model, opt: Optimizer, *, microbatches: int = 0):
     axis 0 into that many equal microbatches, whose gradients and
     metrics are summed in a Python loop and divided by the count before
     one optimizer update (gradient accumulation: activation memory of one
-    microbatch)."""
-    grad_fn = grad_and_value(model.loss, has_aux=True)
+    microbatch). The step opens the spans ``train.gradient`` (the
+    forward and backward), ``train.forward`` inside it and
+    ``train.optimizer`` (:mod:`repro_torch.utils.trace`)."""
+    def loss(params, batch):
+        with span("train.forward"):
+            return model.loss(params, batch)
+
+    grad_fn = grad_and_value(loss, has_aux=True)
 
     def accumulate(params, batch):
         n = microbatches
@@ -41,11 +48,13 @@ def make_train_step(model: Model, opt: Optimizer, *, microbatches: int = 0):
         return tree_map(lambda g: g / n, g_sum), tree_map(lambda m: m / n, m_sum)
 
     def train_step(params, opt_state, batch, lr):
-        if microbatches and microbatches > 1:
-            grads, metrics = accumulate(params, batch)
-        else:
-            grads, (_, metrics) = grad_fn(params, batch)
-        new_params, new_opt = opt.update(grads, opt_state, params, lr)
+        with span("train.gradient"):
+            if microbatches and microbatches > 1:
+                grads, metrics = accumulate(params, batch)
+            else:
+                grads, (_, metrics) = grad_fn(params, batch)
+        with span("train.optimizer"):
+            new_params, new_opt = opt.update(grads, opt_state, params, lr)
         return new_params, new_opt, metrics
 
     return train_step

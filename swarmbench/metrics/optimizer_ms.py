@@ -1,0 +1,10 @@
+"""optimizer_ms: the device time (ms) of one profiled round's kernels
+launched inside the program's ``train.optimizer`` spans: each local
+step's gradient clip and adam update, vmapped over the clients."""
+from swarmbench.harness import program_spans
+
+facts = program_spans.facts
+
+
+def read(summary):
+    return program_spans.per_round(summary, "train.optimizer", "device_ms")
